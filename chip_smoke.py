@@ -17,15 +17,30 @@ no result line):
    make_backend("auto") on cuda; per-round values equal to those of
    the JAX package, every captured transport solve re-solved by the
    plain version with the same bits, and the kernel's launch count;
-5. timing of every kernel at the main path's shapes (CUDA events)
-   beside its plain version and its bound, then the `kernels` line and
-   the result line.
+5. timing of the transport kernel at the main path's shapes (CUDA
+   events) beside its plain version and its bound;
+6. tiered kernel parity: the tiered transport kernel against its plain
+   PyTorch version on the card, bit for bit, on seeded instances with
+   random resident tiles;
+7. the device-resident path: coco50k-preempt (50k tasks on 1k machines,
+   CoCo, preemption on with a full tiered re-solve every round) through
+   DeviceBulkCluster on cuda — the fill and 4 host-driven rounds, each
+   round's values and the final placements equal to those of the JAX
+   package, the tiered kernel's launch count, the fill's and two later
+   captured solves re-solved by the plain version with the same bits;
+   then coco50k (preemption off: the transport kernel) and 10kx1k (the
+   closed form: no kernel) likewise, and 32 steady churn rounds of
+   coco50k-preempt on a torch.Generator with the occupancy invariants
+   held;
+8. timing of the tiered kernel at its captured shapes beside its plain
+   version and its bound, then the `kernels` line and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -50,6 +65,40 @@ REF_W_SMALL = {
     "objective": [0, 0, 166, 76756],
 }
 
+# DeviceBulkCluster scenarios (drivers/device_bulk.py: the fill, then
+# host-driven rounds), per round, as produced by the JAX package
+# (ksched_tpu DeviceBulkCluster with the same constructor arguments and
+# the same host-driven sequence, on the CPU; tests/torch_device_bulk_reference.py),
+# with the sha256 of the final `pu` array (int32 bytes).
+REF_BULK = {
+    "coco50k-preempt": {
+        "placed": [50000, 500, 500, 500, 500],
+        "migrated": [0, 49398, 49036, 49407, 49129],
+        "preempted": [0, 0, 0, 0, 0],
+        "unscheduled": [0, 0, 0, 0, 0],
+        "objective": [254504, 1747299, 1478165, 1304970, 1410419],
+        "supersteps": [527, 2898, 7411, 6585, 4571],
+        "converged": [1, 1, 1, 1, 1],
+        "pu_sha256": "ad34f333b515aad6ced7cb817e6f77bea04f86b85f58858332ba0d6aabf61317",
+    },
+    "coco50k": {
+        "placed": [50000, 500, 500],
+        "unscheduled": [0, 0, 0],
+        "objective": [254504, 5490, 5406],
+        "supersteps": [405, 93, 85],
+        "converged": [1, 1, 1],
+        "pu_sha256": "d90b9b0fda8c4fa5eeba610d24e2563de2b2ed668f3d6a9da287d72733bb6361",
+    },
+    "10kx1k": {
+        "placed": [10000, 100, 100],
+        "unscheduled": [0, 0, 0],
+        "objective": [20000, 200, 200],
+        "supersteps": [0, 0, 0],
+        "converged": [1, 1, 1],
+        "pu_sha256": "880c6eda2ff26eca0b50254549715dbc2c2cee21be58afe5ef2aa9efbed05426",
+    },
+}
+
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
 # 3.35 TB/s; int32 ALU work outside the tensor cores at 64 INT32 lanes
 # per SM x 132 SMs x 1.98 GHz boost = 16.7 TOP/s (the same basis as
@@ -64,6 +113,17 @@ OPS_PER_CELL_STEP = 38
 # per cell of one phase start (transport_saturate: reduced cost 2,
 # two compares and two selects 4)
 OPS_PER_CELL_PHASE = 6
+# The tiered solve, counted in solver/layered.py the same way, per
+# [C, Mp] cell: transport_superstep_tiered 73 (excesses 2, tier split 2,
+# two reduced costs 4, tier residuals with U 4, forward admissibility
+# and push 14, two backward reduced costs 4, backward admissibility 8,
+# the two-tier column prefix 8, backward pushes 7, flow update 2,
+# relabel candidates and push tests 18); a phase start
+# (transport_saturate_eps_tiered) 17; a price-refine wave
+# (_price_refine_tiered) 25.
+OPS_PER_CELL_STEP_TIERED = 73
+OPS_PER_CELL_PHASE_TIERED = 17
+OPS_PER_CELL_WAVE_TIERED = 25
 
 
 class Failed(Exception):
@@ -97,7 +157,13 @@ def random_instance(seed, C, Mp):
     """A padded transport instance in the form the dense path emits:
     scaled costs, a zero-cost unsched column of capacity sum(supply),
     padded columns of capacity 0. The real machine count is drawn so
-    that pad_geometry gives exactly Mp."""
+    that pad_geometry gives exactly Mp. Returns (wS, supply, col_cap,
+    n_scale)."""
+    return random_instance_m(seed, C, Mp)[:4]
+
+
+def random_instance_m(seed, C, Mp):
+    """random_instance and its real machine count M."""
     from ksched_tpu_torch.solver.layered import pad_geometry
 
     rng = np.random.default_rng(seed)
@@ -111,7 +177,22 @@ def random_instance(seed, C, Mp):
     col_cap = np.zeros(Mp, np.int32)
     col_cap[:M] = rng.integers(0, 25, M).astype(np.int32)
     col_cap[-1] = supply.sum()
-    return wS, supply, col_cap, n_scale
+    return wS, supply, col_cap, n_scale, M
+
+
+def random_tiered_instance(seed, C, Mp):
+    """A tiered instance: random_instance's costs as the dear tier wHi,
+    a random continuation discount of 1-11 cost units off every real
+    column for the cheap tier wLo, and a random resident tile R (0-5 per
+    cell, none on the escape column). Returns (wLo, wHi, R, supply,
+    col_cap)."""
+    wS, supply, col_cap, n_scale, M = random_instance_m(seed, C, Mp)
+    rng = np.random.default_rng(seed + 77)
+    wLo = wS.copy()
+    wLo[:, :M] -= int(rng.integers(1, 12)) * n_scale
+    R = rng.integers(0, 6, (C, Mp)).astype(np.int32)
+    R[:, -1] = 0
+    return wLo, wS, R, supply, col_cap
 
 
 def on(dev, *arrays):
@@ -180,30 +261,32 @@ def phase_parity(dev):
 
 
 class Recorder:
-    """Wraps ops.transport_solve for the main path: records each
-    solve's inputs and outputs, and its kernel time from CUDA events."""
+    """Wraps ops.<name> (a solve entry point) for a run of the main
+    path: records each solve's inputs and outputs, and its kernel time
+    from CUDA events."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, name="transport_solve"):
         self.ops = ops
-        self.inner = ops.transport_solve
+        self.name = name
+        self.inner = getattr(ops, name)
         self.calls = []
 
     def __enter__(self):
-        self.ops.transport_solve = self
+        setattr(self.ops, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.ops.transport_solve = self.inner
+        setattr(self.ops, self.name, self.inner)
 
-    def __call__(self, wS, supply, col_cap, eps_init, pm0=None, **kw):
+    def __call__(self, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.inner(wS, supply, col_cap, eps_init, pm0, **kw)
+        out = self.inner(*args, **kw)
         end.record()
         self.calls.append({
-            "args": (wS.clone(), supply.clone(), col_cap.clone(), int(eps_init),
-                     None if pm0 is None else pm0.clone()),
+            "args": tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args),
             "kw": dict(kw), "out": tuple(t.clone() for t in out),
             "events": (start, end),
         })
@@ -213,6 +296,34 @@ class Recorder:
         torch.cuda.synchronize()
         return sum(c["events"][0].elapsed_time(c["events"][1])
                    for c in self.calls[first:])
+
+
+class EventTimer:
+    """Wraps a callable: CUDA events around each call, summed on
+    request. `wrap(fn)` times another callable into the same sum."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.events = []
+
+    def __call__(self, *args, **kw):
+        return self.wrap(self.fn)(*args, **kw)
+
+    def wrap(self, fn):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        return timed
+
+    def ms(self, first=0):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events[first:])
 
 
 def phase_reference(dev):
@@ -302,42 +413,55 @@ def phase_main(dev):
     return launches, worst, rec.calls
 
 
+def eps_phases(eps, alpha):
+    """The eps phases after the first that a solve from eps runs."""
+    phases, e = 0, int(eps)
+    while e > 1:
+        e = max(1, e // alpha)
+        phases += 1
+    return phases
+
+
+def bound_ms(nbytes, ops_n):
+    """(bytes bound, operations bound) in ms: the bytes over the card's
+    memory rate, the int32 operations over its int32 rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops_n / INT32_OPS_PER_S * 1e3
+
+
+def timed_ms(fn, n):
+    """Mean CUDA-event time of n calls of fn after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def phase_timing(calls, reps=10):
     """Kernel and plain times per main-path solve (CUDA events), and
     the bound for the same work."""
     from ksched_tpu_torch.ops.transport import transport_loop
     from ksched_tpu_torch.solver.layered import _solve_transport
 
-    def timed(fn, n):
-        fn()  # warm up
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
     tot_k = tot_p = tot_b = 0.0
     by = {"bytes": 0.0, "operations": 0.0}
     for i, c in enumerate(calls):
-        wS, supply, col_cap, eps, pm0 = c["args"]
+        wS, supply, col_cap, eps, *rest = c["args"]
+        pm0 = rest[0] if rest else None
         kw = c["kw"]
         C, Mp = wS.shape
         steps = int(c["out"][2])
         # bound: bytes moved once vs int32 operations this data needs
         nbytes = 4 * (2 * C * Mp + C + 2 * Mp + (Mp if pm0 is not None else 0) + 2)
-        phases = 0
-        e = eps
-        while e > 1:
-            e = max(1, e // kw.get("alpha", 8))
-            phases += 1
-        ops_n = C * Mp * (OPS_PER_CELL_STEP * steps + OPS_PER_CELL_PHASE * phases)
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = ops_n / INT32_OPS_PER_S * 1e3
-        k_ms = timed(lambda: transport_loop(wS, supply, col_cap, eps, pm0, **kw), reps)
-        p_ms = timed(lambda: _solve_transport(wS, supply, col_cap, eps, pm0, **kw), 1)
+        phases = eps_phases(eps, kw.get("alpha", 8))
+        b_bytes, b_ops = bound_ms(
+            nbytes, C * Mp * (OPS_PER_CELL_STEP * steps + OPS_PER_CELL_PHASE * phases))
+        k_ms = timed_ms(lambda: transport_loop(wS, supply, col_cap, eps, pm0, **kw), reps)
+        p_ms = timed_ms(lambda: _solve_transport(wS, supply, col_cap, eps, pm0, **kw), 1)
         say(f"timing solve {i} [{C},{Mp}] steps={steps}: kernel_ms={k_ms:.4f} "
             f"plain_ms={p_ms:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
             f"(bytes {b_bytes:.6f}, operations {b_ops:.6f}) "
@@ -349,6 +473,225 @@ def phase_timing(calls, reps=10):
         by["operations"] += b_ops
     bound_by = max(by, key=by.get)
     return tot_k, tot_p, tot_b, bound_by
+
+
+def phase_parity_tiered(dev):
+    """The tiered kernel against its plain version on seeded instances
+    with random resident tiles, refine 0 and 8."""
+    from ksched_tpu_torch.ops.transport import transport_loop_tiered
+    from ksched_tpu_torch.solver.layered import _solve_transport_tiered
+
+    worst = 0
+    for shape_i, (C, Mp) in enumerate([(2, 128), (4, 1024), (16, 1152), (64, 4096)]):
+        inst = random_tiered_instance(300 + shape_i, C, Mp)
+        eps_full = int(max(1, np.abs(inst[1]).max()))
+        a = on(dev, *inst)
+        for refine in (0, 8):
+            k = transport_loop_tiered(*a, eps_full, alpha=8, max_supersteps=50_000,
+                                      refine_waves=refine)
+            p = _solve_transport_tiered(*a, eps_full, alpha=8, max_supersteps=50_000,
+                                        refine_waves=refine)
+            torch.cuda.synchronize()
+            err = max_abs_diff(k, p)
+            worst = max(worst, err)
+            ok = same_bits(k, p) and bool(k[3])
+            say(f"tiered parity [{C},{Mp}] refine={refine}: steps={int(k[2])} "
+                f"converged={bool(k[3])} max_abs_err={err} "
+                f"{'bit-identical' if ok else 'MISMATCH'}")
+            check(ok, f"tiered kernel != plain at [{C},{Mp}] refine={refine}")
+    return worst
+
+
+def pu_sha256(cluster):
+    return hashlib.sha256(
+        cluster.fetch_state()["pu"].astype(np.int32).tobytes()).hexdigest()
+
+
+def run_bulk(dev, config, rounds):
+    """A DeviceBulkCluster scenario (drivers/device_bulk.py) on the card,
+    every kernel count set to 0 just before it: per round its wall time
+    (host clock from a synchronize before round() to one after it),
+    kernel time (CUDA events around each solve), decode time (CUDA
+    events around each rank-match decode), host reads and launches;
+    each round's values checked against the JAX package's. Returns
+    (cluster, tasks, recorders, launches)."""
+    import ksched_tpu_torch.ops as ops
+    import ksched_tpu_torch.scheduler.device_bulk as device_bulk
+    from ksched_tpu_torch.drivers.device_bulk import device_cluster, run_rounds
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+    from ksched_tpu_torch.solver.layered import read_flag
+
+    ref = REF_BULK[config]
+    cluster, tasks = device_cluster(config, device=dev)
+    decode = cluster.rank_match_decode = EventTimer(cluster.rank_match_decode)
+    # the bounded solves (closed forms, eps start, attempts and the retry
+    # read), as the round calls them
+    solvers = {name: getattr(device_bulk, name)
+               for name in ("transport_fori", "transport_fori_tiered")}
+    solve = EventTimer(None)
+    for name, fn in solvers.items():
+        setattr(device_bulk, name, solve.wrap(fn))
+    walls = []
+    plain_round = cluster.round
+
+    def timed_round():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = plain_round()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return stats
+
+    cluster.round = timed_round
+    transport_loop.launches = transport_loop_tiered.launches = read_flag.count = 0
+    with Recorder(ops, "transport_solve") as rec, \
+            Recorder(ops, "transport_solve_tiered") as rec_t:
+        # solves, tiered solves, decodes, reads, launches, bounded solves
+        seen = [0, 0, 0, 0, 0, 0]
+        for r, stats in run_rounds(cluster, tasks, rounds):
+            got = cluster.fetch_stats(stats)
+            launches = transport_loop.launches + transport_loop_tiered.launches
+            now = [len(rec.calls), len(rec_t.calls), len(decode.events),
+                   read_flag.count, launches, len(solve.events)]
+            say(f"{config} round {r}: "
+                + " ".join(f"{k}={int(got[k])}" for k in ref if k in got)
+                + f" wall_ms={1e3 * walls[r]:.3f}"
+                f" solve_ms={solve.ms(seen[5]):.3f}"
+                f" kernel_ms={rec.kernel_ms(seen[0]) + rec_t.kernel_ms(seen[1]):.3f}"
+                f" decode_ms={decode.ms(seen[2]):.3f}"
+                f" host_reads={now[3] - seen[3]} launches={now[4] - seen[4]}")
+            seen = now
+            for k in ref:
+                if k != "pu_sha256":
+                    check(int(got[k]) == ref[k][r],
+                          f"{config} round {r}: {k}={int(got[k])}, the JAX package "
+                          f"gives {ref[k][r]}")
+    del cluster.round, cluster.rank_match_decode
+    for name, fn in solvers.items():
+        setattr(device_bulk, name, fn)
+    sha = pu_sha256(cluster)
+    say(f"{config}: final pu sha256 {sha}")
+    check(sha == ref["pu_sha256"], f"{config}: final placements differ from the "
+          "JAX package's")
+    # every read of the device was an iterative attempt's converged flag
+    check(read_flag.count == len(rec.calls) + len(rec_t.calls),
+          f"{config}: {read_flag.count} host reads for "
+          f"{len(rec.calls) + len(rec_t.calls)} solve attempts")
+    launches = (transport_loop.launches, transport_loop_tiered.launches)
+    check(launches == (len(rec.calls), len(rec_t.calls)),
+          f"{config}: launches {launches} != attempts "
+          f"{(len(rec.calls), len(rec_t.calls))}")
+    say(f"{config}: launches transport={launches[0]} transport_tiered={launches[1]}")
+    return cluster, tasks, (rec, rec_t), launches
+
+
+def phase_device_bulk(dev):
+    """coco50k-preempt, then coco50k and 10kx1k, on the card."""
+    from ksched_tpu_torch.solver.layered import _solve_transport_tiered
+
+    cluster, tasks, (rec, rec_t), (l1, l2) = run_bulk(dev, "coco50k-preempt", 4)
+    check(l1 == 0 and l2 > 0, "coco50k-preempt did not run the tiered kernel alone")
+    # the fill's and two later captured solves, re-solved by the plain
+    # version on the card (timed with CUDA events: it syncs every superstep)
+    picked = sorted({0, 1, len(rec_t.calls) - 1})
+    check(len(picked) >= 3, "fewer than three captured tiered solves")
+    worst, plain_ms = 0, {}
+    for i in picked:
+        c = rec_t.calls[i]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = _solve_transport_tiered(*c["args"], **c["kw"])
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[i] = start.elapsed_time(end)
+        err = max_abs_diff(c["out"], plain)
+        worst = max(worst, err)
+        say(f"coco50k-preempt solve {i}: shape={list(c['args'][0].shape)} "
+            f"eps={int(c['args'][5])} steps={int(c['out'][2])} "
+            f"max_abs_err={err} vs plain (plain_ms={plain_ms[i]:.1f})")
+        check(same_bits(c["out"], plain), f"coco50k-preempt solve {i}: kernel != plain")
+
+    _c, _t, _r, (b1, b2) = run_bulk(dev, "coco50k", 2)
+    check(b1 > 0 and b2 == 0, "coco50k did not run the transport kernel alone")
+    _c, _t, _r, (z1, z2) = run_bulk(dev, "10kx1k", 2)
+    check(z1 == 0 and z2 == 0, "10kx1k launched a kernel (expected the closed form)")
+    return cluster, tasks, l2, b1, rec_t.calls, picked, plain_ms, worst
+
+
+def check_occupancy(cluster, where):
+    """tools/soak.py's invariants: pu_running equals a recount, no PU
+    above its slots, disabled machines empty."""
+    st = cluster.fetch_state()
+    placed = st["live"] & (st["pu"] >= 0)
+    recount = np.bincount(st["pu"][placed], minlength=cluster.num_pus)
+    check((recount == st["pu_running"]).all(), f"{where}: pu_running drift")
+    check((st["pu_running"] <= cluster.S).all(), f"{where}: slot overflow")
+    on_disabled = placed & ~np.repeat(st["machine_enabled"], cluster.P)[
+        np.clip(st["pu"], 0, cluster.num_pus - 1)]
+    check(not on_disabled.any(), f"{where}: a task on a disabled machine")
+
+
+def phase_steady(dev, cluster, tasks):
+    """32 steady churn rounds of coco50k-preempt on a torch.Generator:
+    16, then 1% of the machines disabled, then 16 more."""
+    from ksched_tpu_torch.drivers.device_bulk import steady_rounds
+    from ksched_tpu_torch.ops.transport import transport_loop_tiered
+    from ksched_tpu_torch.solver.layered import read_flag
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    down = np.random.default_rng(5).choice(cluster.M, cluster.M // 100, replace=False)
+    for chunk in range(2):
+        if chunk == 1:
+            for m in down:
+                cluster.set_machine_enabled(int(m), False)
+        transport_loop_tiered.launches = read_flag.count = 0
+        t0 = time.perf_counter()
+        got = cluster.fetch_stats(steady_rounds(cluster, tasks, 16, gen))
+        wall = time.perf_counter() - t0
+        say(f"steady chunk {chunk} (16 rounds, {len(down) if chunk else 0} machines "
+            f"down): wall_ms_per_round={1e3 * wall / 16:.3f} "
+            f"supersteps mean={got['supersteps'].mean():.1f} max={int(got['supersteps'].max())} "
+            f"placed={int(got['placed'].sum())} migrated={int(got['migrated'].sum())} "
+            f"preempted={int(got['preempted'].sum())} live={int(got['live'][-1])} "
+            f"launches={transport_loop_tiered.launches} host_reads={read_flag.count}")
+        check(bool(got["converged"].all()), f"steady chunk {chunk}: a round did not converge")
+        check_occupancy(cluster, f"steady chunk {chunk}")
+
+
+def phase_timing_tiered(calls, picked, plain_ms, reps=5):
+    """The tiered kernel's time at the picked captured solves (CUDA
+    events), beside its plain version's (measured at the re-solve) and
+    its bound."""
+    from ksched_tpu_torch.ops.transport import transport_loop_tiered
+
+    tot_k = tot_p = tot_b = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for i in picked:
+        c = calls[i]
+        wLo, wHi, R, supply, col_cap, eps = c["args"]
+        kw = c["kw"]
+        C, Mp = wLo.shape
+        steps = int(c["out"][2])
+        # bound: bytes moved once (wLo, wHi, R, supply, col_cap, eps in;
+        # y, pm, steps, converged out) vs int32 operations this data needs
+        nbytes = 4 * (4 * C * Mp + C + 2 * Mp + 3)
+        phases = eps_phases(eps, kw.get("alpha", 8))
+        per_phase = (OPS_PER_CELL_PHASE_TIERED
+                     + OPS_PER_CELL_WAVE_TIERED * kw.get("refine_waves", 0))
+        b_bytes, b_ops = bound_ms(
+            nbytes, C * Mp * (OPS_PER_CELL_STEP_TIERED * steps + per_phase * phases))
+        k_ms = timed_ms(lambda: transport_loop_tiered(*c["args"], **kw), reps)
+        say(f"timing tiered solve {i} [{C},{Mp}] steps={steps}: kernel_ms={k_ms:.4f} "
+            f"plain_ms={plain_ms[i]:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
+            f"(bytes {b_bytes:.6f}, operations {b_ops:.6f}) "
+            f"kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+        tot_k += k_ms
+        tot_p += plain_ms[i]
+        tot_b += max(b_bytes, b_ops)
+        by["bytes"] += b_bytes
+        by["operations"] += b_ops
+    return tot_k, tot_p, tot_b, max(by, key=by.get)
 
 
 def main() -> int:
@@ -367,17 +710,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    lib = transport_mod.build()
-    say(f"build: transport kernel {lib.name} in {transport_mod.build.seconds:.2f} s "
-        f"(wall {time.perf_counter() - t0:.2f} s)")
-    for line in transport_mod.build.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    libs = transport_mod.build()  # one nvcc per source, all started together
+    say(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s wall ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in transport_mod.build.seconds.items())
+        + ")")
+    for name, log in transport_mod.build.log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {name}: {line.strip()}")
 
     parity_err = phase_parity(dev)
     phase_reference(dev)
     launches, main_err, calls = phase_main(dev)
     k_ms, p_ms, b_ms, bound_by = phase_timing(calls)
+    t_err = phase_parity_tiered(dev)
+    cluster, tasks, t_launches, b1_bulk, t_calls, picked, plain_ms, t_main_err = (
+        phase_device_bulk(dev))
+    phase_steady(dev, cluster, tasks)
+    tk_ms, tp_ms, tb_ms, t_bound_by = phase_timing_tiered(t_calls, picked, plain_ms)
+    say(f"transport launches on the coco50k path: {b1_bulk}")
 
     kernels = [{
         "name": "transport",
@@ -390,6 +742,18 @@ def main() -> int:
         "plain_ms": p_ms,
         "bound_ms": b_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "transport_tiered",
+        "route": "cuda",
+        "source": "ksched_tpu_torch/ops/csrc/transport_tiered.cu",
+        "replaces": "ksched_tpu/ops/transport_pallas.py:233",
+        "launches": t_launches,
+        "max_abs_err": max(t_err, t_main_err),
+        "ms": tk_ms,
+        "plain_ms": tp_ms,
+        "bound_ms": tb_ms,
+        "bound_by": t_bound_by,
         "library_ms": None,
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")

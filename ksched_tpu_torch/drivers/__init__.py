@@ -8,6 +8,7 @@ from .synthetic import (
     make_resource_desc,
 )
 from .scenarios import whare_mixed_rounds
+from .device_bulk import device_bulk_rounds, steady_rounds
 
 __all__ = [
     "add_job",
@@ -15,7 +16,9 @@ __all__ = [
     "add_task_to_job",
     "build_cluster",
     "build_machine_topology",
+    "device_bulk_rounds",
     "make_coordinator_root",
     "make_resource_desc",
+    "steady_rounds",
     "whare_mixed_rounds",
 ]

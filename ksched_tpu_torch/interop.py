@@ -1,10 +1,11 @@
 """Carrying state over from ksched_tpu, as plain numpy arrays.
 
-The JAX package's exported problems are numpy arrays at its public
-boundary (`DeviceGraphState.problem()`, `LayeredProblem`, a solve's
-machine prices). These functions turn such arrays into this package's
-objects without importing the JAX package, so one problem can be fed
-to both and the answers compared.
+The JAX package's exported problems and states are numpy arrays at its
+public boundary (`DeviceGraphState.problem()`, `LayeredProblem`, a
+solve's machine prices, `DeviceBulkCluster.fetch_state()`). These
+functions turn such arrays into this package's objects without
+importing the JAX package, so one problem or one mid-run cluster state
+can be fed to both and the answers compared.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .graph.device_export import FlowProblem
+from .scheduler.device_bulk import DeviceClusterState
 from .solver.layered import LayeredProblem
 
 
@@ -57,3 +59,17 @@ def machine_prices(pm0, device="cpu") -> Optional[torch.Tensor]:
     if pm0 is None:
         return None
     return torch.as_tensor(np.array(pm0, np.int32), device=device)
+
+
+def device_cluster_state(np_state: dict, device="cpu") -> DeviceClusterState:
+    """A DeviceClusterState on `device` from the dict of numpy arrays
+    that `DeviceBulkCluster.fetch_state()` returns (either package's):
+    assign it to a cluster of the same geometry's `state` to continue
+    that run."""
+    i32, b = np.int32, np.bool_
+    dtypes = dict(live=b, cls=i32, job=i32, pu=i32, pu_running=i32,
+                  machine_enabled=b, grp=i32)
+    return DeviceClusterState(**{
+        name: torch.as_tensor(np.array(np_state[name], dt), device=device)
+        for name, dt in dtypes.items()
+    })

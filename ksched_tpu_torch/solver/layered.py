@@ -138,12 +138,28 @@ def default_eps0(n_scale: int) -> int:
     return max(1, n_scale // 4)
 
 
-def choose_eps0(n_scale: int, eps_full: int, supply_total: int,
-                real_cap_total: int) -> int:
+def choose_eps0(n_scale: int, eps_full, supply_total, real_cap_total,
+                short=None):
     """Adaptive eps-schedule start: the tuned short start when supply
     fits real machine capacity, the classic full-range start when the
-    instance is oversubscribed."""
-    return eps_full if supply_total > real_cap_total else default_eps0(n_scale)
+    instance is oversubscribed. `short` overrides the default_eps0
+    start (the tiered preemption round passes n_scale). Python ints in,
+    a Python int out; any tensor input gives an int32 tensor, computed
+    on the device without a host read."""
+    if short is None:
+        short = default_eps0(n_scale)
+    if not any(isinstance(v, torch.Tensor)
+               for v in (eps_full, supply_total, real_cap_total)):
+        return eps_full if supply_total > real_cap_total else short
+    dev = next(v for v in (eps_full, supply_total, real_cap_total)
+               if isinstance(v, torch.Tensor)).device
+
+    def t(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(_I32)
+        return torch.full((), v, dtype=_I32, device=dev)
+
+    return torch.where(t(supply_total) > t(real_cap_total), t(eps_full), t(short))
 
 
 def solve_row_constant_np(v, supply, col_cap):
@@ -192,13 +208,89 @@ def split_grants_by_class(y_tot, supply):
     per-class supplies [C] — any split is cost-equal when every class
     has the same cost row, so grant units are handed out in
     (machine-order, class-order): y[c,m] = overlap of the class's supply
-    interval with the machine's grant interval."""
+    interval with the machine's grant interval. numpy arrays or int32
+    tensors in, the same kind out."""
+    if isinstance(y_tot, torch.Tensor):
+        cum_s = torch.cumsum(supply, 0, dtype=_I32)
+        excl_s = (cum_s - supply)[:, None]
+        cum_m = torch.cumsum(y_tot, 0, dtype=_I32)[None, :]
+        lo = torch.maximum(cum_m - y_tot[None, :], excl_s)
+        hi = torch.minimum(cum_m, excl_s + supply[:, None])
+        return torch.clamp(hi - lo, min=0).to(y_tot.dtype)
     cum_s = np.cumsum(supply)
     excl_s = (cum_s - supply)[:, None]  # [C, 1] class interval starts
     cum_m = np.cumsum(y_tot)[None, :]  # [1, Mp] machine interval ends
     lo = np.maximum(cum_m - y_tot[None, :], excl_s)
     hi = np.minimum(cum_m, excl_s + supply[:, None])
     return np.maximum(hi - lo, 0).astype(y_tot.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Closed forms on tensors (the device round's non-iterative solves)
+# ---------------------------------------------------------------------------
+
+
+def _argsort(x):
+    return torch.sort(x, stable=True).indices
+
+
+def _unsort(order, values):
+    """values[i] belongs at position order[i]: the inverse permutation
+    applied by a scatter."""
+    return torch.empty_like(values).scatter_(0, order, values)
+
+
+def solve_single_class(w, supply, col_cap):
+    """EXACT closed form for one transportation row: sort columns by
+    cost and greedily fill strictly-profitable capacity; ties at
+    w == 0 are left unscheduled. w, col_cap int32[Mp1], supply an int32
+    scalar tensor; returns y int32[Mp1]."""
+    take = torch.where(w < 0, col_cap, 0)
+    order = _argsort(w)
+    take_s = take[order]
+    excl = torch.cumsum(take_s, 0, dtype=_I32) - take_s
+    y_s = torch.minimum(torch.clamp(supply - excl, min=0), take_s)
+    return _unsort(order, y_s)
+
+
+def solve_single_class_tiered(wLo, wHi, R, supply, col_cap):
+    """EXACT closed form for one tiered row: each column is a cheap tier
+    (cap min(R, col_cap), cost wLo) and a base tier (the rest at wHi);
+    greedy-fill strictly-profitable capacity by sorted marginal cost —
+    valid because the per-cell cost is convex. Returns y int32[Mp1]
+    (tier totals per column)."""
+    Mp1 = wLo.shape[0]
+    Reff = torch.minimum(R, col_cap)
+    w2 = torch.cat([wLo, wHi])
+    cap2 = torch.cat([Reff, col_cap - Reff])
+    y2 = solve_single_class(w2, supply, cap2)
+    return y2[:Mp1] + y2[Mp1:]
+
+
+def solve_row_constant(v, supply, col_cap):
+    """EXACT closed form when every row's cost is machine-uniform:
+    w[g, m] = v[g] on every real column (per-job unsched costs, no class
+    cost model). The fractional-knapsack greedy: rows in ascending v,
+    rows with v >= 0 place nothing, the machine split in (row-order,
+    machine-order) interval overlaps. v, supply int32[G]; col_cap
+    int32[Mp1] (last = escape). Returns y int32[G, Mp1] with the escape
+    column filled."""
+    cap_real = col_cap[:-1]
+    cap_total = cap_real.sum(dtype=_I32)
+    order = _argsort(v)
+    sup_s = supply[order]
+    take_s = torch.where(v[order] < 0, sup_s, 0)
+    excl = torch.cumsum(take_s, 0, dtype=_I32) - take_s
+    q_s = torch.minimum(torch.clamp(cap_total - excl, min=0), take_s)
+    Q = torch.cumsum(q_s, 0, dtype=_I32)
+    starts = Q - q_s
+    cum_m = torch.cumsum(cap_real, 0, dtype=_I32)
+    lo = torch.maximum((cum_m - cap_real)[None, :], starts[:, None])
+    hi = torch.minimum(cum_m[None, :], Q[:, None])
+    y_s = torch.clamp(hi - lo, min=0)
+    y_real = torch.empty_like(y_s).index_copy_(0, order, y_s)
+    esc = supply - y_real.sum(dim=1, dtype=_I32)
+    return torch.cat([y_real, esc[:, None]], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +483,298 @@ def _solve_transport(
         pm_init=pm0, refine_waves=refine_waves,
     )
     return y, pm, steps, converged
+
+
+# ---------------------------------------------------------------------------
+# Tiered (continuation-priced) transport: the preemption-on formulation
+# ---------------------------------------------------------------------------
+#
+# With preemption on (graph_manager.go:855-888), placed tasks re-enter
+# every round's solve: machine capacity is total slots and a task's
+# CURRENT machine offers a cheaper continuation price than a fresh
+# placement (costmodel/interface.go:75-79). In aggregate form each cell
+# (row g, machine m) prices its first R[g,m] units (the residents) at
+# wLo = w - discount and the rest at wHi. A per-cell convex two-tier
+# cost is a pair of parallel arcs, so cost-scaling push-relabel stays
+# exact: every residual/relabel rule below is the parallel-arc rule
+# with the canonical cheapest-first split yA = min(y, R), yB = y - yA.
+# This is the plain version of the tiered kernel
+# (ops/csrc/transport_tiered.cu), bit for bit.
+
+
+def transport_saturate_eps_tiered(wLo, wHi, R, U, col_cap, y, z, pr, pm,
+                                  psink, eps: int):
+    """Phase-start saturation per tier: reset ONLY tiers whose reduced
+    cost violates eps-optimality, keeping the rest of the flow. With
+    eps=0 it is the full saturate (transport_saturate_tiered in the
+    JAX package)."""
+    rcl = wLo + pr[:, None] - pm[None, :]
+    rch = wHi + pr[:, None] - pm[None, :]
+    yA = torch.minimum(y, R)
+    yB = y - yA
+    yA2 = torch.where(rcl < -eps, R, torch.where(rcl > eps, 0, yA))
+    yB2 = torch.where(rch < -eps, U - R, torch.where(rch > eps, 0, yB))
+    rcs = pm - psink
+    z2 = torch.where(rcs < -eps, col_cap, torch.where(rcs > eps, 0, z))
+    return yA2 + yB2, z2
+
+
+def _price_refine_tiered(wLo, wHi, R, U, col_cap, y, z, pr, pm, psink,
+                         eps: int, waves: int):
+    """Tiered price refinement: synchronous Bellman-Ford relaxations
+    lowering potentials toward eps-optimality of the CURRENT flow, each
+    tier's residuals contributing its own constraints (fwd tier A at wLo
+    while R-yA>0, fwd tier B at wHi while (U-R)-yB>0; bwd with the signs
+    flipped)."""
+    yA = torch.minimum(y, R)
+    yB = y - yA
+    for _ in range(waves):
+        bound_m = torch.minimum(
+            torch.where(R - yA > 0, wLo + pr[:, None] + eps, BIG).amin(dim=0),
+            torch.where((U - R) - yB > 0, wHi + pr[:, None] + eps, BIG).amin(dim=0),
+        )
+        pm2 = torch.clamp(torch.minimum(pm, bound_m), min=-BIG_D)
+        pm2 = torch.minimum(pm2, torch.where(z > 0, psink + eps, BIG))
+        bound_r = torch.minimum(
+            torch.where(yA > 0, pm2[None, :] - wLo + eps, BIG).amin(dim=1),
+            torch.where(yB > 0, pm2[None, :] - wHi + eps, BIG).amin(dim=1),
+        )
+        pr2 = torch.clamp(torch.minimum(pr, bound_r), min=-BIG_D)
+        bound_s = torch.where(col_cap - z > 0, pm2 + eps, BIG).amin()
+        psink2 = torch.clamp(torch.minimum(psink, bound_s), min=-BIG_D)
+        pr, pm, psink = pr2, pm2, psink2
+    return pr, pm, psink
+
+
+def transport_superstep_tiered(wLo, wHi, R, U, supply, col_cap, y, z, pr, pm,
+                               psink, eps: int):
+    """One synchronous push/relabel wave over the two-tier residual
+    graph: transport_superstep with forward and backward residuals split
+    by tier (the cheap tier fills first, the dear tier empties first)."""
+    e_row, e_col, e_sink = _excesses(supply, y, z)
+    yA = torch.minimum(y, R)
+    yB = y - yA
+    rcl = wLo + pr[:, None] - pm[None, :]
+    rch = wHi + pr[:, None] - pm[None, :]
+
+    # --- rows push forward: tier-A residual at wLo, tier-B at wHi ---
+    rA = R - yA
+    rB = (U - R) - yB
+    r_adm = (torch.where((rA > 0) & (rcl < 0), rA, 0)
+             + torch.where((rB > 0) & (rch < 0), rB, 0))
+    excl = torch.cumsum(r_adm, 1, dtype=_I32) - r_adm
+    delta_f = torch.minimum(torch.clamp(e_row[:, None] - excl, min=0), r_adm)
+
+    # --- columns push: the sink first, then the dear-tier returns over
+    # rows ascending, then the cheap-tier returns over rows ascending ---
+    r_s = col_cap - z
+    adm_s = torch.where((r_s > 0) & (pm - psink < 0), r_s, 0)
+    rcb_hi = pm[None, :] - pr[:, None] - wHi  # backward tier B (cost -wHi)
+    rcb_lo = pm[None, :] - pr[:, None] - wLo  # backward tier A
+    adm_bh = torch.where((yB > 0) & (rcb_hi < 0), yB, 0)
+    adm_bl = torch.where((yA > 0) & (rcb_lo < 0), yA, 0)
+    excl_bh = adm_s[None, :] + (torch.cumsum(adm_bh, 0, dtype=_I32) - adm_bh)
+    excl_bl = (adm_s + adm_bh.sum(dim=0, dtype=_I32))[None, :] + (
+        torch.cumsum(adm_bl, 0, dtype=_I32) - adm_bl
+    )
+    delta_s = torch.minimum(torch.clamp(e_col, min=0), adm_s)
+    delta_b = (
+        torch.minimum(torch.clamp(e_col[None, :] - excl_bh, min=0), adm_bh)
+        + torch.minimum(torch.clamp(e_col[None, :] - excl_bl, min=0), adm_bl)
+    )
+
+    # --- sink pushes back (tier-less) ---
+    zb_adm = torch.where((z > 0) & (psink - pm < 0), z, 0)
+    excl_zb = torch.cumsum(zb_adm, 0, dtype=_I32) - zb_adm
+    delta_zb = torch.minimum(torch.clamp(e_sink - excl_zb, min=0), zb_adm)
+
+    y2 = y + delta_f - delta_b
+    z2 = z + delta_s - delta_zb
+
+    # --- jump relabels (candidates consider both tiers' residuals) ---
+    pushed_row = delta_f.sum(dim=1, dtype=_I32)
+    cand_row = torch.maximum(
+        torch.where(rA > 0, pm[None, :] - wLo, -BIG).amax(dim=1),
+        torch.where(rB > 0, pm[None, :] - wHi, -BIG).amax(dim=1),
+    )
+    pr2 = torch.where((e_row > 0) & (pushed_row == 0), cand_row - eps, pr)
+
+    pushed_col = delta_s + delta_b.sum(dim=0, dtype=_I32)
+    cand_col = torch.maximum(
+        torch.maximum(
+            torch.where(yA > 0, pr[:, None] + wLo, -BIG).amax(dim=0),
+            torch.where(yB > 0, pr[:, None] + wHi, -BIG).amax(dim=0),
+        ),
+        torch.where(r_s > 0, psink, -BIG),
+    )
+    pm2 = torch.where((e_col > 0) & (pushed_col == 0), cand_col - eps, pm)
+
+    pushed_sink = delta_zb.sum(dtype=_I32)
+    cand_sink = torch.where(z > 0, pm, -BIG).amax()
+    psink2 = torch.where(
+        (e_sink > 0) & (pushed_sink == 0), cand_sink - eps, psink
+    )
+    return y2, z2, pr2, pm2, psink2
+
+
+def _transport_loop_tiered(wLo, wHi, R, U, supply, col_cap, eps_init,
+                           alpha: int, max_supersteps: int,
+                           refine_waves: int = 0):
+    """The tiered phase schedule, cold started: tightening against the
+    cheap tier makes the zero flow 0-optimal, since wLo <= wHi.
+    Returns (y, z, pm, steps, converged) like _transport_loop."""
+    C, Mp1 = wLo.shape
+    dev = wLo.device
+    pr, pm, psink = transport_tighten(wLo, U, col_cap, None)
+    y = torch.zeros((C, Mp1), dtype=_I32, device=dev)
+    z = torch.zeros(Mp1, dtype=_I32, device=dev)
+    eps = int(eps_init)
+    steps = 0
+    done = False
+    while not done and steps < max_supersteps:
+        e_row, e_col, e_sink = _excesses(supply, y, z)
+        if bool((e_row > 0).any() | (e_col > 0).any() | (e_sink > 0)):
+            y, z, pr, pm, psink = transport_superstep_tiered(
+                wLo, wHi, R, U, supply, col_cap, y, z, pr, pm, psink, eps
+            )
+            steps += 1
+        elif eps <= 1:
+            done = True
+        else:
+            eps = max(1, eps // alpha)
+            if refine_waves:
+                pr, pm, psink = _price_refine_tiered(
+                    wLo, wHi, R, U, col_cap, y, z, pr, pm, psink, eps,
+                    refine_waves,
+                )
+            # refined prices keep the eps-optimal flow; without
+            # refinement the phase starts from a full saturate (eps 0)
+            y, z = transport_saturate_eps_tiered(
+                wLo, wHi, R, U, col_cap, y, z, pr, pm, psink,
+                eps if refine_waves else 0,
+            )
+    e_row, e_col, e_sink = _excesses(supply, y, z)
+    balanced = ~((e_row != 0).any() | (e_col != 0).any() | (e_sink != 0))
+    converged = balanced & done
+    return y, z, pm, torch.tensor(steps, dtype=_I32, device=dev), converged
+
+
+def _solve_transport_tiered(wLo, wHi, R, supply, col_cap, eps_init,
+                            alpha: int = 8, max_supersteps: int = 20_000,
+                            refine_waves: int = 0):
+    """The plain PyTorch version of the tiered transport kernel: R is
+    clamped to the cell capacity U = min(supply, col_cap) first. Returns
+    (y, pm, steps, converged), bit for bit the kernel's."""
+    U = torch.minimum(supply[:, None], col_cap[None, :])
+    R = torch.minimum(R, U)
+    y, _z, pm, steps, converged = _transport_loop_tiered(
+        wLo, wHi, R, U, supply, col_cap, eps_init, alpha, max_supersteps,
+        refine_waves=refine_waves,
+    )
+    return y, pm, steps, converged
+
+
+# ---------------------------------------------------------------------------
+# Bounded solves for the device-resident round
+# ---------------------------------------------------------------------------
+
+
+def read_flag(flag) -> bool:
+    """The device round's one host read: a solve attempt's converged
+    flag, read to decide the full-range retry. Counted in
+    `read_flag.count`, so a run can show that a round read the device
+    once per iterative attempt and at no other point."""
+    read_flag.count += 1
+    return bool(flag)
+
+
+#: host reads since the count was last set to 0
+read_flag.count = 0
+
+
+def _scalar(value, like):
+    """A 0-dim tensor of like's dtype and device, filled on the device
+    (no host-to-device copy)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def _true(device):
+    return torch.ones((), dtype=torch.bool, device=device)
+
+
+def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,
+                   eps0=None, class_degenerate: bool = False,
+                   refine_waves: int = 0):
+    """Bounded transport solve for the device round.
+
+    C == 1: the exact closed form (solve_single_class). A class-
+    degenerate instance (every row the same costs, asserted by the
+    caller): the closed form on the total supply, grants split by class.
+    Otherwise the cost-scaling solve through ops.transport_solve — the
+    kernel on the card, the plain version on the CPU — from eps0 (an
+    int or an int32 scalar tensor), retried once from the full range
+    when the short start does not converge; the retry decision is the
+    one host read (read_flag). Returns (y, pm, steps, converged) as
+    tensors; pm and steps are zero on the closed forms."""
+    C, _Mp1 = wS.shape
+    zero, true = _scalar(0, col_cap), _true(wS.device)
+    if C == 1:
+        y = solve_single_class(wS[0], supply[0], col_cap)[None, :]
+        return y, torch.zeros_like(col_cap), zero, true
+    if class_degenerate:
+        y_tot = solve_single_class(wS[0], supply.sum(dtype=_I32), col_cap)
+        return split_grants_by_class(y_tot, supply), torch.zeros_like(col_cap), zero, true
+
+    from .. import ops
+
+    eps_full = wS.abs().amax().clamp(min=1)
+
+    def run(eps_init):
+        return ops.transport_solve(
+            wS, supply, col_cap, eps_init, alpha=alpha,
+            max_supersteps=num_supersteps, refine_waves=refine_waves,
+        )
+
+    if eps0 is None:
+        return run(eps_full)
+    y1, pm1, s1, conv1 = run(torch.as_tensor(eps0, dtype=_I32, device=wS.device))
+    if read_flag(conv1):
+        return y1, pm1, s1, conv1
+    y2, pm2, s2, conv2 = run(eps_full)
+    return y2, pm2, s1 + s2, conv2
+
+
+def transport_fori_tiered(wLo, wHi, R, supply, col_cap, num_supersteps: int,
+                          alpha: int = 8, eps0=None, refine_waves: int = 0):
+    """Bounded tiered transport solve — the preemption-on twin of
+    transport_fori: the exact closed form for a single row, else
+    ops.transport_solve_tiered (the tiered kernel on the card, its plain
+    version on the CPU) from eps0 with one full-range retry decided by
+    one host read. Returns (y, pm, steps, converged)."""
+    C, _Mp1 = wLo.shape
+    if C == 1:
+        R1 = torch.minimum(R, torch.minimum(supply[:, None], col_cap[None, :]))
+        y = solve_single_class_tiered(wLo[0], wHi[0], R1[0], supply[0], col_cap)
+        return (y[None, :], torch.zeros_like(col_cap), _scalar(0, col_cap),
+                _true(wLo.device))
+
+    from .. import ops
+
+    eps_full = wHi.abs().amax().clamp(min=1)
+
+    def run(eps_init):
+        return ops.transport_solve_tiered(
+            wLo, wHi, R, supply, col_cap, eps_init, alpha=alpha,
+            max_supersteps=num_supersteps, refine_waves=refine_waves,
+        )
+
+    if eps0 is None:
+        return run(eps_full)
+    y1, pm1, s1, conv1 = run(torch.as_tensor(eps0, dtype=_I32, device=wLo.device))
+    if read_flag(conv1):
+        return y1, pm1, s1, conv1
+    y2, pm2, s2, conv2 = run(eps_full)
+    return y2, pm2, s1 + s2, conv2
 
 
 def solve_layered_host(lp: LayeredProblem, *, pad, solve,

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA transport kernel against its plain
-PyTorch version, bit for bit, and Scenario W(20, 200) through the
-default cuda backend. Marked `cuda`; every test skips where no CUDA
+"""The port on the card: the CUDA transport kernels (plain and tiered)
+against their plain PyTorch versions, bit for bit, Scenario W(20, 200)
+through the default cuda backend, and the device-resident round on the
+card against the same round on the CPU. Marked `cuda`; every test skips where no CUDA
 device is present. Imports nothing of JAX, so it runs on a machine
 without it:
 
@@ -11,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from ksched_tpu_torch.ops.transport import transport_loop
-from ksched_tpu_torch.solver.layered import _solve_transport, pad_geometry
+from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+from ksched_tpu_torch.solver.layered import (
+    _solve_transport,
+    _solve_transport_tiered,
+    pad_geometry,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +94,119 @@ def test_event_path_on_card(card):
     assert rows == [(200, "dense", 0, 0), (50, "dense", 84, 0),
                     (50, "dense", 3207, 166), (20, "dense", 170, 76756)]
     assert transport_loop.launches - before >= 3
+
+
+def _tiered_instance(seed, C, M, dev):
+    """A tiered instance: _instance's costs as the dear tier, a random
+    continuation discount off every real column for the cheap tier, a
+    random resident tile (none on the escape column)."""
+    rng = np.random.default_rng(seed)
+    Mp, n_scale = pad_geometry(M, C)
+    wHi = np.zeros((C, Mp), np.int32)
+    wHi[:, :M] = rng.integers(-30, 30, (C, M)) * n_scale
+    wLo = wHi.copy()
+    wLo[:, :M] -= int(rng.integers(1, 12)) * n_scale
+    R = rng.integers(0, 6, (C, Mp)).astype(np.int32)
+    R[:, -1] = 0
+    supply = rng.integers(0, 60, C).astype(np.int32)
+    col_cap = np.zeros(Mp, np.int32)
+    col_cap[:M] = rng.integers(0, 25, M)
+    col_cap[-1] = supply.sum()
+    t = [torch.as_tensor(a, device=dev) for a in (wLo, wHi, R, supply, col_cap)]
+    return t, int(max(1, np.abs(wHi).max()))
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("C,M", [(2, 5), (5, 130), (8, 250), (300, 3000)])
+@pytest.mark.parametrize("refine", [0, 8])
+def test_tiered_kernel_matches_plain(card, seed, C, M, refine):
+    """Bounded at 2000 supersteps from 300 rows up, where the plain
+    version takes minutes to converge on some seeds: converged or not,
+    the bits must match."""
+    args, eps = _tiered_instance(seed, C, M, card)
+    budget = 2000 if C >= 300 else 50_000
+    before = transport_loop_tiered.launches
+    got = transport_loop_tiered(*args, eps, refine_waves=refine,
+                                max_supersteps=budget)
+    assert transport_loop_tiered.launches == before + 1
+    want = _solve_transport_tiered(*args, eps, refine_waves=refine,
+                                   max_supersteps=budget)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    # the start eps as an int32 scalar on the card, as the device round
+    # passes it
+    eps_t = torch.full((), eps, dtype=torch.int32, device=card)
+    again = transport_loop_tiered(*args, eps_t, refine_waves=refine,
+                                  max_supersteps=budget)
+    for a, b in zip(again, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("refine", [0, 8])
+def test_tiered_kernel_matches_plain_in_global_memory(card, refine):
+    """Hundreds of rows on a 12.5k-machine axis ([400, 12544]): the
+    tiles live in global memory. Bounded at 2000 supersteps —
+    converged or not, the bits must match."""
+    args, eps = _tiered_instance(7, 400, 12_500, card)
+    got = transport_loop_tiered(*args, eps, refine_waves=refine, max_supersteps=2000)
+    want = _solve_transport_tiered(*args, eps, refine_waves=refine,
+                                   max_supersteps=2000)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_tiered_kernel_rejects_bad_inputs(card):
+    (wLo, wHi, R, supply, col_cap), eps = _tiered_instance(0, 3, 40, card)
+    with pytest.raises(TypeError):
+        transport_loop_tiered(wLo, wHi, R.to(torch.int64), supply, col_cap, eps)
+    with pytest.raises(ValueError):
+        transport_loop_tiered(wLo, wHi[:2], R, supply, col_cap, eps)
+    with pytest.raises(ValueError):
+        transport_loop_tiered(wLo, wHi, R, supply, col_cap.cpu(), eps)
+    with pytest.raises(ValueError):
+        transport_loop_tiered(wLo, wHi, R, supply, col_cap,
+                              torch.ones(1, dtype=torch.int32, device=card))
+
+
+def test_device_bulk_on_card_matches_cpu(card):
+    """The device round on the card — fill, host-driven rounds, steady
+    rounds with draws made on the CPU — equals the same round on the
+    CPU, stats and state, preemption on (the tiered kernel) and off
+    (the transport kernel)."""
+    from ksched_tpu_torch.costmodels import coco
+    from ksched_tpu_torch.costmodels.device_costs import coco_device_cost_fn
+    from ksched_tpu_torch.drivers.device_bulk import run_rounds
+    from ksched_tpu_torch.scheduler.device_bulk import (
+        DeviceBulkCluster,
+        draw_steady,
+    )
+
+    pen = np.random.default_rng(7).integers(0, 40, (40, 4))
+    for preemption in (True, False):
+        def make(dev):
+            return DeviceBulkCluster(
+                num_machines=40, pus_per_machine=4, slots_per_pu=4, num_jobs=4,
+                num_task_classes=4, task_capacity=1024,
+                class_cost_fn=coco_device_cost_fn(pen),
+                unsched_cost=coco.UNSCHEDULED_COST, ec_cost=0,
+                supersteps=1 << 16, preemption=preemption,
+                continuation_discount=8, decode_width=256, device=dev,
+            )
+
+        gpu, cpu = make(card), make("cpu")
+        launches = (transport_loop.launches, transport_loop_tiered.launches)
+        for (_r, a), (_r2, b) in zip(run_rounds(gpu, 400, 3), run_rounds(cpu, 400, 3)):
+            ga, gb = gpu.fetch_stats(a), cpu.fetch_stats(b)
+            assert {k: int(v) for k, v in ga.items()} == {k: int(v) for k, v in gb.items()}
+        gen = torch.Generator().manual_seed(3)
+        for _ in range(4):
+            draws = draw_steady(gen, 1024, 4, 4)
+            a = gpu.fetch_stats(gpu.steady_round(*(d.to(card) for d in draws), 0.05, 20))
+            b = cpu.fetch_stats(cpu.steady_round(*draws, 0.05, 20))
+            assert {k: int(v) for k, v in a.items()} == {k: int(v) for k, v in b.items()}
+        sa, sb = gpu.fetch_state(), cpu.fetch_state()
+        for k in sa:
+            np.testing.assert_array_equal(sa[k], sb[k])
+        ran = (transport_loop.launches - launches[0],
+               transport_loop_tiered.launches - launches[1])
+        assert (ran[1] > 0 and ran[0] == 0) if preemption else (ran[0] > 0 and ran[1] == 0)
