@@ -33,6 +33,23 @@ no result line):
    coco50k-preempt on a torch.Generator with the occupancy invariants
    held;
 8. timing of the tiered kernel at its captured shapes beside its plain
+   version and its bound;
+9. mcmf kernel parity: the general-graph kernel against its plain
+   PyTorch version on the card, bit for bit, on seeded scheduling graphs
+   at 512 and 8 lanes (R > 1), at eps 1 and cold, with a pad segment,
+   and at the 10k x 1k shape (R = 256, cut at 300 supersteps);
+10. the general-graph path: Scenario W(1000, 10000) through
+   FlowScheduler.schedule_all_jobs with make_backend("mega") on cuda,
+   rounds 0-2, every round on the mcmf kernel and never on the CSR
+   fallback, each round's values and bindings equal to the JAX
+   package's, the kernel's launch count, and two captured solves (round
+   2's 3,376 supersteps among them) re-solved by the plain version with
+   the same bits;
+11. the ladder: Scenario P(1000, 10000) (trivial model, preemption on)
+   with make_backend("auto") on cuda: round 0 dense, round 1 on the mega
+   rung with the JAX package's values, round 2 stalling as the JAX
+   package's does (50,000 supersteps in the cold attempt);
+12. timing of the mcmf kernel at the re-solved shapes beside its plain
    version and its bound, then the `kernels` line and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -99,6 +116,37 @@ REF_BULK = {
     },
 }
 
+# Scenario W(1000, 10000) through make_backend("mega"), rounds 0-2, and
+# P(1000, 10000) through make_backend("auto"), rounds 0-1 and round 2's
+# stall, per round, as produced by the JAX package
+# (tests/torch_event_mega_reference.py: MegaSolver(fallback=JaxSolver())
+# and AutoSolver(JaxSolver(), mega=MegaSolver()), on the CPU): placed
+# tasks, path, supersteps, objective, sha256 of the sorted bindings.
+REF_MEGA = {
+    "W": {
+        "placed": [10000, 2500, 2500],
+        "path": ["mega", "mega", "mega"],
+        "supersteps": [25, 32, 3376],
+        "objective": [0, 0, 0],
+        "bindings_sha256": [
+            "24142376967188b7c269456fbcdb974d38776159f7670760e9b289680435efb3",
+            "54ae55ac59f54275e04de9a53ac023b0e31d096177568df6cdf5a74696de6fc5",
+            "37250afb748eccf84e6151dc49c0480f226540f1e7f8c57fbdf1c7681023a358",
+        ],
+    },
+    "P": {
+        "placed": [10000, 2500],
+        "path": ["dense", "mega"],
+        "supersteps": [0, 10],
+        "objective": [20000, 5000],
+        "bindings_sha256": [
+            "46119ab9c2289c3341a526de32789cb95a566b30f9601de0869cb73bc44a5a52",
+            "f360ae7496b92e52cbf3a8652d93e092b617e0217ecabcfcc05bcc23d49a1262",
+        ],
+        "stall": {"round": 2, "path": "mega", "last_supersteps": 50000},
+    },
+}
+
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
 # 3.35 TB/s; int32 ALU work outside the tensor cores at 64 INT32 lanes
 # per SM x 132 SMs x 1.98 GHz boost = 16.7 TOP/s (the same basis as
@@ -124,6 +172,20 @@ OPS_PER_CELL_PHASE = 6
 OPS_PER_CELL_STEP_TIERED = 73
 OPS_PER_CELL_PHASE_TIERED = 17
 OPS_PER_CELL_WAVE_TIERED = 25
+# The mcmf solve, counted in ops/mcmf.py mcmf_loop_plain (every
+# elementwise op, gather, cumsum or scatter step one operation), per
+# entry (E) and per segment (S, one per source node and the pad):
+# a superstep 33 E + 28 S (excess 2 E + 6 S, the active test 2 S,
+# residuals 3 E, partner and own prices 2 E, admissibility 9 E, the
+# in-segment prefix 4 E + 3 S, the push 3 E, the flow update 4 E, the
+# relabel bound 4 E, pushed and residual sums 2 E + 10 S, the relabel
+# 7 S); a phase start 11 E + 8 S (excess and the active test, then the
+# saturate 9 E); a tightening sweep 5 E + 4 S; the prologue and the
+# end 14 E + 12 S, plus the 12 E of the gathers into entry order.
+OPS_MCMF_STEP = (33, 28)
+OPS_MCMF_PHASE = (11, 8)
+OPS_MCMF_SWEEP = (5, 4)
+OPS_MCMF_ONCE = (26, 12)
 
 
 class Failed(Exception):
@@ -376,12 +438,7 @@ def phase_main(dev):
                 f"stats_s={tm.stats_s:.4f} graph_update_s={tm.graph_update_s:.4f} "
                 f"deltas_s={tm.deltas_s:.4f} apply_s={tm.apply_s:.4f} "
                 f"launches={len(rec.calls) - seen}")
-            spans = {}
-            for ev in tracer.events_since(mark):
-                spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e6
-            say("  solve spans: " + " ".join(
-                f"{k}_s={spans.get(k, 0.0):.4f}"
-                for k in ("graph_export", "backend_solve", "decode")))
+            say_spans(tracer, mark)
             seen = len(rec.calls)
             mark = tracer.mark()
             check(backend.last_path == "dense", f"round {r} left the dense path")
@@ -411,6 +468,16 @@ def phase_main(dev):
             f"max_abs_err={err} vs plain")
         check(same_bits(c["out"], plain), f"main-path solve {i}: kernel != plain")
     return launches, worst, rec.calls
+
+
+def say_spans(tracer, mark):
+    """The solve's spans since `mark`, summed by name."""
+    spans = {}
+    for ev in tracer.events_since(mark):
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e6
+    say("  solve spans: " + " ".join(
+        f"{k}_s={spans.get(k, 0.0):.4f}"
+        for k in ("graph_export", "backend_solve", "decode")))
 
 
 def eps_phases(eps, alpha):
@@ -694,13 +761,257 @@ def phase_timing_tiered(calls, picked, plain_ms, reps=5):
     return tot_k, tot_p, tot_b, max(by, key=by.get)
 
 
+def bindings_sha256(sched) -> str:
+    """sha256 of the sorted (task id, resource id) bindings, as
+    tests/torch_event_mega_reference.py computes it."""
+    rows = sorted((int(t), str(r)) for t, r in sched.get_task_bindings().items())
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def mcmf_case(seed, dev, lanes=None, tasks=40, machines=4, slots=3, arc_slots=None):
+    """A seeded scheduling graph (drivers.random_flow_problem) as
+    mcmf_loop's arguments on `dev`: (args, R, L, cold eps, has a pad
+    segment)."""
+    from ksched_tpu_torch.drivers import random_flow_problem
+    from ksched_tpu_torch.solver.csr_solver import build_csr_plan
+    from ksched_tpu_torch.solver.mega_solver import _pad_pow2, build_mega_plan
+
+    p = random_flow_problem(np.random.default_rng(seed), tasks, machines, slots,
+                            arc_slots=arc_slots)
+    n = p.num_nodes
+    plan = build_mega_plan(build_csr_plan(p.src, p.dst, n), lanes)
+    arrays = [_pad_pow2(x) for x in (p.cap, p.cost * np.int32(n),
+                                     p.excess.astype(np.int32),
+                                     np.zeros(len(p.src), np.int32))]
+    tables = [plan.e_arc, plan.e_sign, plan.e_src, plan.e_hs, plan.e_he,
+              plan.e_prow, plan.e_pcol, _pad_pow2(plan.fwd_pos)]
+    a = on(dev, *arrays)
+    t = on(dev, *tables)
+    eps_cold = max(1, int(np.abs(p.cost).max()) * n)
+    return (a, t), plan.R, plan.L, eps_cold, plan.R * plan.L > 2 * len(p.src)
+
+
+def phase_parity_mcmf(dev):
+    """The mcmf kernel against its plain version on seeded graphs."""
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+
+    worst, pads = 0, 0
+    cases = [(0, None, 40, 4, 3, None, 50_000), (1, 8, 40, 4, 3, None, 50_000),
+             (2, None, 200, 15, 4, None, 50_000), (3, 8, 200, 15, 4, None, 50_000),
+             (4, None, 15_000, 1000, 8, 65_536, 300)]
+    for seed, lanes, tasks, machines, slots, arc_slots, budget in cases:
+        (a, t), R, L, eps_cold, pad = mcmf_case(seed, dev, lanes, tasks, machines,
+                                                slots, arc_slots)
+        pads += pad
+        for eps in (1, eps_cold):
+            args = (*a, eps, *t, R, L)
+            k = mcmf_loop(*args, max_supersteps=budget)
+            p = mcmf_loop_plain(*args, max_supersteps=budget)
+            torch.cuda.synchronize()
+            err = max_abs_diff(k, p)
+            worst = max(worst, err)
+            ok = same_bits(k, p)
+            say(f"mcmf parity R={R} L={L} pad={pad} eps={eps} budget={budget}: "
+                f"steps={int(k[1])} converged={bool(k[2])} max_abs_err={err} "
+                f"{'bit-identical' if ok else 'MISMATCH'}")
+            check(ok, f"mcmf kernel != plain at R={R} L={L} eps={eps}")
+            check(bool(k[2]) or budget < 50_000, f"R={R} L={L} eps={eps}: no convergence")
+    check(pads > 0, "no parity case had a pad segment")
+    return worst
+
+
+def mega_round_line(tag, r, placed, backend, sched, rec, seen, wall):
+    tm = sched.last_timing
+    say(f"{tag} round {r}: placed={placed} path={getattr(backend, 'last_path', 'mega')} "
+        f"supersteps={backend.last_supersteps} "
+        f"objective={sched.solver.last_result.objective} "
+        f"wave_s={wall:.4f} round_s={tm.total_s:.4f} solve_s={tm.solve_s:.4f} "
+        f"kernel_ms={rec.kernel_ms(first=seen):.4f} "
+        f"stats_s={tm.stats_s:.4f} graph_update_s={tm.graph_update_s:.4f} "
+        f"deltas_s={tm.deltas_s:.4f} apply_s={tm.apply_s:.4f} "
+        f"launches={len(rec.calls) - seen}")
+
+
+def check_mega_round(name, r, placed, backend, sched):
+    ref = REF_MEGA[name]
+    got = {"placed": placed, "path": getattr(backend, "last_path", "mega"),
+           "supersteps": backend.last_supersteps,
+           "objective": sched.solver.last_result.objective,
+           "bindings_sha256": bindings_sha256(sched)}
+    for k, v in got.items():
+        check(v == ref[k][r], f"{name}(1000,10000) round {r}: {k}={v}, the JAX "
+              f"package gives {ref[k][r]}")
+    check(sched.gm.sink_node.excess == -len(sched.gm.task_to_node),
+          f"{name} round {r}: supply invariant broken")
+
+
+def phase_mega_main(dev):
+    """W(1000, 10000) through make_backend("mega") on cuda, rounds 0-2;
+    two captured solves re-solved by the plain version."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers import whare_mixed_rounds
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+    from ksched_tpu_torch.obs import SpanTracer
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+    from ksched_tpu_torch.solver.csr_solver import CsrSolver
+    from ksched_tpu_torch.solver.mega_solver import MegaSolver
+    from ksched_tpu_torch.solver.select import make_backend
+
+    backend = make_backend("mega", device=dev)
+    check(isinstance(backend, MegaSolver) and isinstance(backend.fallback, CsrSolver)
+          and backend.device.type == "cuda", "make_backend('mega') on cuda")
+    mcmf_loop.launches = transport_loop.launches = transport_loop_tiered.launches = 0
+    with Recorder(ops, "mcmf_solve") as rec, SpanTracer() as tracer:
+        seen = 0
+        mark = tracer.mark()
+        t0 = time.perf_counter()
+        for r, sched, placed in whare_mixed_rounds(1000, 10000, backend):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mega_round_line("W-mega(1000,10000)", r, placed, backend, sched, rec,
+                            seen, wall)
+            say_spans(tracer, mark)
+            check_mega_round("W", r, placed, backend, sched)
+            check(len(rec.calls) > seen, f"W-mega round {r} did not launch the kernel")
+            seen = len(rec.calls)
+            if r == 2:
+                break
+            mark = tracer.mark()
+            t0 = time.perf_counter()
+    launches = mcmf_loop.launches
+    say(f"W-mega: {len(rec.calls)} mcmf solves, {launches} kernel launches; "
+        f"transport launches {transport_loop.launches + transport_loop_tiered.launches}")
+    check(launches == len(rec.calls) and launches >= 3,
+          f"mcmf launches {launches} != solves {len(rec.calls)}")
+    check(backend.fallback.last_supersteps == 0, "MegaSolver delegated to the CSR fallback")
+    # round 0's and round 2's solves re-solved by the plain version on the card
+    picked = [0, len(rec.calls) - 1]
+    worst, plain_ms = 0, {}
+    for i in picked:
+        c = rec.calls[i]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = mcmf_loop_plain(*c["args"], **c["kw"])
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[i] = start.elapsed_time(end)
+        err = max_abs_diff(c["out"], plain)
+        worst = max(worst, err)
+        say(f"W-mega solve {i}: R={c['args'][13]} eps={c['args'][4]} "
+            f"steps={int(c['out'][1])} max_abs_err={err} vs plain "
+            f"(plain_ms={plain_ms[i]:.1f}, sweeps={mcmf_loop_plain.sweeps})")
+        c["sweeps"] = mcmf_loop_plain.sweeps
+        check(same_bits(c["out"], plain), f"W-mega solve {i}: kernel != plain")
+    check(int(rec.calls[picked[-1]]["out"][1]) == REF_MEGA["W"]["supersteps"][2],
+          "the re-solved last solve is not round 2's")
+    return launches, worst, rec.calls, picked, plain_ms
+
+
+def phase_ladder(dev):
+    """P(1000, 10000) through make_backend("auto") on cuda: dense, mega,
+    then the stall."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers import trivial_preempt_rounds
+    from ksched_tpu_torch.obs import SpanTracer
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop
+    from ksched_tpu_torch.solver.base import SolverStallError
+    from ksched_tpu_torch.solver.graph_collapse import AutoSolver
+    from ksched_tpu_torch.solver.mega_solver import MegaSolver
+    from ksched_tpu_torch.solver.select import make_backend
+
+    backend = make_backend("auto", device=dev)
+    check(isinstance(backend, AutoSolver) and isinstance(backend.mega, MegaSolver)
+          and backend.mega.device.type == "cuda", "make_backend('auto') on cuda")
+    ref = REF_MEGA["P"]
+    mcmf_loop.launches = 0
+    with Recorder(ops, "mcmf_solve") as rec, SpanTracer() as tracer:
+        run = trivial_preempt_rounds(1000, 10000, backend)
+        seen = 0
+        mark = tracer.mark()
+        t0 = time.perf_counter()
+        stalled = None
+        for r in range(3):
+            try:
+                _r, sched, placed = next(run)
+            except SolverStallError as e:
+                torch.cuda.synchronize()
+                stalled = (r, time.perf_counter() - t0, str(e))
+                break
+            torch.cuda.synchronize()
+            mega_round_line("P(1000,10000)", r, placed, backend, sched, rec, seen,
+                            time.perf_counter() - t0)
+            say_spans(tracer, mark)
+            check_mega_round("P", r, placed, backend, sched)
+            seen = len(rec.calls)
+            mark = tracer.mark()
+            t0 = time.perf_counter()
+    check(stalled is not None and stalled[0] == ref["stall"]["round"],
+          f"P did not stall on round {ref['stall']['round']}")
+    r, wall, msg = stalled
+    stall_calls = rec.calls[seen:]
+    steps = [int(c["out"][1]) for c in stall_calls]
+    ms = [c["events"][0].elapsed_time(c["events"][1]) for c in stall_calls]
+    say(f"P(1000,10000) round {r}: stalled after {wall:.3f} s ({msg}); path="
+        f"{backend.last_path} last_supersteps={backend.mega.last_supersteps} "
+        f"attempts={steps} kernel_ms={[round(x, 3) for x in ms]} "
+        f"kernel_us_per_step={1e3 * sum(ms) / max(sum(steps), 1):.3f}")
+    check(backend.last_path == ref["stall"]["path"]
+          and backend.mega.last_supersteps == ref["stall"]["last_supersteps"],
+          f"P round {r}: stall differs from the JAX package's")
+    check(steps == [4096, ref["stall"]["last_supersteps"]],
+          f"P round {r}: attempts {steps}, want [4096, 50000]")
+    launches = mcmf_loop.launches
+    check(launches == len(rec.calls) >= 3, f"P: mcmf launches {launches}")
+    say(f"P: {launches} mcmf kernel launches")
+    return launches
+
+
+def mcmf_bound_ms(c, steps, sweeps):
+    """(bytes bound, operations bound) of one captured mcmf solve."""
+    (cap, cost, supply, flow0, eps, e_arc, e_sign, e_src, e_hs, e_he,
+     e_prow, e_pcol, fwd_pos, R, L) = c["args"]
+    E = R * L
+    S = int((e_hs != 0).sum()) + int(e_hs[0] == 0)
+    nbytes = 4 * (3 * cap.numel() + supply.numel() + 7 * E + 2 * fwd_pos.numel() + 4)
+    phases = eps_phases(eps, c["kw"].get("alpha", 8))
+    ops_n = sum(k * (e * E + s * S) for (e, s), k in (
+        (OPS_MCMF_STEP, steps), (OPS_MCMF_PHASE, phases),
+        (OPS_MCMF_SWEEP, sweeps), (OPS_MCMF_ONCE, 1)))
+    return bound_ms(nbytes, ops_n)
+
+
+def phase_timing_mcmf(calls, picked, plain_ms, reps=3):
+    """The mcmf kernel's time at the re-solved captured solves (CUDA
+    events), beside its plain version's and its bound."""
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop
+
+    tot_k = tot_p = tot_b = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for i in picked:
+        c = calls[i]
+        steps = int(c["out"][1])
+        b_bytes, b_ops = mcmf_bound_ms(c, steps, c["sweeps"])
+        k_ms = timed_ms(lambda: mcmf_loop(*c["args"], **c["kw"]), reps)
+        say(f"timing mcmf solve {i} R={c['args'][13]} steps={steps} "
+            f"sweeps={c['sweeps']}: kernel_ms={k_ms:.4f} plain_ms={plain_ms[i]:.3f} "
+            f"bound_ms={max(b_bytes, b_ops):.6f} (bytes {b_bytes:.6f}, "
+            f"operations {b_ops:.6f}) kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+        tot_k += k_ms
+        tot_p += plain_ms[i]
+        tot_b += max(b_bytes, b_ops)
+        by["bytes"] += b_bytes
+        by["operations"] += b_ops
+    return tot_k, tot_p, tot_b, max(by, key=by.get)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
     # outside a checkout of the repo this import fails, before any output
-    from ksched_tpu_torch.ops import transport as transport_mod
+    from ksched_tpu_torch.ops import build as build_mod
 
     t_start = time.perf_counter()
     card = card_line()
@@ -710,12 +1021,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    libs = transport_mod.build()  # one nvcc per source, all started together
+    libs = build_mod.build()  # one nvcc per source, all started together
     say(f"build: {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s wall ("
-        + ", ".join(f"{k} {v:.2f} s" for k, v in transport_mod.build.seconds.items())
+        + ", ".join(f"{k} {v:.2f} s" for k, v in build_mod.build.seconds.items())
         + ")")
-    for name, log in transport_mod.build.log.items():
+    check(set(libs) == {"transport", "transport_tiered", "mcmf"},
+          f"built {sorted(libs)}")
+    for name, log in build_mod.build.log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
@@ -730,6 +1043,11 @@ def main() -> int:
     phase_steady(dev, cluster, tasks)
     tk_ms, tp_ms, tb_ms, t_bound_by = phase_timing_tiered(t_calls, picked, plain_ms)
     say(f"transport launches on the coco50k path: {b1_bulk}")
+    m_err = phase_parity_mcmf(dev)
+    m_launches, m_main_err, m_calls, m_picked, m_plain_ms = phase_mega_main(dev)
+    p_launches = phase_ladder(dev)
+    mk_ms, mp_ms, mb_ms, m_bound_by = phase_timing_mcmf(m_calls, m_picked, m_plain_ms)
+    say(f"mcmf launches: W-mega {m_launches}, P {p_launches}")
 
     kernels = [{
         "name": "transport",
@@ -754,6 +1072,18 @@ def main() -> int:
         "plain_ms": tp_ms,
         "bound_ms": tb_ms,
         "bound_by": t_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "mcmf",
+        "route": "cuda",
+        "source": "ksched_tpu_torch/ops/csrc/mcmf.cu",
+        "replaces": "ksched_tpu/ops/mcmf_pallas.py:108",
+        "launches": m_launches,
+        "max_abs_err": max(m_err, m_main_err),
+        "ms": mk_ms,
+        "plain_ms": mp_ms,
+        "bound_ms": mb_ms,
+        "bound_by": m_bound_by,
         "library_ms": None,
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,8 +6,9 @@ from .synthetic import (
     build_machine_topology,
     make_coordinator_root,
     make_resource_desc,
+    random_flow_problem,
 )
-from .scenarios import whare_mixed_rounds
+from .scenarios import trivial_preempt_rounds, whare_mixed_rounds
 from .device_bulk import device_bulk_rounds, steady_rounds
 
 __all__ = [
@@ -19,6 +20,8 @@ __all__ = [
     "device_bulk_rounds",
     "make_coordinator_root",
     "make_resource_desc",
+    "random_flow_problem",
     "steady_rounds",
+    "trivial_preempt_rounds",
     "whare_mixed_rounds",
 ]

@@ -185,3 +185,57 @@ def build_cluster(
             scheduler, resource_map, root, num_cores, pus_per_core, max_tasks_per_pu, machine_index=i
         )
     return scheduler, resource_map, job_map, task_map, root
+
+
+def random_flow_problem(rng, num_tasks: int, num_machines: int,
+                        slots_per_machine: int, num_jobs: int = 3,
+                        arc_slots: Optional[int] = None):
+    """A random scheduling flow network in flat arrays, drawn from the
+    numpy Generator `rng`: tasks -> (job unsched aggregator | one EC
+    | now and then a machine) ; EC -> machines ; machine -> its slot
+    PUs ; PU -> sink ; aggregators -> sink. Node 0 is the padding row.
+    `arc_slots` pads the arc arrays with zero-capacity (0, 0) self-loops
+    to that length, as the graph export pads its arc extent. The same
+    draws, in the same order, as the JAX package's test graphs
+    (tests/test_jax_solver.py random_scheduling_problem)."""
+    import numpy as np
+
+    from ..graph.device_export import FlowProblem
+
+    tasks = np.arange(1, 1 + num_tasks)
+    ec = 1 + num_tasks
+    machines = np.arange(ec + 1, ec + 1 + num_machines)
+    first_pu = ec + 1 + num_machines
+    unscheds = first_pu + num_machines * slots_per_machine + np.arange(num_jobs)
+    sink = int(unscheds[-1]) + 1
+    n = sink + 1
+    arcs = []
+    for i, t in enumerate(tasks.tolist()):
+        arcs.append((t, int(unscheds[i % num_jobs]), 1, int(rng.integers(3, 10))))
+        arcs.append((t, ec, 1, int(rng.integers(0, 5))))
+        if rng.random() < 0.3:
+            m = int(rng.integers(0, num_machines))
+            arcs.append((t, int(machines[m]), 1, int(rng.integers(0, 3))))
+    for m in range(num_machines):
+        arcs.append((ec, int(machines[m]), slots_per_machine, int(rng.integers(0, 4))))
+        for k in range(slots_per_machine):
+            pu = first_pu + m * slots_per_machine + k
+            arcs.append((int(machines[m]), pu, 1, 0))
+            arcs.append((pu, sink, 1, 0))
+    for u in unscheds.tolist():
+        arcs.append((u, sink, num_tasks, 0))
+    live = len(arcs)
+    if arc_slots is not None:
+        if arc_slots < live:
+            raise ValueError(f"{live} arcs do not fit {arc_slots} slots")
+        arcs += [(0, 0, 0, 0)] * (arc_slots - live)
+    a = np.array(arcs, np.int64).reshape(-1, 4)
+    excess = np.zeros(n, np.int64)
+    excess[tasks] = 1
+    excess[sink] = -num_tasks
+    return FlowProblem(
+        num_nodes=n, excess=excess, node_type=np.zeros(n, np.int8),
+        src=a[:, 0].astype(np.int32), dst=a[:, 1].astype(np.int32),
+        cap=a[:, 2].astype(np.int32), cost=a[:, 3].astype(np.int32),
+        flow_offset=np.zeros(len(a), np.int32), num_arcs=live,
+    )

@@ -1,0 +1,241 @@
+"""The general-graph MCMF solve as one CUDA kernel on Hopper.
+
+`mcmf_loop` (csrc/mcmf.cu) replaces ksched_tpu/ops/mcmf_pallas.py
+`_mcmf_kernel` (the `pl.pallas_call` in `mcmf_loop_pallas`): the whole
+cost-scaling push-relabel solve of solver/csr_solver.py — Bellman-Ford
+price tightening, a saturate, the eps phases and every synchronous
+push/relabel superstep — in one launch, over the padded [R * L] entry
+tables of a MegaPlan (solver/mega_solver.py). It returns what the
+Pallas kernel returns, bit for bit: the flow at each arc's forward
+entry, the superstep count, converged and p_overflow. `mcmf_loop_plain`
+is the same solve in plain PyTorch over the same tables; a CPU tensor
+runs it, a CUDA tensor launches the kernel or raises.
+
+The gathers of cap, cost, supply and flow0 into entry order and the
+final flow[fwd_pos] are torch ops around the launch, as the JAX wrapper
+leaves them to XLA around the pallas_call. `e_he` is accepted for the
+JAX signature's sake and not read: a segment ends where the next one
+starts (`e_hs`), as build_mega_plan builds it.
+
+What bounds the kernel on this card: the chain of dependent supersteps,
+not bytes or arithmetic (PERF.md). Its live set, the 22 int32 [R * L]
+tables of `MEGA_LIVE_TABLES`, stays in global memory, L2-resident below
+`MEGA_BUDGET_BYTES`; that is the card's fits gate in place of the TPU's
+VMEM gate (`mega_fits_vmem`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import check_tensor, load, raise_on
+
+_I32 = torch.int32
+_BIG = 1 << 30
+_BIG_D = 1 << 28
+_P_GUARD = 1 << 30
+
+#: lane width of the entry tiling ([R, L] row-major), as in the JAX package
+MEGA_LANES = 512
+#: int32 [R * L] tables the kernel keeps in global memory during a
+#: solve: its 9 inputs, the flow it writes and its 12 scratch tables
+#: (csrc/mcmf.cu kScratchTables)
+MEGA_LIVE_TABLES = 22
+#: the kernel's tables stay resident in the H100's 50 MB L2 when they
+#: fit in 40 MiB, leaving a fifth of it to the rest of the round's data
+MEGA_BUDGET_BYTES = 40 << 20
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "ksched_mcmf_solve": ([_VP] * 12 + [_CI] * 5 + [_VP], _CI),
+    "ksched_mcmf_scratch_words": ([_CI], ctypes.c_longlong),
+}
+
+
+def mega_entry_rows(num_entries: int, lanes: int = MEGA_LANES) -> int:
+    """Block rows R for a 2M-entry table tiled [R, lanes]."""
+    return max(1, -(-num_entries // lanes))
+
+
+def mega_fits(num_entries: int, lanes: int = MEGA_LANES,
+              budget_bytes: int = MEGA_BUDGET_BYTES) -> bool:
+    """Whether the kernel's live set for `num_entries` residual entries
+    stays within `budget_bytes`."""
+    padded = mega_entry_rows(num_entries, lanes) * lanes
+    return MEGA_LIVE_TABLES * padded * 4 <= budget_bytes
+
+
+def _entry_tables(cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs,
+                  e_prow, e_pcol, L):
+    """The per-entry tables of a solve: (sign, cap, signed scaled cost,
+    source supply, start flow, segment id, partner, head flags), the
+    gathers mcmf_loop_pallas runs before its pallas_call. Entry 0
+    always opens a segment."""
+    live = e_sign != 0
+    arc = e_arc.long().clamp(0, cap.shape[0] - 1)
+    src = e_src.long().clamp(0, supply.shape[0] - 1)
+    sign = e_sign.to(_I32)
+    cap_e = torch.where(live, cap[arc], 0)
+    sc = torch.where(live, sign * cost[arc], 0)
+    sup = torch.where(live, supply[src], 0)
+    f0 = torch.where(live, flow0[arc], 0)
+    partner = e_prow.long() * L + e_pcol.long()
+    head = e_hs != 0
+    head[0] = True
+    seg = torch.cumsum(head, 0, dtype=_I32) - 1
+    return sign, cap_e, sc, sup, f0, seg, partner, head
+
+
+def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
+                    e_arc, e_sign, e_src, e_hs, e_he, e_prow, e_pcol, fwd_pos,
+                    R: int, L: int, *, alpha: int = 8,
+                    max_supersteps: int = 50_000, tighten_sweeps: int = 32):
+    """The kernel's solve in plain PyTorch on the tensors' device: flow
+    per entry, price and excess per segment (each segment is one source
+    node's entries, and the pad), one host read of "any excess
+    positive" per superstep. Same arguments and results as
+    `mcmf_loop`."""
+    sign, cap_e, sc, sup, f, seg, partner, head = _entry_tables(
+        cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs, e_prow, e_pcol, L)
+    E = R * L
+    seg = seg.long()
+    pseg = seg[partner]
+    first = torch.nonzero(head).flatten()
+    last = torch.cat([first[1:] - 1, first.new_full((1,), E - 1)])
+    sup_s = sup[first]
+    fwd, bwd = sign > 0, sign < 0
+
+    def seg_sum(v):
+        c = torch.cumsum(v, 0, dtype=_I32)
+        return c[last] - c[first] + v[first]
+
+    def seg_reduce(v, how):
+        return torch.empty_like(sup_s).scatter_reduce_(
+            0, seg, v, how, include_self=False)
+
+    def resid(f):
+        return torch.where(fwd, cap_e - f, torch.where(bwd, f, 0))
+
+    def excess(f):
+        return sup_s - seg_sum(sign * f)
+
+    def saturate(f, p):
+        rcf = sign * (sc + p[seg] - p[pseg])
+        return torch.where(rcf < 0, cap_e, torch.where(rcf > 0, 0, f))
+
+    # price tightening: synchronous Bellman-Ford over residual reduced costs
+    r = resid(f)
+    d = torch.where(excess(f) < 0, 0, _BIG_D).to(_I32)
+    changed, it = True, 0
+    while changed and it < tighten_sweeps:
+        best = seg_reduce(torch.where(r > 0, sc + d[pseg], _BIG_D), "amin")
+        d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
+        changed = bool((d2 != d).any())
+        d, it = d2, it + 1
+    mcmf_loop_plain.sweeps = it
+    p = -torch.clamp(d, max=_BIG_D)
+    f = saturate(f, p)
+
+    eps, steps, done = int(eps_init), 0, False
+    while not done and steps < max_supersteps:
+        exc = excess(f)
+        if bool((exc > 0).any()):
+            r = resid(f)
+            pp = p[pseg]
+            exc_e = exc[seg]
+            r_adm = torch.where((r > 0) & (sc + p[seg] - pp < 0) & (exc_e > 0), r, 0)
+            # maximal push: each node's excess over its admissible entries,
+            # front to back (the in-segment exclusive prefix sum)
+            c = torch.cumsum(r_adm, 0, dtype=_I32)
+            excl = c - r_adm - (c[first] - r_adm[first])[seg]
+            delta = torch.minimum(torch.clamp(exc_e - excl, min=0), r_adm)
+            f = f + sign * (delta - delta[partner])
+            # relabel the nodes that were active but pushed nothing
+            best = seg_reduce(torch.where(r > 0, pp - sc, -_BIG), "amax")
+            relabel = (exc > 0) & (seg_sum(delta) == 0) & (seg_sum(r) > 0)
+            p = torch.where(relabel, best - eps, p)
+            steps += 1
+        elif eps <= 1:
+            done = True
+        else:
+            f = saturate(f, p)
+            eps = max(1, eps // alpha)
+    dev = f.device
+    converged = done and int(excess(f).abs().max()) == 0
+    p_overflow = int(p.abs().max()) >= _P_GUARD
+    return (f[fwd_pos.long()], torch.tensor(steps, dtype=_I32, device=dev),
+            torch.tensor(converged, device=dev),
+            torch.tensor(p_overflow, device=dev))
+
+
+#: tightening sweeps of the last call (the kernel runs the same number)
+mcmf_loop_plain.sweeps = 0
+
+
+def mcmf_loop(cap, cost, supply, flow0, eps_init,
+              e_arc, e_sign, e_src, e_hs, e_he, e_prow, e_pcol, fwd_pos,
+              R: int, L: int, *, alpha: int = 8, max_supersteps: int = 50_000,
+              tighten_sweeps: int = 32):
+    """One general-graph MCMF solve: (flow int32[len(fwd_pos)], steps
+    int32 scalar, converged bool scalar, p_overflow bool scalar) on
+    cap's device.
+
+    cap/cost/flow0 are int32[M] per arc (cost pre-scaled by the node
+    count), supply int32[N], eps_init an int; e_* are a MegaPlan's
+    int32[R * L] entry tables and fwd_pos each arc's forward entry. A
+    CUDA tensor launches the kernel (one launch, counted in
+    `mcmf_loop.launches`) or raises; a CPU tensor runs
+    `mcmf_loop_plain`."""
+    kw = dict(alpha=alpha, max_supersteps=max_supersteps,
+              tighten_sweeps=tighten_sweeps)
+    args = (cap, cost, supply, flow0, eps_init, e_arc, e_sign, e_src, e_hs,
+            e_he, e_prow, e_pcol, fwd_pos, R, L)
+    if cap.device.type == "cpu":
+        return mcmf_loop_plain(*args, **kw)
+    if cap.device.type != "cuda":
+        raise ValueError(f"mcmf_loop runs on cuda or cpu, not {cap.device}")
+    dev = cap.device
+    E = R * L
+    M = cap.shape[0]
+    for name, t, n in (("cap", cap, M), ("cost", cost, M), ("flow0", flow0, M),
+                       ("supply", supply, None), ("fwd_pos", fwd_pos, None),
+                       ("e_arc", e_arc, E), ("e_sign", e_sign, E),
+                       ("e_src", e_src, E), ("e_hs", e_hs, E),
+                       ("e_prow", e_prow, E), ("e_pcol", e_pcol, E)):
+        check_tensor(name, t, (n,), dev)
+    if M < 1 or supply.shape[0] < 1 or E < 1:
+        raise ValueError("mcmf_loop needs at least one arc, node and entry")
+    if alpha < 2:
+        raise ValueError(f"alpha must be >= 2, got {alpha}")
+    if not all(0 <= v < 1 << 31 for v in (max_supersteps, tighten_sweeps)):
+        raise ValueError("max_supersteps and tighten_sweeps must fit int32")
+    eps = int(eps_init)
+    if not -(1 << 31) <= eps < 1 << 31:
+        raise ValueError(f"eps_init {eps} does not fit int32")
+
+    sign, cap_e, sc, sup, f0, seg, partner, head = _entry_tables(
+        cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs, e_prow, e_pcol, L)
+    pseg = seg[partner]
+    tables = [t.to(_I32).contiguous() for t in
+              (sign, cap_e, sc, sup, seg, pseg, partner, head, f0)]
+    lib = load("mcmf", _SIGNATURES)
+    f = torch.empty(E, dtype=_I32, device=dev)
+    result = torch.empty(3, dtype=_I32, device=dev)  # steps, converged, p_overflow
+    scratch = torch.empty(int(lib.ksched_mcmf_scratch_words(E)), dtype=_I32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ksched_mcmf_solve(
+            *(t.data_ptr() for t in tables), f.data_ptr(), result.data_ptr(),
+            scratch.data_ptr(), E, eps, alpha, max_supersteps, tighten_sweeps,
+            stream,
+        )
+    raise_on(lib, rc, "mcmf")
+    mcmf_loop.launches += 1
+    return f[fwd_pos.long()], result[0], result[1] != 0, result[2] != 0
+
+
+#: kernel launches since the count was last set to 0
+mcmf_loop.launches = 0

@@ -37,124 +37,32 @@ card: a tensor is read by the kernel itself, so a device round can
 launch a solve whose eps it computed without a host read.
 
 The C interfaces are bound with ctypes; each library is built with nvcc
-for sm_90a from its csrc/ source at first use, into ops/_build/.
+for sm_90a from its csrc/ source at first use (ops/build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-_HERE = Path(__file__).resolve().parent
-CSRC = _HERE / "csrc"
-#: kernel name -> its CUDA source; every source includes HEADER
-SOURCES = {
-    "transport": CSRC / "transport.cu",
-    "transport_tiered": CSRC / "transport_tiered.cu",
+from .build import check_tensor as _check, load, raise_on
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "transport": {
+        "ksched_transport_solve": ([_VP] * 9 + [_CI] * 6 + [_VP], _CI),
+        "ksched_transport_scratch_words": ([_CI, _CI], ctypes.c_longlong),
+    },
+    "transport_tiered": {
+        "ksched_transport_tiered_solve": ([_VP] * 10 + [_CI] * 5 + [_VP], _CI),
+        "ksched_transport_tiered_scratch_words": ([_CI, _CI], ctypes.c_longlong),
+    },
 }
-HEADER = CSRC / "transport_common.cuh"
-BUILD_DIR = _HERE / "_build"
-
-_libs = {}
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
-                           "the transport kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path(name: str) -> Path:
-    """Where kernel `name`'s library lives, named by the hash of its
-    source and the shared header, so an edited source is rebuilt."""
-    digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + HEADER.read_bytes()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libksched_{name}_{digest}.so"
-
-
-def build(names=None) -> dict:
-    """Compile the kernels' sources (all of them by default) into shared
-    libraries under _build/, one nvcc process per source, all started
-    together. Returns {name: library path}. `build.seconds[name]` is a
-    compile's wall time (0 when the library was already there) and
-    `build.log[name]` the compiler's resource report (-Xptxas -v)."""
-    names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            build.seconds[name] = 0.0
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name]),
-        ]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
-        build.seconds[name] = time.perf_counter() - t0
-        build.log[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: library_path(name) for name in names}
-
-
-build.seconds = {}
-build.log = {}
 
 
 def _load(name: str):
-    lib = _libs.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        if name == "transport":
-            lib.ksched_transport_solve.argtypes = [vp] * 9 + [ci] * 6 + [vp]
-            lib.ksched_transport_solve.restype = ci
-            lib.ksched_transport_scratch_words.argtypes = [ci, ci]
-            lib.ksched_transport_scratch_words.restype = ctypes.c_longlong
-        else:
-            lib.ksched_transport_tiered_solve.argtypes = [vp] * 10 + [ci] * 5 + [vp]
-            lib.ksched_transport_tiered_solve.restype = ci
-            lib.ksched_transport_tiered_scratch_words.argtypes = [ci, ci]
-            lib.ksched_transport_tiered_scratch_words.restype = ctypes.c_longlong
-        lib.ksched_cuda_error_string.argtypes = [ci]
-        lib.ksched_cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return lib
-
-
-def _check(name, t, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the costs on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return load(name, _SIGNATURES[name])
 
 
 def _check_common(w, supply, col_cap, eps_init, alpha, max_supersteps,
@@ -176,12 +84,6 @@ def _check_common(w, supply, col_cap, eps_init, alpha, max_supersteps,
     if not -(1 << 31) <= int(eps_init) < 1 << 31:
         raise ValueError(f"eps_init {int(eps_init)} does not fit int32")
     return C, Mp, None
-
-
-def _raise_on(lib, rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.ksched_cuda_error_string(rc).decode())
 
 
 def transport_loop(wS, supply, col_cap, eps_init, pm0=None, *,
@@ -227,7 +129,7 @@ def transport_loop(wS, supply, col_cap, eps_init, pm0=None, *,
             C, Mp, 0 if eps_t is not None else int(eps_init), alpha,
             max_supersteps, refine_waves, stream,
         )
-    _raise_on(lib, rc, "transport")
+    raise_on(lib, rc, "transport")
     transport_loop.launches += 1
     return y, pm, result[0], result[1] != 0
 
@@ -281,7 +183,7 @@ def transport_loop_tiered(wLo, wHi, R, supply, col_cap, eps_init, *,
             result.data_ptr(), scratch.data_ptr(), C, Mp, alpha,
             max_supersteps, refine_waves, stream,
         )
-    _raise_on(lib, rc, "tiered transport")
+    raise_on(lib, rc, "tiered transport")
     transport_loop_tiered.launches += 1
     return y, pm, result[0], result[1] != 0
 

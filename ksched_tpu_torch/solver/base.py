@@ -6,11 +6,15 @@ wire format is flat arrays (graph/device_export.FlowProblem) instead of
 DIMACS text, and the backends plug in behind it:
 
 - ReferenceSolver (solver/cpu_ref.py): exact successive-shortest-path
-  oracle, pure Python — the test oracle and, for now, the general-graph
-  rung behind AutoSolver;
+  oracle, pure Python — the test oracle;
+- CsrSolver (solver/csr_solver.py): the scan-CSR cost-scaling
+  push-relabel over any graph, in plain PyTorch;
+- MegaSolver (solver/mega_solver.py): the same solve as one CUDA kernel
+  launch on the card;
 - AutoSolver (solver/graph_collapse.py): collapses the graph to a dense
   transport problem solved by LayeredTransportSolver (solver/layered.py)
-  on the chosen device — a CUDA kernel on the card.
+  on the chosen device — a CUDA kernel on the card — and sends a graph
+  that does not collapse to MegaSolver, else CsrSolver.
 """
 
 from __future__ import annotations
@@ -38,6 +42,13 @@ class FlowResult:
 
     def total_flow(self, problem: FlowProblem) -> np.ndarray:
         return self.flow + problem.flow_offset
+
+
+class SolverStallError(RuntimeError):
+    """A push-relabel solve that did not converge within its superstep
+    budget (ksched_tpu's obs/soltel.SolverStallError without the
+    telemetry evidence, which waits for the soltel port). A
+    RuntimeError, so callers that catch the bare error still do."""
 
 
 def check_finite_costs(problem: FlowProblem) -> None:

@@ -1,0 +1,437 @@
+"""The scan-CSR MCMF backend: cost-scaling push-relabel in PyTorch.
+
+Port of ksched_tpu/solver/jax_solver.py (`CsrPlan`, `build_csr_plan`,
+`_solve_mcmf`, `JaxSolver`'s non-resident policy). Arcs are doubled
+into residual entries (forward + backward) sorted by source node; each
+superstep every active node pushes along all its admissible entries at
+once (an in-segment prefix sum allocates its excess front to back) and
+an active node with no admissible entry relabels; phases shrink eps by
+alpha down to 1 on costs pre-scaled by the node count, where the flow
+is exactly optimal. Everything is int32 with wrap-around, as in the JAX
+package: flows, potentials, superstep counts and convergence flags are
+bit-identical to `_solve_mcmf`'s.
+
+There is no kernel here: the JAX package runs this solve as XLA, and
+the port runs it as plain PyTorch on the tensors' device, one Python
+iteration (and one host read of the "any node active" flag) per
+superstep. It is the mega backend's fallback and AutoSolver's CSR rung;
+the fused solve is ops/mcmf.py (kernel B3).
+
+Not ported yet: the slot-stable plan consumer (`slot_stable=True`) and
+the device-resident problem branch (ROADMAP item 8), warm-state
+checkpointing (item 9), and the soltel telemetry ring with its
+`warm_price_war` event (item 10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..graph.device_export import FlowProblem
+from .base import (
+    FlowResult,
+    FlowSolver,
+    SolverStallError,
+    check_finite_costs,
+    lower_bound_cost,
+)
+
+_I32 = torch.int32
+_BIG = 1 << 30
+_BIG_D = 1 << 28  # "unreachable" distance sentinel for price tightening
+_P_GUARD = 1 << 30  # potential magnitude beyond this risks int32 overflow
+
+
+@dataclass
+class CsrPlan:
+    """Host-prebuilt ordering of the doubled residual entries by source
+    node, with everything the solve needs for segment reductions."""
+
+    s_arc: np.ndarray  # int32[2M] arc slot per sorted entry
+    s_sign: np.ndarray  # int32[2M] +1 forward, -1 backward
+    s_src: np.ndarray  # int32[2M]
+    s_dst: np.ndarray  # int32[2M]
+    s_segstart: np.ndarray  # int32[2M] sorted index of the entry's segment start
+    s_isstart: np.ndarray  # bool[2M] segment-start flags
+    inv_order: np.ndarray  # int32[2M] sorted position of original entry j
+    node_first: np.ndarray  # int32[N] row_ptr[:-1] clamped
+    node_last: np.ndarray  # int32[N] row_ptr[1:]-1 clamped
+    node_nonempty: np.ndarray  # bool[N]
+    src: np.ndarray  # int32[M] the endpoints this plan was built for
+    dst: np.ndarray  # int32[M]
+
+    def tensors(self, device) -> tuple:
+        """The plan as `_solve_mcmf`'s ten plan arguments on `device`."""
+        return tuple(
+            torch.as_tensor(x, device=device)
+            for x in (
+                self.s_arc, self.s_sign, self.s_src, self.s_dst,
+                self.s_segstart, self.s_isstart, self.inv_order,
+                self.node_first, self.node_last, self.node_nonempty,
+            )
+        )
+
+
+def build_csr_plan(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> CsrPlan:
+    m = len(src)
+    esrc = np.concatenate([src, dst])
+    order = np.argsort(esrc, kind="stable").astype(np.int32)
+    s_src = esrc[order]
+    s_dst = np.concatenate([dst, src])[order]
+    s_arc = np.where(order < m, order, order - m).astype(np.int32)
+    s_sign = np.where(order < m, 1, -1).astype(np.int32)
+    inv_order = np.empty(2 * m, dtype=np.int32)
+    inv_order[order] = np.arange(2 * m, dtype=np.int32)
+    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    counts = np.bincount(s_src, minlength=num_nodes)
+    row_ptr[1:] = np.cumsum(counts)
+    s_segstart = row_ptr[s_src].astype(np.int32)
+    s_isstart = np.zeros(2 * m, dtype=bool)
+    s_isstart[np.unique(s_segstart)] = True
+    node_first = np.minimum(row_ptr[:-1], 2 * m - 1).astype(np.int32)
+    node_last = np.maximum(row_ptr[1:] - 1, 0).astype(np.int32)
+    node_nonempty = row_ptr[1:] > row_ptr[:-1]
+    return CsrPlan(
+        s_arc=s_arc,
+        s_sign=s_sign,
+        s_src=s_src.astype(np.int32),
+        s_dst=s_dst.astype(np.int32),
+        s_segstart=s_segstart,
+        s_isstart=s_isstart,
+        inv_order=inv_order,
+        node_first=node_first,
+        node_last=node_last,
+        node_nonempty=node_nonempty,
+        src=src.copy(),
+        dst=dst.copy(),
+    )
+
+
+def _seg_sum(vals, node_first, node_last, node_nonempty):
+    """Per-node sum over a sorted-entry array: cumsum + boundary gathers
+    (int32, wrapping like the JAX package's)."""
+    c = torch.cumsum(vals, 0, dtype=_I32)
+    excl_first = c[node_first] - vals[node_first]
+    seg = c[node_last] - excl_first
+    return torch.where(node_nonempty, seg, 0)
+
+
+def _seg_reduce(vals, isstart, node_last, node_nonempty, identity, how):
+    """Per-node max ("amax") or min ("amin") over the segments that
+    `isstart` opens: each node's value is the reduction over its own
+    entries (what the JAX package's segmented scan holds at node_last),
+    `identity` for a node without entries."""
+    seg = torch.cumsum(isstart, 0) - 1
+    per_seg = torch.full_like(vals, identity).scatter_reduce_(
+        0, seg, vals, how, include_self=False)
+    return torch.where(node_nonempty, per_seg[seg[node_last]], identity)
+
+
+def _seg_max(vals, isstart, node_last, node_nonempty, identity):
+    return _seg_reduce(vals, isstart, node_last, node_nonempty, identity, "amax")
+
+
+def _seg_min(vals, isstart, node_last, node_nonempty, identity):
+    return _seg_reduce(vals, isstart, node_last, node_nonempty, identity, "amin")
+
+
+def _solve_mcmf(
+    cap, cost, supply, flow0, eps_init,
+    s_arc, s_sign, s_src, s_dst, s_segstart, s_isstart, inv_order,
+    node_first, node_last, node_nonempty,
+    warm_p=None,
+    alpha: int = 8,
+    max_supersteps: int = 50_000,
+    tighten_sweeps: int = 32,
+    telemetry_cap: int = 0,
+    use_warm_p: bool = False,
+    slot_stable: bool = False,
+):
+    """One scan-CSR solve: (flow int32[M], p int32[N], steps int32,
+    converged bool, p_overflow bool) tensors on cap's device, equal to
+    ksched_tpu's `_solve_mcmf` bit for bit.
+
+    cap/cost/flow0 are int32[M] per arc (cost pre-scaled by the node
+    count), supply int32[N], eps_init an int or int32 scalar; the plan
+    tensors are a CsrPlan's. use_warm_p=True refits the carried
+    potentials `warm_p` (the Bellman sweeps seeded with d0 = -warm_p)
+    instead of tightening from scratch."""
+    if slot_stable:
+        raise NotImplementedError(
+            "slot-stable CSR plans are not ported yet (ROADMAP item 8)")
+    if telemetry_cap:
+        raise NotImplementedError(
+            "the soltel telemetry ring is not ported yet (ROADMAP item 10)")
+    m = cap.shape[0]
+    s_arc, s_src, s_dst, s_segstart, inv_order, node_first, node_last = (
+        t.long() for t in (s_arc, s_src, s_dst, s_segstart, inv_order,
+                           node_first, node_last))
+    s_sign = s_sign.to(_I32)
+    s_isstart = s_isstart.to(torch.bool)
+    node_nonempty = node_nonempty.to(torch.bool)
+    s_cap = cap[s_arc]
+    s_cost = s_sign * cost[s_arc]
+    fwd_pos = inv_order[:m]
+    cap_src = s_src[fwd_pos]
+    cap_dst = s_dst[fwd_pos]
+
+    def residual(a_flow):
+        return torch.where(s_sign > 0, s_cap - a_flow, a_flow)
+
+    def excess_of(flow):
+        return supply - _seg_sum(s_sign * flow[s_arc], node_first, node_last,
+                                 node_nonempty)
+
+    def saturate(flow, p):
+        """Refine step: saturate every residual entry with negative
+        reduced cost, making the pseudoflow 0-optimal for the phase."""
+        rc_fwd = cost + p[cap_src] - p[cap_dst]
+        return torch.where(rc_fwd < 0, cap, torch.where(rc_fwd > 0, 0, flow))
+
+    def tighten(flow, d0=None):
+        """Price tightening: p = -(shortest residual-cost distance to a
+        demand node) by synchronous Bellman-Ford sweeps over the sorted
+        entries; seeded with an explicit d0 it is the warm refit."""
+        r = residual(flow[s_arc])
+        if d0 is None:
+            d0 = torch.where(excess_of(flow) < 0, 0, _BIG_D).to(_I32)
+        d, changed, it = d0, True, 0
+        while changed and it < tighten_sweeps:
+            cand = torch.where(r > 0, s_cost + d[s_dst], _BIG_D)
+            best = _seg_min(cand, s_isstart, node_last, node_nonempty, _BIG_D)
+            d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
+            changed = bool((d2 != d).any())
+            d, it = d2, it + 1
+        return -torch.clamp(d, max=_BIG_D)
+
+    def superstep(flow, p, eps, excess):
+        r = residual(flow[s_arc])
+        rc = s_cost + p[s_src] - p[s_dst]
+        e_at = excess[s_src]
+        admissible = (r > 0) & (rc < 0) & (e_at > 0)
+        # maximal push: allocate each node's excess across its admissible
+        # entries front to back by an in-segment exclusive prefix sum
+        r_adm = torch.where(admissible, r, 0)
+        excl = torch.cumsum(r_adm, 0, dtype=_I32) - r_adm
+        prefix_before = excl - excl[s_segstart]
+        delta = torch.minimum(torch.clamp(e_at - prefix_before, min=0), r_adm)
+        delta_orig = delta[inv_order]
+        new_flow = flow + delta_orig[:m] - delta_orig[m:]
+        # relabel the nodes that were active but pushed nothing
+        pushed = _seg_sum(delta, node_first, node_last, node_nonempty)
+        sum_r = _seg_sum(r, node_first, node_last, node_nonempty)
+        cand = torch.where(r > 0, p[s_dst] - s_cost, -_BIG)
+        best = _seg_max(cand, s_isstart, node_last, node_nonempty, -_BIG)
+        relabel = (excess > 0) & (pushed == 0) & (sum_r > 0)
+        return new_flow, torch.where(relabel, best - eps, p)
+
+    if use_warm_p:
+        p = tighten(flow0, d0=torch.clamp(-warm_p, -_BIG_D, _BIG_D))
+    else:
+        p = tighten(flow0)
+    flow = saturate(flow0, p)  # mop up any residual violations
+    eps, steps, done = int(eps_init), 0, False
+    while not done and steps < max_supersteps:
+        excess = excess_of(flow)
+        if bool((excess > 0).any()):
+            flow, p = superstep(flow, p, eps, excess)
+            steps += 1
+        elif eps <= 1:
+            done = True
+        else:
+            flow = saturate(flow, p)
+            eps = max(1, eps // alpha)
+    dev = cap.device
+    converged = done and int(excess_of(flow).abs().max()) == 0
+    p_overflow = int(p.abs().max()) >= _P_GUARD
+    return (
+        flow, p, torch.tensor(steps, dtype=_I32, device=dev),
+        torch.tensor(converged, device=dev), torch.tensor(p_overflow, device=dev),
+    )
+
+
+class CsrSolver(FlowSolver):
+    """Cost-scaling push-relabel over the scan-CSR layout, warm-started
+    across rounds: ksched_tpu's JaxSolver on plain host problems.
+
+    The warm policy is JaxSolver's. The previous round's flow is carried
+    on arcs whose endpoints are unchanged since the last successful
+    solve; with ``journal_scoped_warm`` (default) it is carried only
+    when no arc was re-wired (plan_key equal to the last solve's; a
+    problem without a key compares the endpoint arrays), since
+    discharging displaced flow is a unit-relabel price war. Carried
+    potentials are refitted (``warm_potentials``). Attempt 1 runs at
+    eps 1 within min(4096, max_supersteps) supersteps
+    (``restart_budget`` caps a kept-flow attempt and escapes to a fresh
+    restart); the last resort is a cold cost-scaling solve from
+    max|cost|·n. Tensors live on ``device`` ("cuda" by default; it
+    raises where there is no card)."""
+
+    def __init__(self, alpha: int = 8, max_supersteps: int = 50_000,
+                 warm_start: bool = True, warm_potentials: bool = True,
+                 restart_budget: Optional[int] = None,
+                 journal_scoped_warm: bool = True, device="cuda"):
+        from ..utils.device import resolve_device
+        from .layered import validate_alpha
+
+        self.alpha = validate_alpha(alpha)
+        self.max_supersteps = max_supersteps
+        self.warm_start = warm_start
+        self.warm_potentials = warm_potentials
+        self.journal_scoped_warm = journal_scoped_warm
+        self.restart_budget = restart_budget
+        self.device = resolve_device(device)
+        self._prev: Optional[np.ndarray] = None  # previous round's flow
+        self._prev_p: Optional[torch.Tensor] = None  # and its potentials
+        #: endpoints at the LAST SUCCESSFUL SOLVE (the warm mask)
+        self._prev_src_host: Optional[np.ndarray] = None
+        self._prev_dst_host: Optional[np.ndarray] = None
+        self._plan: Optional[CsrPlan] = None
+        self._plan_dev: Optional[tuple] = None
+        self._plan_key = None
+        #: endpoint key at the last successful solve
+        self._key_solved = None
+        self.last_supersteps = 0
+        self.last_warm_scope = "cold"  # warm | fresh | cold
+
+    def reset(self) -> None:
+        self._prev = None
+        self._prev_p = None
+        self._prev_src_host = None
+        self._prev_dst_host = None
+        self._key_solved = None
+
+    def _plan_for(self, src, dst, n, plan_key=None) -> tuple:
+        plan = self._plan
+        if plan_key is not None and self._plan_key == plan_key and plan is not None:
+            return self._plan_dev  # generation key match: no scans at all
+        if plan is None or len(plan.src) != len(src) or len(plan.node_first) != n or plan_key is not None or not (
+            np.array_equal(plan.src, src) and np.array_equal(plan.dst, dst)
+        ):
+            plan = build_csr_plan(src, dst, n)
+            self._plan = plan
+            self._plan_dev = plan.tensors(self.device)
+        self._plan_key = plan_key
+        return self._plan_dev
+
+    def _attempt(self, args, flow0, eps, budget, warm_p=None):
+        return _solve_mcmf(
+            *args[:3], flow0, eps, *args[3:], warm_p=warm_p,
+            use_warm_p=warm_p is not None, alpha=self.alpha,
+            max_supersteps=budget,
+        )
+
+    def solve_async(self, problem: FlowProblem):
+        """Run the warm attempt; complete() escalates if it failed."""
+        n = problem.num_nodes
+        m = len(problem.src)
+        if m == 0 or problem.num_arcs == 0:
+            if (problem.excess > 0).any():
+                raise RuntimeError("infeasible flow problem: supply but no arcs")
+            return (problem, None, None)
+        if getattr(problem, "plan", None) is not None or getattr(problem, "d_cap", None) is not None:
+            raise NotImplementedError(
+                "slot-stable plans and device-resident problems are not "
+                "ported yet (ROADMAP item 8)")
+        check_finite_costs(problem)
+        src = np.asarray(problem.src, np.int32)
+        dst = np.asarray(problem.dst, np.int32)
+        max_cost = int(np.abs(problem.cost).max()) if m else 0
+        if max_cost * n >= (1 << 30):
+            raise OverflowError(
+                f"scaled costs overflow int32: max|cost|={max_cost} at {n} nodes; "
+                "rescale cost-model outputs or shrink the graph padding"
+            )
+        plan_key = getattr(problem, "plan_key", None)
+        plan_dev = self._plan_for(src, dst, n, plan_key=plan_key)
+        keep_flow = True
+        if self.journal_scoped_warm and plan_key is not None:
+            keep_flow = self._key_solved is not None and plan_key == self._key_solved
+        cap = problem.cap.astype(np.int32)
+        supply = problem.excess.astype(np.int32)
+        cost = problem.cost.astype(np.int32) * np.int32(n)
+        warm = (
+            self.warm_start
+            and keep_flow
+            and self._prev is not None
+            and len(self._prev) == m
+            and self._prev_src_host is not None
+            and len(self._prev_src_host) == m
+        )
+        flow0 = np.zeros(m, dtype=np.int32)
+        if warm:
+            same = (self._prev_src_host == src) & (self._prev_dst_host == dst)
+            if self.journal_scoped_warm and plan_key is None and not same.all():
+                warm = False
+            else:
+                flow0 = np.where(same, np.minimum(self._prev, cap), 0).astype(np.int32)
+        had_state = self._prev is not None
+        self.last_warm_scope = "warm" if warm else ("fresh" if had_state else "cold")
+        dev = self.device
+        args = tuple(torch.as_tensor(x, device=dev) for x in (cap, cost, supply)) + plan_dev
+        warm_p_ok = (
+            self.warm_potentials
+            and warm
+            and self._prev_p is not None
+            and self._prev_p.shape[0] == n
+        )
+        budget = min(4096, self.max_supersteps)
+        if warm and self.restart_budget is not None:
+            budget = min(budget, self.restart_budget)
+        out = self._attempt(args, torch.as_tensor(flow0, device=dev), 1, budget,
+                            self._prev_p if warm_p_ok else None)
+        cold = max(1, max_cost * n)
+        return (problem, out, (args, cold, warm))
+
+    def complete(self, pending) -> FlowResult:
+        problem, out, rest = pending
+        if out is None:
+            return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),
+                              objective=0, iterations=0)
+        args, eps_cold, warm = rest
+        m = len(problem.src)
+        zeros = torch.zeros(m, dtype=_I32, device=self.device)
+        flow, p, steps, converged, p_overflow = out
+        spent = int(steps)
+        ok = bool(converged) and not bool(p_overflow)
+        if warm and not ok and self.restart_budget is not None:
+            # restart escape: a warm attempt that blew its budget
+            # re-solves fresh (zero flow, tightened prices, eps 1)
+            flow, p, steps, converged, p_overflow = self._attempt(
+                args, zeros, 1, min(4096, self.max_supersteps))
+            spent += int(steps)
+            ok = bool(converged) and not bool(p_overflow)
+        if not ok:
+            flow, p, steps, converged, p_overflow = self._attempt(
+                args, zeros, eps_cold, self.max_supersteps)
+            spent += int(steps)
+        # every attempt's supersteps: the work this round, not the winner's
+        self.last_supersteps = spent
+        if bool(p_overflow) or not bool(converged):
+            self.reset()  # never reuse the state that failed
+        if bool(p_overflow):
+            raise OverflowError("push-relabel potentials approached int32 range")
+        if not bool(converged):
+            raise SolverStallError(
+                f"push-relabel did not converge within {self.max_supersteps} supersteps; "
+                "the flow problem may be infeasible (missing unscheduled-aggregator arcs?)"
+            )
+        flow_np = flow.cpu().numpy()
+        if self.warm_start:
+            self._prev = flow_np.astype(np.int32)
+            self._prev_src_host = np.asarray(problem.src, np.int32)
+            self._prev_dst_host = np.asarray(problem.dst, np.int32)
+            self._key_solved = getattr(problem, "plan_key", None)
+            self._prev_p = p
+        objective = int(
+            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()
+        ) + lower_bound_cost(problem)
+        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,
+                          iterations=spent)
+
+    def solve(self, problem: FlowProblem) -> FlowResult:
+        return self.complete(self.solve_async(problem))

@@ -15,8 +15,8 @@ predicate so the choice is automatic per solve:
          arc arrays. Collapsible -> group tasks into signature rows,
          solve ONE dense transport, reconstruct exact per-arc flows.
          Any refusal (with a reason, kept for observability) -> the
-         general-graph backend, unchanged semantics (in this package,
-         for now, the exact cpu_ref oracle).
+         general-graph backends, unchanged semantics: the mcmf kernel
+         when the graph fits it, else the scan-CSR solve.
 
 Soundness: every refusal is conservative (routing to CSR can only cost
 time, never correctness), and the collapse itself is exact by the
@@ -655,35 +655,54 @@ def try_collapse(problem) -> Tuple[Optional[GraphCollapse], str]:
 
 
 class AutoSolver(FlowSolver):
-    """The automatic policy-dispatch seam: dense transport on `device`
-    when the graph is collapsible, the general-graph CSR backend
-    otherwise. Drop-in FlowSolver (PlacementSolver/FlowScheduler-
-    compatible); `last_path` ("dense" | "csr") / `last_refusal` expose
-    which way each solve went and why.
+    """The automatic policy-dispatch seam, a three-rung ladder: dense
+    transport on `device` when the graph is collapsible, the mcmf
+    kernel (solver/mega_solver.py) when a general graph fits its
+    budget, the general-graph CSR backend otherwise. Drop-in
+    FlowSolver (PlacementSolver/FlowScheduler-compatible); `last_path`
+    ("dense" | "mega" | "csr") / `last_refusal` / `last_mega_refusal`
+    expose which way each solve went and why.
 
-    ksched_tpu's ladder also has a megakernel rung and a sharded
-    multi-chip rung between these two; they come with their own
-    kernels in later parts of the port."""
+    `mega` is optional: without it the ladder is dense -> CSR.
+    ksched_tpu's ladder also has a sharded multi-chip rung after the
+    CSR one; it comes in a later part of the port."""
 
     def __init__(self, csr_backend: FlowSolver,
                  alpha: int = 8, max_supersteps: int = 1 << 17,
-                 device="cuda"):
+                 mega: Optional[FlowSolver] = None, device="cuda"):
         from ..utils.device import resolve_device
 
         self.csr = csr_backend
+        self.mega = mega
         self.device = resolve_device(device)
         self.alpha = alpha
         self.max_supersteps = max_supersteps
         self.last_path = ""
         self.last_refusal = ""
+        self.last_mega_refusal = ""
         self.last_supersteps = 0
 
     def reset(self) -> None:
         self.csr.reset()
+        if self.mega is not None:
+            self.mega.reset()
 
     def solve(self, problem) -> FlowResult:
         collapse, reason = try_collapse(problem)
         if collapse is None:
+            mega = self.mega
+            if mega is not None and mega.fits(problem):
+                self.last_path, self.last_refusal = "mega", reason
+                self.last_mega_refusal = ""
+                res = mega.solve(problem)
+                self.last_supersteps = getattr(
+                    mega, "last_supersteps", res.iterations
+                )
+                return res
+            self.last_mega_refusal = (
+                getattr(mega, "last_refusal", "") if mega is not None
+                else "no megakernel attached"
+            )
             self.last_path, self.last_refusal = "csr", reason
             res = self.csr.solve(problem)
             ss = getattr(self.csr, "last_supersteps", None)
@@ -693,6 +712,7 @@ class AutoSolver(FlowSolver):
             )
             return res
         self.last_path, self.last_refusal = "dense", ""
+        self.last_mega_refusal = ""
         return self._solve_dense(problem, collapse)
 
     def _solve_dense(self, problem, gc: GraphCollapse) -> FlowResult:

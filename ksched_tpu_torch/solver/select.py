@@ -2,9 +2,9 @@
 
 Mirrors the reference's solver selection flags (placement/solver.go:
 30-34). Every backend that runs device work takes ``device``: the
-default ``"cuda"`` runs the transport solve in its CUDA kernel and
-raises when no CUDA device is present; ``"cpu"`` runs the kernel's
-plain PyTorch version.
+default ``"cuda"`` runs its solves in their CUDA kernels and raises
+when no CUDA device is present; ``"cpu"`` runs the kernels' plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -13,21 +13,36 @@ from .base import FlowSolver
 
 
 def make_backend(name: str, device="cuda") -> FlowSolver:
-    """name: "auto" | "layered" | "ref".
+    """name: "auto" | "jax" | "mega" | "layered" | "ref".
 
     - "auto": AutoSolver — the dense transport whenever the graph
-      audits as collapsible, else the general-graph rung (for now the
-      exact cpu_ref oracle);
+      audits as collapsible, else the mcmf kernel (MegaSolver) when the
+      graph fits it, else the scan-CSR solve (CsrSolver);
+    - "jax": CsrSolver, the scan-CSR solve (the JAX package's
+      JaxSolver under the same name);
+    - "mega": MegaSolver on every solve, delegating a graph it refuses
+      to a CsrSolver;
     - "layered": LayeredTransportSolver (solve_layered only);
     - "ref": the exact host oracle (device is checked, not used)."""
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
     if name == "auto":
-        from .cpu_ref import ReferenceSolver
+        from .csr_solver import CsrSolver
         from .graph_collapse import AutoSolver
+        from .mega_solver import MegaSolver
 
-        return AutoSolver(ReferenceSolver(), device=dev)
+        return AutoSolver(CsrSolver(device=dev), mega=MegaSolver(device=dev),
+                          device=dev)
+    if name == "jax":
+        from .csr_solver import CsrSolver
+
+        return CsrSolver(device=dev)
+    if name == "mega":
+        from .csr_solver import CsrSolver
+        from .mega_solver import MegaSolver
+
+        return MegaSolver(fallback=CsrSolver(device=dev), device=dev)
     if name == "layered":
         from .layered import LayeredTransportSolver
 
@@ -36,4 +51,5 @@ def make_backend(name: str, device="cuda") -> FlowSolver:
         from .cpu_ref import ReferenceSolver
 
         return ReferenceSolver()
-    raise ValueError(f"unknown backend {name!r}; want auto | layered | ref")
+    raise ValueError(
+        f"unknown backend {name!r}; want auto | jax | mega | layered | ref")

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA transport kernels (plain and tiered)
-against their plain PyTorch versions, bit for bit, Scenario W(20, 200)
-through the default cuda backend, and the device-resident round on the
-card against the same round on the CPU. Marked `cuda`; every test skips where no CUDA
-device is present. Imports nothing of JAX, so it runs on a machine
+and the mcmf kernel against their plain PyTorch versions, bit for bit,
+Scenario W(20, 200) through the default cuda backend and through
+"mega", Scenario P(20, 200) on the card against the CPU, and the
+device-resident round on the card against the same round on the CPU.
+Marked `cuda`; every test skips where no CUDA device is present. Imports nothing of JAX, so it runs on a machine
 without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -210,3 +211,101 @@ def test_device_bulk_on_card_matches_cpu(card):
         ran = (transport_loop.launches - launches[0],
                transport_loop_tiered.launches - launches[1])
         assert (ran[1] > 0 and ran[0] == 0) if preemption else (ran[0] > 0 and ran[1] == 0)
+
+
+def _mcmf_case(seed, dev, lanes=None, arc_slots=None, tasks=40, machines=4,
+               slots=3):
+    """A seeded scheduling graph as mcmf_loop's arguments on `dev`:
+    (arc and node tensors, entry tables, R, L, cold eps)."""
+    from ksched_tpu_torch.drivers import random_flow_problem
+    from ksched_tpu_torch.solver.csr_solver import build_csr_plan
+    from ksched_tpu_torch.solver.mega_solver import _pad_pow2, build_mega_plan
+
+    p = random_flow_problem(np.random.default_rng(seed), tasks, machines, slots,
+                            arc_slots=arc_slots)
+    n = p.num_nodes
+    plan = build_mega_plan(build_csr_plan(p.src, p.dst, n), lanes)
+    arrays = [_pad_pow2(x) for x in (p.cap, p.cost * np.int32(n),
+                                     p.excess.astype(np.int32),
+                                     np.zeros(len(p.src), np.int32))]
+    tables = [plan.e_arc, plan.e_sign, plan.e_src, plan.e_hs, plan.e_he,
+              plan.e_prow, plan.e_pcol, _pad_pow2(plan.fwd_pos)]
+    on = [torch.as_tensor(x, device=dev) for x in arrays]
+    tab = [torch.as_tensor(x, device=dev) for x in tables]
+    return on, tab, plan.R, plan.L, max(1, int(np.abs(p.cost).max()) * n)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("lanes", [None, 8])
+@pytest.mark.parametrize("cold", [False, True], ids=["eps1", "cold"])
+def test_mcmf_kernel_matches_plain(card, seed, lanes, cold):
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+
+    a, t, R, L, eps_cold = _mcmf_case(seed, card, lanes, tasks=40 + 30 * seed)
+    eps = eps_cold if cold else 1
+    before = mcmf_loop.launches
+    got = mcmf_loop(*a[:4], eps, *t, R, L)
+    assert mcmf_loop.launches == before + 1
+    want = mcmf_loop_plain(*a[:4], eps, *t, R, L)
+    assert bool(want[2])
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+    # stopped mid-solve, both hold the same state
+    got = mcmf_loop(*a[:4], eps, *t, R, L, max_supersteps=7)
+    want = mcmf_loop_plain(*a[:4], eps, *t, R, L, max_supersteps=7)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_mcmf_kernel_matches_plain_at_r256(card):
+    """The 10k x 1k shape: 65,536 arc slots (export-style padding), so
+    131,072 entries in R = 256 rows of 512 lanes. Bounded at 300
+    supersteps: converged or not, the bits must match."""
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+
+    a, t, R, L, eps = _mcmf_case(5, card, arc_slots=65_536, tasks=15_000,
+                                 machines=1000, slots=8)
+    assert R == 256
+    for e in (1, eps):
+        got = mcmf_loop(*a[:4], e, *t, R, L, max_supersteps=300)
+        want = mcmf_loop_plain(*a[:4], e, *t, R, L, max_supersteps=300)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_mcmf_kernel_rejects_bad_inputs(card):
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop
+
+    a, t, R, L, _eps = _mcmf_case(0, card)
+    with pytest.raises(TypeError):
+        mcmf_loop(a[0].to(torch.int64), *a[1:4], 1, *t, R, L)
+    with pytest.raises(ValueError):
+        mcmf_loop(*a[:4], 1, *t[:3], t[3][:-1], *t[4:], R, L)
+    with pytest.raises(ValueError):
+        mcmf_loop(*a[:3], a[3].cpu(), 1, *t, R, L)
+    with pytest.raises(ValueError):
+        mcmf_loop(*a[:4], 1, *t, R, L, alpha=1)
+
+
+@pytest.mark.parametrize("name", ["W", "P"])
+def test_general_graph_scenarios_on_card_match_cpu(card, name):
+    """W(20, 200) through "mega" and P(20, 200) through "auto": the card
+    gives the CPU's values every round, with the kernel launched."""
+    from ksched_tpu_torch.drivers import trivial_preempt_rounds, whare_mixed_rounds
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop
+    from ksched_tpu_torch.solver.select import make_backend
+
+    rounds = whare_mixed_rounds if name == "W" else trivial_preempt_rounds
+    kind = "mega" if name == "W" else "auto"
+
+    def run(dev):
+        b = make_backend(kind, device=dev)
+        return [(placed, getattr(b, "last_path", "mega"), b.last_supersteps,
+                 sched.solver.last_result.objective,
+                 sorted(sched.get_task_bindings().items()))
+                for _r, sched, placed in rounds(20, 200, b)]
+
+    before = mcmf_loop.launches
+    on_card = run(card)
+    assert mcmf_loop.launches - before >= 3
+    assert on_card == run("cpu")

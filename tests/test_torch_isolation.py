@@ -83,12 +83,16 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from ksched_tpu_torch.solver.layered import LayeredTransportSolver
     from ksched_tpu_torch.solver.select import make_backend
 
+    from ksched_tpu_torch.solver.csr_solver import CsrSolver
+    from ksched_tpu_torch.solver.mega_solver import MegaSolver
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("auto", "layered", "ref"):
+    for name in ("auto", "jax", "mega", "layered", "ref"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_backend(name)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        AutoSolver(None)
+    for entry in (AutoSolver, CsrSolver, MegaSolver):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(None) if entry is AutoSolver else entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LayeredTransportSolver()
     # the scheduler's default backend is make_backend("auto")
@@ -96,3 +100,4 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
         build_cluster(num_machines=2)
     # the CPU stays available on request
     assert make_backend("auto", device="cpu").device.type == "cpu"
+    assert make_backend("mega", device="cpu").device.type == "cpu"
