@@ -34,10 +34,15 @@ no result line):
    held;
 8. timing of the tiered kernel at its captured shapes beside its plain
    version and its bound;
-9. mcmf kernel parity: the general-graph kernel against its plain
-   PyTorch version on the card, bit for bit, on seeded scheduling graphs
-   at 512 and 8 lanes (R > 1), at eps 1 and cold, with a pad segment,
-   and at the 10k x 1k shape (R = 256, cut at 300 supersteps);
+9. mcmf kernel parity: the general-graph kernel (one cooperative grid)
+   against its plain PyTorch version on the card, bit for bit, on seeded
+   scheduling graphs at 512 and 8 lanes, at eps 1 and cold, with a pad
+   segment; on grids of 1 to 128 blocks: a segment over four blocks with
+   headless middle blocks, heads on blocks' first entries, ragged and
+   full last blocks, a cold solve that converges across blocks, the 10k
+   x 1k shape (R = 256, 128 blocks on 132 SMs) and R = 300 (two steps
+   per warp), the long ones cut short; the wrapper's scratch count
+   against the kernel's;
 10. the general-graph path: Scenario W(1000, 10000) through
    FlowScheduler.schedule_all_jobs with make_backend("mega") on cuda,
    rounds 0-2, every round on the mcmf kernel and never on the CSR
@@ -49,8 +54,10 @@ no result line):
    with make_backend("auto") on cuda: round 0 dense, round 1 on the mega
    rung with the JAX package's values, round 2 stalling as the JAX
    package's does (50,000 supersteps in the cold attempt);
-12. timing of the mcmf kernel at the re-solved shapes beside its plain
-   version and its bound, then the `kernels` line and the result line.
+12. timing of the mcmf kernel at the re-solved shapes (blocks, grid
+   barriers per superstep, time per superstep) beside its plain version
+   and its bound, and of its grid barrier alone; then the `kernels` line
+   and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -792,13 +799,34 @@ def mcmf_case(seed, dev, lanes=None, tasks=40, machines=4, slots=3, arc_slots=No
 
 
 def phase_parity_mcmf(dev):
-    """The mcmf kernel against its plain version on seeded graphs."""
-    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+    """The mcmf kernel against its plain version on seeded graphs, one
+    block to the full grid (the layouts of the cross-block cases are
+    checked on the CPU in tests/test_torch_mcmf_grid.py)."""
+    from ksched_tpu_torch.ops.build import load
+    from ksched_tpu_torch.ops.mcmf import (
+        _SIGNATURES,
+        mcmf_loop,
+        mcmf_loop_plain,
+        mcmf_scratch_words,
+    )
 
-    worst, pads = 0, 0
+    lib = load("mcmf", _SIGNATURES)
+    for E, blocks in ((512, 1), (15_872, 16), (131_072, 128), (153_600, 75)):
+        check(lib.ksched_mcmf_scratch_words(E, blocks) == mcmf_scratch_words(E, blocks),
+              f"scratch words at E={E}, {blocks} blocks: the wrapper and kernel differ")
+    worst, pads, grids = 0, 0, set()
+    # (seed, lanes, tasks, machines, slots, arc_slots, budget)
     cases = [(0, None, 40, 4, 3, None, 50_000), (1, 8, 40, 4, 3, None, 50_000),
              (2, None, 200, 15, 4, None, 50_000), (3, 8, 200, 15, 4, None, 50_000),
-             (4, None, 15_000, 1000, 8, 65_536, 300)]
+             (4, None, 15_000, 1000, 8, 65_536, 300),
+             # a segment over four blocks, heads on blocks' first entries, R = 31
+             (0, None, 3000, 100, 4, None, 2000),
+             # twelve full blocks (R = 24)
+             (8, None, 2500, 60, 3, None, 2000),
+             # five blocks, the cold solve converges
+             (2, None, 800, 30, 4, None, 3000),
+             # R = 300: two 32-entry steps per warp
+             (5, None, 15_000, 1000, 8, 76_800, 300)]
     for seed, lanes, tasks, machines, slots, arc_slots, budget in cases:
         (a, t), R, L, eps_cold, pad = mcmf_case(seed, dev, lanes, tasks, machines,
                                                 slots, arc_slots)
@@ -806,17 +834,22 @@ def phase_parity_mcmf(dev):
         for eps in (1, eps_cold):
             args = (*a, eps, *t, R, L)
             k = mcmf_loop(*args, max_supersteps=budget)
+            blocks = mcmf_loop.last_blocks
             p = mcmf_loop_plain(*args, max_supersteps=budget)
             torch.cuda.synchronize()
             err = max_abs_diff(k, p)
             worst = max(worst, err)
             ok = same_bits(k, p)
-            say(f"mcmf parity R={R} L={L} pad={pad} eps={eps} budget={budget}: "
-                f"steps={int(k[1])} converged={bool(k[2])} max_abs_err={err} "
+            grids.add(blocks)
+            say(f"mcmf parity R={R} L={L} blocks={blocks} pad={pad} eps={eps} "
+                f"budget={budget}: steps={int(k[1])} converged={bool(k[2])} "
+                f"barriers={int(mcmf_loop.last_barriers)} max_abs_err={err} "
                 f"{'bit-identical' if ok else 'MISMATCH'}")
             check(ok, f"mcmf kernel != plain at R={R} L={L} eps={eps}")
             check(bool(k[2]) or budget < 50_000, f"R={R} L={L} eps={eps}: no convergence")
+            check(blocks > 1 or R * L <= 1024, f"R={R} L={L} ran on one block")
     check(pads > 0, "no parity case had a pad segment")
+    check(1 in grids and max(grids) >= 128, f"parity grids {sorted(grids)}")
     return worst
 
 
@@ -954,6 +987,7 @@ def phase_ladder(dev):
     ms = [c["events"][0].elapsed_time(c["events"][1]) for c in stall_calls]
     say(f"P(1000,10000) round {r}: stalled after {wall:.3f} s ({msg}); path="
         f"{backend.last_path} last_supersteps={backend.mega.last_supersteps} "
+        f"blocks={mcmf_loop.last_blocks} "
         f"attempts={steps} kernel_ms={[round(x, 3) for x in ms]} "
         f"kernel_us_per_step={1e3 * sum(ms) / max(sum(steps), 1):.3f}")
     check(backend.last_path == ref["stall"]["path"]
@@ -983,8 +1017,10 @@ def mcmf_bound_ms(c, steps, sweeps):
 
 def phase_timing_mcmf(calls, picked, plain_ms, reps=3):
     """The mcmf kernel's time at the re-solved captured solves (CUDA
-    events), beside its plain version's and its bound."""
-    from ksched_tpu_torch.ops.mcmf import mcmf_loop
+    events), beside its plain version's and its bound: its grid, the
+    grid barriers it ran per superstep, its time per superstep; then
+    the grid barrier alone at that grid."""
+    from ksched_tpu_torch.ops.mcmf import barrier_probe_ms, mcmf_loop
 
     tot_k = tot_p = tot_b = 0.0
     by = {"bytes": 0.0, "operations": 0.0}
@@ -993,15 +1029,24 @@ def phase_timing_mcmf(calls, picked, plain_ms, reps=3):
         steps = int(c["out"][1])
         b_bytes, b_ops = mcmf_bound_ms(c, steps, c["sweeps"])
         k_ms = timed_ms(lambda: mcmf_loop(*c["args"], **c["kw"]), reps)
+        blocks, barriers = mcmf_loop.last_blocks, int(mcmf_loop.last_barriers)
         say(f"timing mcmf solve {i} R={c['args'][13]} steps={steps} "
-            f"sweeps={c['sweeps']}: kernel_ms={k_ms:.4f} plain_ms={plain_ms[i]:.3f} "
-            f"bound_ms={max(b_bytes, b_ops):.6f} (bytes {b_bytes:.6f}, "
-            f"operations {b_ops:.6f}) kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+            f"sweeps={c['sweeps']} blocks={blocks} barriers={barriers} "
+            f"barriers_per_step={barriers / max(steps, 1):.3f}: kernel_ms={k_ms:.4f} "
+            f"plain_ms={plain_ms[i]:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
+            f"(bytes {b_bytes:.6f}, operations {b_ops:.6f}) "
+            f"kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
         tot_k += k_ms
         tot_p += plain_ms[i]
         tot_b += max(b_bytes, b_ops)
         by["bytes"] += b_bytes
         by["operations"] += b_ops
+    n = 10_000
+    for blocks in sorted({1, mcmf_loop.last_blocks}):
+        barrier_probe_ms(calls[0]["args"][0].device, blocks, n)  # warm-up
+        ms = barrier_probe_ms(calls[0]["args"][0].device, blocks, n)
+        say(f"timing mcmf grid barrier alone: blocks={blocks} "
+            f"us_per_barrier={1e3 * ms / n:.4f} ({n} barriers in {ms:.3f} ms)")
     return tot_k, tot_p, tot_b, max(by, key=by.get)
 
 

@@ -1,4 +1,4 @@
-// The general-graph MCMF solve as one CUDA kernel on Hopper.
+// The general-graph MCMF solve as one cooperative CUDA kernel on Hopper.
 //
 // Replaces ksched_tpu/ops/mcmf_pallas.py::_mcmf_kernel (the pl.pallas_call
 // in mcmf_loop_pallas): Bellman-Ford price tightening (at most
@@ -14,30 +14,45 @@
 // runs the head flags open; the pad entries form one trailing segment),
 // the partner entry (the same arc's other entry) and the partner's
 // segment id. Per entry the kernel keeps the arc's flow; per segment the
-// source node's potential and excess. The one cross-entry read of the
-// TPU kernel, perm(x) = x[partner], becomes p[pseg] (a price) or
-// delta[partner] (a push).
+// source node's potential; the excess is the segment's supply less its
+// flow sum. The one cross-entry read of the TPU kernel, perm(x) =
+// x[partner], becomes p[pseg] (a price) or delta[partner] (a push).
+//
+// The grid. One block of 1024 threads per SM, launched cooperatively so
+// that every block is resident, as many blocks as the entries need at 32
+// per warp (ops/mcmf.py mcmf_grid). Global warp w owns `chunk` consecutive
+// entries (a multiple of 32), so each block owns a contiguous range; the
+// per-segment loops stride over the whole grid. Blocks meet at grid
+// barriers (Grid::sync: one atomic per block on a counter in the scratch
+// header); a grid-wide decision (any node active, any price changed) is
+// an atomicMax of the decision's ordinal into a header word before the
+// barrier, read back after it. Every table one block writes and another
+// reads is read only after a barrier, through ordinary coherent loads.
 //
 // Segment reductions. Integer add (mod 2^32), max and min are associative
 // and commutative, so any order gives the Pallas kernel's bits: the
 // lanes of a warp reduce the runs of equal segment among their 32
 // consecutive entries and each run's last lane applies the run's value to
-// the segment's accumulator with one atomic. The maximal-push prefix (the
-// exclusive in-segment sum of admissible residuals) is ordered: each warp
-// owns a contiguous chunk of entries and scans it 32 at a time with a
-// running carry; the carry into a chunk comes from the chunk tails the
-// warps published in the pass before (a segmented scan over 32 values).
+// the segment's accumulator with one atomic, from whichever SM holds it.
+// The maximal-push prefix (the exclusive in-segment sum of admissible
+// residuals) is ordered and carried on three levels: a warp scans its
+// chunk 32 at a time with a running carry; pass B leaves each warp's tail
+// (its sum since its last segment head) in shared memory and each block's
+// (its warps' tails back to its last warp with a head) and head flag in
+// global memory; pass C starts each warp from the warp tails back to the
+// last earlier warp of its block with a head or, where there is none,
+// from all of them plus the block tails back to the last earlier block
+// with a head (the warp reads those 32 at a time).
 //
-// What bounds it on this card. At the 10k x 1k shape (R = 256 rows of 512
-// lanes: 131,072 entries) the 22 live tables take 11.5 MB: beyond one
-// block's 227 KB of shared memory, inside the 50 MB L2. The design is the
-// simplest right one: one block of 1024 threads and one launch per solve,
-// state in global memory (L2 resident), a superstep = three passes over
-// the entries and two over the segments, four block barriers. It is bound
-// by one SM's issue rate and L2 latency along the superstep chain (325 us
-// per superstep at R = 256 on an H100, PERF.md), far from its bytes or
-// operations bound; a cooperative grid (one block per SM, grid-wide
-// barriers, cross-block carries) is the next design.
+// A superstep is three passes over the entries and three grid barriers:
+// B (excess test, residuals, admissibility, relabel bounds, tails; the
+// active test rides on its barrier), C (the pushes) and D (the flows,
+// the next flow sums, then the relabels). What bounds it on this card:
+// at the 10k x 1k shape (R = 256 rows of 512 lanes: 131,072 entries,
+// 128 blocks, one 32-entry step per warp per pass) the three barriers and
+// each pass's chain of dependent L2 gathers and atomics, not bytes (the 21
+// live tables take 11 MB, inside the 50 MB L2) nor arithmetic: 13.6 us a
+// superstep on an H100, 4.8 of them in barriers (PERF.md).
 //
 // Arithmetic is int32 with two's-complement wrap (transport_common.cuh's
 // helpers), as in the JAX package. Sentinels: BIG = 1 << 30,
@@ -112,6 +127,77 @@ __device__ __forceinline__ int head_scan(int v, bool head, int& carry) {
   return v;
 }
 
+// The carry into block b's first entry: the block tails back to the last
+// block before b with a segment head (block 0 always has one: entry 0
+// opens a segment). Called by a whole warp; 32 blocks per step.
+__device__ int block_carry(const int* btail, const int* bflag, int b) {
+  const int lane = threadIdx.x & 31;
+  int sum = 0;
+  for (int top = b - 1; top >= 0; top -= 32) {
+    const int j = top - lane;  // lane 0 holds the nearest block
+    const int t = j >= 0 ? btail[j] : 0;
+    const unsigned heads = __ballot_sync(kFull, j >= 0 && bflag[j] != 0);
+    if (heads) {
+      const int first = __ffs(heads) - 1;
+      return wadd(sum, warp_sum(lane <= first ? t : 0));
+    }
+    sum = wadd(sum, warp_sum(t));
+  }
+  return sum;
+}
+
+// header words in front of the per-block slots: the barrier counter, the
+// decision flag, the end flags (zeroed before each launch)
+constexpr int kBarWord = 0, kFlagWord = 1, kEndWord = 2, kHeadWords = 3;
+
+__device__ __forceinline__ unsigned ld_acquire(const int* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The grid's barriers and grid-wide decisions. Every block takes the same
+// branches, so every block meets every barrier and counts the same
+// decisions.
+struct Grid {
+  int* hdr;
+  int barriers = 0;   // barriers met so far
+  int decisions = 0;  // decisions taken so far
+
+  // All blocks meet: what any block wrote before it is visible to every
+  // block after it. One atomic per block on a counter whose top bit flips
+  // when the last block arrives (block 0 adds 2^31 - (blocks - 1), every
+  // other block 1), as cooperative_groups' grid sync does; the counter
+  // starts at 0. Returns header word `word` as read after the barrier.
+  __device__ int sync(int word = kFlagWord) {
+    __shared__ int s_word;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+      unsigned* bar = reinterpret_cast<unsigned*>(hdr + kBarWord);
+      __threadfence();
+      const unsigned old = atomicAdd(bar, add);
+      while (((old ^ ld_acquire(hdr + kBarWord)) & 0x80000000u) == 0) {
+      }
+      __threadfence();
+      s_word = static_cast<int>(ld_acquire(hdr + word));
+    }
+    __syncthreads();
+    ++barriers;
+    return s_word;
+  }
+
+  // Whether `mine` (read on thread 0) holds on any block. The decision's
+  // ordinal grows, so the flag word never needs a reset; the kernel puts
+  // a barrier between one decision's read and the next one's writes.
+  __device__ bool any_block(bool mine) {
+    const int d = ++decisions;
+    if (threadIdx.x == 0 && mine) atomicMax(hdr + kFlagWord, d);
+    return sync() == d;
+  }
+  __device__ bool any(bool v) { return any_block(__syncthreads_or(v) != 0); }
+};
+
 struct Args {
   const int* sign;     // [E] +1 fwd, -1 bwd, 0 pad
   const int* cap;      // [E] arc capacity per entry
@@ -123,14 +209,15 @@ struct Args {
   const int* hs;       // [E] segment-start flags
   const int* f0;       // [E] start flow per entry
   int* f;              // [E] out: flow per entry
-  int* result;         // [3] out: steps, converged, p_overflow
-  int* scratch;        // kScratchTables * E words
-  int E, eps0, alpha, max_supersteps, tighten_sweeps;
+  int* result;         // [4] out: steps, converged, p_overflow, barriers
+  int* scratch;        // ksched_mcmf_scratch_words(E, blocks) words
+  int E, eps0, alpha, max_supersteps, tighten_sweeps, chunk;
 };
 
-// scratch tables of E words: delta, radm (per entry); sup, p, d, exc,
-// acc[2], sumr, best, pushed, mins (per segment; E bounds their count)
-constexpr int kScratchTables = 12;
+// scratch tables of E words: delta, radm (per entry); sup, p, d, acc0, acc1,
+// sumr, best, pushed, mins (per segment; E bounds their count); then the
+// header words and two slots per block (its tail and head flag)
+constexpr int kScratchTables = 11;
 
 __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
   __shared__ int s_tail[kWarps];
@@ -138,44 +225,56 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
   const int E = a.E;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nseg = a.seg[E - 1] + 1;
-  // warp `warp` owns entries [wbeg, wend): a multiple of 32 per warp
-  const int chunk = (E + kThreads - 1) / kThreads * 32;
-  const int wbeg = min(E, warp * chunk), wend = min(E, wbeg + chunk);
+  // global warp gw owns entries [wbeg, wend): `chunk` (a multiple of 32)
+  // each, so block b owns a contiguous range
+  const int gw = blockIdx.x * kWarps + warp;
+  const int wbeg = min(E, gw * a.chunk), wend = min(E, wbeg + a.chunk);
+  // per-segment (and per-entry elementwise) loops stride over the grid
+  const int g0 = blockIdx.x * kThreads + tid, gstride = gridDim.x * kThreads;
 
   int* delta = a.scratch;
   int* radm = delta + E;
   int* sup_s = radm + E;
   int* p_s = sup_s + E;
   int* d_s = p_s + E;
-  int* exc_s = d_s + E;
-  int* acc[2] = {exc_s + E, exc_s + 2 * E};
-  int* sumr = exc_s + 3 * E;
+  int* acc0 = d_s + E;  // flow sums, double-buffered across supersteps
+  int* acc1 = acc0 + E;
+  int* sumr = acc1 + E;
   int* best = sumr + E;
   int* pushed = best + E;
   int* mins = pushed + E;
+  int* btail = mins + E + kHeadWords;
+  int* bflag = btail + gridDim.x;
   int* f = a.f;
+  Grid grid{mins + E};
+
+  // the excess of segment s under the flow sums acc
+  auto excess = [&](const int* acc_c, int s) { return wsub(sup_s[s], acc_c[s]); };
 
   // ---- prologue: flow, segment supplies, the start excess ----
-  for (int s = tid; s < nseg; s += kThreads) {
-    acc[0][s] = 0;
+  for (int s = g0; s < nseg; s += gstride) {
+    acc0[s] = 0;
     mins[s] = INT_MAX;
+    sumr[s] = 0;
+    best[s] = INT_MIN;
+    pushed[s] = 0;
   }
-  for (int i = tid; i < E; i += kThreads) {
+  for (int i = g0; i < E; i += gstride) {
     f[i] = a.f0[i];
     if (i == 0 || a.hs[i]) sup_s[a.seg[i]] = a.sup[i];
   }
-  __syncthreads();
+  grid.sync();
   for (int b = wbeg; b < wend; b += 32) {
     const int i = b + lane;
     const bool ok = i < wend;
-    run_reduce(ok ? a.seg[i] : -1, ok ? smul(a.sign[i], f[i]) : 0, acc[0], Add());
+    run_reduce(ok ? a.seg[i] : -1, ok ? smul(a.sign[i], a.f0[i]) : 0, acc0, Add());
   }
-  __syncthreads();
+  grid.sync();
 
   // ---- tighten: Bellman-Ford over residual reduced costs ----
-  for (int s = tid; s < nseg; s += kThreads)
-    d_s[s] = wsub(sup_s[s], acc[0][s]) < 0 ? 0 : kBigD;
-  __syncthreads();
+  for (int s = g0; s < nseg; s += gstride)
+    d_s[s] = excess(acc0, s) < 0 ? 0 : kBigD;
+  grid.sync();
   bool changed = true;
   for (int it = 0; changed && it < a.tighten_sweeps; ++it) {
     for (int b = wbeg; b < wend; b += 32) {
@@ -186,22 +285,22 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
         cand = wadd(a.sc[i], d_s[a.pseg[i]]);
       run_reduce(ok ? a.seg[i] : -1, cand, mins, Min());
     }
-    __syncthreads();
+    grid.sync();
     bool ch = false;
-    for (int s = tid; s < nseg; s += kThreads) {
+    for (int s = g0; s < nseg; s += gstride) {
       const int d = d_s[s];
       const int d2 = max(min(d, mins[s]), -kBigD);
       ch |= d2 != d;
       d_s[s] = d2;
       mins[s] = INT_MAX;
     }
-    changed = __syncthreads_or(ch) != 0;
+    changed = grid.any(ch);
   }
-  for (int s = tid; s < nseg; s += kThreads) {
+  for (int s = g0; s < nseg; s += gstride) {
     p_s[s] = wneg(min(d_s[s], kBigD));
-    acc[0][s] = 0;
+    acc0[s] = 0;
   }
-  __syncthreads();
+  grid.sync();
 
   // saturate every residual entry with a nonzero reduced cost (rc < 0:
   // full, rc > 0: empty) and accumulate the new flow's per-segment sum
@@ -221,37 +320,22 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
       run_reduce(s, v, acc_out, Add());
     }
   };
-  saturate(acc[0]);
-  __syncthreads();
+  saturate(acc0);
+  grid.sync();
 
   // ---- the phase loop ----
   int eps = a.eps0, steps = 0, cur = 0;
   bool done = false;
   while (steps < a.max_supersteps) {
-    int* acc_c = acc[cur];
-    int* acc_n = acc[cur ^ 1];
+    const int* acc_c = cur ? acc1 : acc0;
+    int* acc_n = cur ? acc0 : acc1;
+    // pass B: the active test, residuals, admissibility, the relabel
+    // bounds, chunk tails (acc_n was last read before the last barrier)
     bool act = false;
-    for (int s = tid; s < nseg; s += kThreads) {
-      const int e = wsub(sup_s[s], acc_c[s]);
-      exc_s[s] = e;
-      act |= e > 0;
+    for (int s = g0; s < nseg; s += gstride) {
+      act |= excess(acc_c, s) > 0;
       acc_n[s] = 0;
-      sumr[s] = 0;
-      best[s] = INT_MIN;
-      pushed[s] = 0;
     }
-    if (!__syncthreads_or(act)) {
-      if (eps <= 1) {
-        done = true;
-        break;
-      }
-      saturate(acc_n);
-      eps = max(1, eps / a.alpha);
-      cur ^= 1;
-      __syncthreads();
-      continue;
-    }
-    // pass B: residuals, admissibility, the relabel bounds, chunk tails
     {
       int carry = 0;
       bool any_head = false;
@@ -267,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
           const int pq = p_s[a.pseg[i]];
           const int sc = a.sc[i];
           const int rc = wsub(wadd(sc, p_s[s]), pq);
-          if (r > 0 && rc < 0 && exc_s[s] > 0) ra = r;
+          if (r > 0 && rc < 0 && excess(acc_c, s) > 0) ra = r;
           if (r > 0) cand = wsub(pq, sc);
           radm[i] = ra;
         }
@@ -281,13 +365,41 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
         s_flag[warp] = any_head;
       }
     }
-    __syncthreads();
+    const bool block_act = __syncthreads_or(act) != 0;
+    if (warp == 0) {
+      // this block's tail: its warps' tails back to its last warp with a head
+      const unsigned fl = __ballot_sync(kFull, s_flag[lane] != 0);
+      const int j0 = fl ? 31 - __clz(fl) : 0;
+      const int t = warp_sum(lane >= j0 ? s_tail[lane] : 0);
+      if (lane == 0) {
+        btail[blockIdx.x] = t;
+        bflag[blockIdx.x] = fl != 0;
+      }
+    }
+    if (!grid.any_block(block_act)) {
+      if (eps <= 1) {
+        done = true;
+        break;
+      }
+      // a phase change: pass B's relabel bounds are void
+      for (int s = g0; s < nseg; s += gstride) {
+        sumr[s] = 0;
+        best[s] = INT_MIN;
+      }
+      saturate(acc_n);
+      eps = max(1, eps / a.alpha);
+      cur ^= 1;
+      grid.sync();
+      continue;
+    }
     // pass C: the maximal push, front to back in each segment
-    {
-      // the carry into this chunk: tails back to the last chunk with a head
+    if (wbeg < wend) {
+      // the carry into this chunk: warp tails back to the last warp of
+      // this block with a head, else all of them and the block's carry
       const unsigned fl = __ballot_sync(kFull, lane < warp && s_flag[lane]);
       const int j0 = fl ? 31 - __clz(fl) : 0;
       int carry = warp_sum(lane >= j0 && lane < warp ? s_tail[lane] : 0);
+      if (!fl) carry = wadd(carry, block_carry(btail, bflag, blockIdx.x));
       for (int b = wbeg; b < wend; b += 32) {
         const int i = b + lane;
         const bool ok = i < wend;
@@ -297,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
           s = a.seg[i];
           head = a.hs[i] != 0;
           ra = radm[i];
-          ex = exc_s[s];
+          ex = excess(acc_c, s);
         }
         const int excl = wsub(head_scan(ra, head, carry), ra);
         const int dl = ok ? clip0(wsub(ex, excl), ra) : 0;
@@ -305,9 +417,10 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
         run_reduce(s, dl, pushed, Add());
       }
     }
-    __syncthreads();
+    grid.sync();
     // pass D: flows from every push and its partner's (all deltas are
-    // complete), the next excess sums; relabels (prices read in pass B)
+    // complete), the next flow sums; then the relabels (prices read in
+    // pass B, bounds and push sums complete) and the bounds' reset
     for (int b = wbeg; b < wend; b += 32) {
       const int i = b + lane;
       const bool ok = i < wend;
@@ -321,36 +434,69 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
       }
       run_reduce(s, v, acc_n, Add());
     }
-    for (int s = tid; s < nseg; s += kThreads)
-      if (exc_s[s] > 0 && pushed[s] == 0 && sumr[s] > 0)
+    for (int s = g0; s < nseg; s += gstride) {
+      if (excess(acc_c, s) > 0 && pushed[s] == 0 && sumr[s] > 0)
         p_s[s] = wsub(best[s], eps);
+      sumr[s] = 0;
+      best[s] = INT_MIN;
+      pushed[s] = 0;
+    }
     ++steps;
     cur ^= 1;
-    __syncthreads();
+    grid.sync();
   }
 
   // ---- converged = done & max|excess| == 0; p_overflow = max|p| >= 2^30 ----
   bool pos = false, zero = false, ovf = false;
-  for (int s = tid; s < nseg; s += kThreads) {
-    const int e = wabs(wsub(sup_s[s], acc[cur][s]));
+  for (int s = g0; s < nseg; s += gstride) {
+    const int e = wabs(excess(cur ? acc1 : acc0, s));
     pos |= e > 0;
     zero |= e == 0;
     ovf |= wabs(p_s[s]) >= kPGuard;
   }
-  pos = __syncthreads_or(pos) != 0;
-  zero = __syncthreads_or(zero) != 0;
-  ovf = __syncthreads_or(ovf) != 0;
-  if (tid == 0) {
+  const int bits = (__syncthreads_or(pos) ? 1 : 0) | (__syncthreads_or(zero) ? 2 : 0) |
+                   (__syncthreads_or(ovf) ? 4 : 0);
+  if (tid == 0 && bits) atomicOr(grid.hdr + kEndWord, bits);
+  const int all = grid.sync(kEndWord);
+  if (blockIdx.x == 0 && tid == 0) {
     a.result[0] = steps;
-    a.result[1] = done && !pos && zero;
-    a.result[2] = ovf;
+    a.result[1] = done && !(all & 1) && (all & 2);
+    a.result[2] = (all & 4) != 0;
+    a.result[3] = grid.barriers;
   }
+}
+
+// `n` grid barriers and nothing else: the barrier's own cost, for timing
+__global__ void __launch_bounds__(kThreads, 1) barrier_kernel(int* hdr, int n) {
+  Grid grid{hdr};
+  for (int k = 0; k < n; ++k) grid.sync();
+}
+
+cudaError_t launch(const void* kernel, int blocks, void** params, int* hdr,
+                   cudaStream_t stream) {
+  cudaError_t rc = cudaMemsetAsync(hdr, 0, kHeadWords * sizeof(int), stream);
+  if (rc == cudaSuccess)
+    rc = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params, 0,
+                                     stream);
+  // read, and so clear, the launch's error: a refused launch must not
+  // fail the next one
+  const cudaError_t last = cudaGetLastError();
+  return rc != cudaSuccess ? rc : last;
 }
 
 }  // namespace
 
-extern "C" long long ksched_mcmf_scratch_words(int E) {
-  return static_cast<long long>(kScratchTables) * E;
+extern "C" long long ksched_mcmf_scratch_words(int E, int blocks) {
+  return static_cast<long long>(kScratchTables) * E + kHeadWords + 2LL * blocks;
+}
+
+// Blocks of the kernel one SM holds at once (cudaOccupancy...), or minus
+// the CUDA error code.
+extern "C" int ksched_mcmf_blocks_per_sm() {
+  int n = 0;
+  const cudaError_t rc =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mcmf_kernel, kThreads, 0);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
 }
 
 extern "C" int ksched_mcmf_solve(const int* sign, const int* cap, const int* sc,
@@ -358,9 +504,21 @@ extern "C" int ksched_mcmf_solve(const int* sign, const int* cap, const int* sc,
                                  const int* partner, const int* hs, const int* f0,
                                  int* f, int* result, int* scratch, int E, int eps0,
                                  int alpha, int max_supersteps, int tighten_sweeps,
-                                 void* stream) {
+                                 int blocks, int chunk, void* stream) {
+  if (blocks < 1 || chunk < 32 || chunk % 32 != 0 ||
+      static_cast<long long>(blocks) * kWarps * chunk < E)
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a{sign, cap, sc, sup, seg, pseg, partner, hs, f0, f, result, scratch,
-         E, eps0, alpha, max_supersteps, tighten_sweeps};
-  mcmf_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+         E, eps0, alpha, max_supersteps, tighten_sweeps, chunk};
+  void* params[] = {&a};
+  return static_cast<int>(launch(reinterpret_cast<const void*>(mcmf_kernel), blocks,
+                                 params, scratch + static_cast<long long>(kScratchTables) * E,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// `n` grid barriers of `blocks` blocks; hdr: kHeadWords words of scratch
+extern "C" int ksched_mcmf_barrier_probe(int* hdr, int blocks, int n, void* stream) {
+  void* params[] = {&hdr, &n};
+  return static_cast<int>(launch(reinterpret_cast<const void*>(barrier_kernel), blocks,
+                                 params, hdr, static_cast<cudaStream_t>(stream)));
 }

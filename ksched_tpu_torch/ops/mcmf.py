@@ -17,11 +17,15 @@ leaves them to XLA around the pallas_call. `e_he` is accepted for the
 JAX signature's sake and not read: a segment ends where the next one
 starts (`e_hs`), as build_mega_plan builds it.
 
-What bounds the kernel on this card: the chain of dependent supersteps,
-not bytes or arithmetic (PERF.md). Its live set, the 22 int32 [R * L]
-tables of `MEGA_LIVE_TABLES`, stays in global memory, L2-resident below
-`MEGA_BUDGET_BYTES`; that is the card's fits gate in place of the TPU's
-VMEM gate (`mega_fits_vmem`).
+The kernel is one cooperative grid: `mcmf_grid` sizes it (one block of
+1024 threads per SM at most, as many as the entries need at 32 per
+warp), and every superstep is three passes over the entries, each
+closed by a grid barrier. What bounds it on this card: those barriers
+and each pass's chain of dependent L2 reads and atomics, not bytes or
+arithmetic (PERF.md). Its live set, the 21 int32 [R * L] tables of
+`MEGA_LIVE_TABLES` and a few words per block, stays in global memory,
+L2-resident below `MEGA_BUDGET_BYTES`; that is the card's fits gate in
+place of the TPU's VMEM gate (`mega_fits_vmem`).
 """
 
 from __future__ import annotations
@@ -39,18 +43,27 @@ _P_GUARD = 1 << 30
 
 #: lane width of the entry tiling ([R, L] row-major), as in the JAX package
 MEGA_LANES = 512
+#: the kernel's scratch tables of R * L words (csrc/mcmf.cu kScratchTables)
+MCMF_SCRATCH_TABLES = 11
+#: its scratch header words and per-block slots (kHeadWords; a tail and
+#: a head flag per block)
+MCMF_HEAD_WORDS = 3
+MCMF_BLOCK_WORDS = 2
 #: int32 [R * L] tables the kernel keeps in global memory during a
-#: solve: its 9 inputs, the flow it writes and its 12 scratch tables
-#: (csrc/mcmf.cu kScratchTables)
-MEGA_LIVE_TABLES = 22
+#: solve: its 9 inputs, the flow it writes and its scratch tables
+MEGA_LIVE_TABLES = 10 + MCMF_SCRATCH_TABLES
+#: warps per block (csrc/mcmf.cu kWarps: 1024 threads)
+MCMF_WARPS = 32
 #: the kernel's tables stay resident in the H100's 50 MB L2 when they
 #: fit in 40 MiB, leaving a fifth of it to the rest of the round's data
 MEGA_BUDGET_BYTES = 40 << 20
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ksched_mcmf_solve": ([_VP] * 12 + [_CI] * 5 + [_VP], _CI),
-    "ksched_mcmf_scratch_words": ([_CI], ctypes.c_longlong),
+    "ksched_mcmf_solve": ([_VP] * 12 + [_CI] * 7 + [_VP], _CI),
+    "ksched_mcmf_scratch_words": ([_CI, _CI], ctypes.c_longlong),
+    "ksched_mcmf_blocks_per_sm": ([], _CI),
+    "ksched_mcmf_barrier_probe": ([_VP, _CI, _CI, _VP], _CI),
 }
 
 
@@ -59,12 +72,39 @@ def mega_entry_rows(num_entries: int, lanes: int = MEGA_LANES) -> int:
     return max(1, -(-num_entries // lanes))
 
 
+def mcmf_grid(num_entries: int, sm_count: int, blocks_per_sm: int) -> tuple:
+    """(blocks, chunk) of the kernel's cooperative grid over
+    `num_entries` entries: each warp owns `chunk` consecutive entries (a
+    multiple of 32), each block `MCMF_WARPS` chunks. One 32-entry step
+    per warp while `sm_count * blocks_per_sm` co-resident blocks hold
+    the entries that way; past that, as few steps per warp as that
+    capacity allows, and only the blocks those steps need."""
+    per_step = MCMF_WARPS * 32  # a block's entries per 32-entry step
+    capacity = sm_count * blocks_per_sm
+    if capacity < 1:
+        raise ValueError(f"no co-resident blocks ({sm_count} SMs x {blocks_per_sm})")
+    steps = max(1, -(-num_entries // (capacity * per_step)))
+    blocks = max(1, -(-num_entries // (steps * per_step)))
+    return blocks, 32 * steps
+
+
+def mcmf_scratch_words(num_entries: int, blocks: int) -> int:
+    """int32 words of the kernel's scratch (csrc/mcmf.cu
+    ksched_mcmf_scratch_words)."""
+    return (MCMF_SCRATCH_TABLES * num_entries + MCMF_HEAD_WORDS
+            + MCMF_BLOCK_WORDS * blocks)
+
+
 def mega_fits(num_entries: int, lanes: int = MEGA_LANES,
               budget_bytes: int = MEGA_BUDGET_BYTES) -> bool:
     """Whether the kernel's live set for `num_entries` residual entries
+    (its inputs, flow and scratch at the most blocks its grid can take)
     stays within `budget_bytes`."""
     padded = mega_entry_rows(num_entries, lanes) * lanes
-    return MEGA_LIVE_TABLES * padded * 4 <= budget_bytes
+    most_blocks = -(-padded // (MCMF_WARPS * 32))
+    words = ((MEGA_LIVE_TABLES - MCMF_SCRATCH_TABLES) * padded
+             + mcmf_scratch_words(padded, most_blocks))
+    return 4 * words <= budget_bytes
 
 
 def _entry_tables(cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs,
@@ -185,9 +225,11 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
     cap/cost/flow0 are int32[M] per arc (cost pre-scaled by the node
     count), supply int32[N], eps_init an int; e_* are a MegaPlan's
     int32[R * L] entry tables and fwd_pos each arc's forward entry. A
-    CUDA tensor launches the kernel (one launch, counted in
-    `mcmf_loop.launches`) or raises; a CPU tensor runs
-    `mcmf_loop_plain`."""
+    CUDA tensor launches the kernel (one cooperative launch, counted in
+    `mcmf_loop.launches`; its grid in `mcmf_loop.last_blocks`, the grid
+    barriers it ran in the int32 device scalar `mcmf_loop.last_barriers`)
+    or raises, also when the card refuses the cooperative launch; a CPU
+    tensor runs `mcmf_loop_plain`."""
     kw = dict(alpha=alpha, max_supersteps=max_supersteps,
               tighten_sweeps=tighten_sweeps)
     args = (cap, cost, supply, flow0, eps_init, e_arc, e_sign, e_src, e_hs,
@@ -221,21 +263,68 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
     tables = [t.to(_I32).contiguous() for t in
               (sign, cap_e, sc, sup, seg, pseg, partner, head, f0)]
     lib = load("mcmf", _SIGNATURES)
+    blocks, chunk = mcmf_grid(E, *grid_capacity(dev))
     f = torch.empty(E, dtype=_I32, device=dev)
-    result = torch.empty(3, dtype=_I32, device=dev)  # steps, converged, p_overflow
-    scratch = torch.empty(int(lib.ksched_mcmf_scratch_words(E)), dtype=_I32,
-                          device=dev)
+    # steps, converged, p_overflow, grid barriers
+    result = torch.empty(4, dtype=_I32, device=dev)
+    scratch = torch.empty(int(lib.ksched_mcmf_scratch_words(E, blocks)),
+                          dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ksched_mcmf_solve(
             *(t.data_ptr() for t in tables), f.data_ptr(), result.data_ptr(),
             scratch.data_ptr(), E, eps, alpha, max_supersteps, tighten_sweeps,
-            stream,
+            blocks, chunk, stream,
         )
     raise_on(lib, rc, "mcmf")
     mcmf_loop.launches += 1
+    mcmf_loop.last_blocks = blocks
+    mcmf_loop.last_barriers = result[3]
     return f[fwd_pos.long()], result[0], result[1] != 0, result[2] != 0
 
 
 #: kernel launches since the count was last set to 0
 mcmf_loop.launches = 0
+#: blocks of the last launch's grid
+mcmf_loop.last_blocks = 0
+#: grid barriers the last launch ran (an int32 scalar on its card)
+mcmf_loop.last_barriers = None
+
+_capacity = {}
+
+
+def grid_capacity(dev) -> tuple:
+    """(SM count, blocks of the kernel per SM) of CUDA device `dev`,
+    queried once per device."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _capacity:
+        lib = load("mcmf", _SIGNATURES)
+        with torch.cuda.device(index):
+            per_sm = lib.ksched_mcmf_blocks_per_sm()
+        if per_sm <= 0:
+            raise RuntimeError(
+                "the mcmf kernel does not fit an SM: "
+                + (lib.ksched_cuda_error_string(-per_sm).decode() if per_sm else
+                   "no block is resident"))
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _capacity[index] = (sms, per_sm)
+    return _capacity[index]
+
+
+def barrier_probe_ms(dev, blocks: int, n: int) -> float:
+    """Milliseconds (CUDA events) of one cooperative launch of `blocks`
+    blocks that meets `n` of the kernel's grid barriers and does nothing
+    else: the barrier's own cost, for timing."""
+    lib = load("mcmf", _SIGNATURES)
+    hdr = torch.empty(MCMF_HEAD_WORDS, dtype=_I32, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        start.record()
+        rc = lib.ksched_mcmf_barrier_probe(hdr.data_ptr(), blocks, n, stream)
+        end.record()
+    raise_on(lib, rc, "mcmf barrier probe")
+    end.synchronize()
+    return start.elapsed_time(end)

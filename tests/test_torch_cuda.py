@@ -1,5 +1,6 @@
 """The port on the card: the CUDA transport kernels (plain and tiered)
-and the mcmf kernel against their plain PyTorch versions, bit for bit,
+and the mcmf kernel (on its cooperative grid, across blocks) against
+their plain PyTorch versions, bit for bit,
 Scenario W(20, 200) through the default cuda backend and through
 "mega", Scenario P(20, 200) on the card against the CPU, and the
 device-resident round on the card against the same round on the CPU.
@@ -261,16 +262,93 @@ def test_mcmf_kernel_matches_plain_at_r256(card):
     """The 10k x 1k shape: 65,536 arc slots (export-style padding), so
     131,072 entries in R = 256 rows of 512 lanes. Bounded at 300
     supersteps: converged or not, the bits must match."""
-    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+    from ksched_tpu_torch.ops.mcmf import grid_capacity, mcmf_grid, mcmf_loop, mcmf_loop_plain
 
     a, t, R, L, eps = _mcmf_case(5, card, arc_slots=65_536, tasks=15_000,
                                  machines=1000, slots=8)
     assert R == 256
     for e in (1, eps):
         got = mcmf_loop(*a[:4], e, *t, R, L, max_supersteps=300)
+        assert mcmf_loop.last_blocks == mcmf_grid(R * L, *grid_capacity(card))[0] > 1
         want = mcmf_loop_plain(*a[:4], e, *t, R, L, max_supersteps=300)
         for x, y in zip(got, want):
             assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+# seeded graphs whose entries spread over the cooperative grid (their
+# layouts are checked on the CPU in tests/test_torch_mcmf_grid.py):
+# (seed, tasks, machines, slots, arc_slots, the longer budget)
+_GRID_CASES = {
+    # one block (R = 1)
+    "r1": (0, 40, 4, 3, None, 50_000),
+    # 16 blocks, a segment over 4 blocks with headless middle blocks, a
+    # head on the first entry of blocks 1 and 10, R = 31 (ragged)
+    "span3": (0, 3000, 100, 4, None, 2000),
+    # 12 blocks, every one full (R = 24)
+    "full-blocks": (8, 2500, 60, 3, None, 2000),
+    # 5 blocks; the cold solve converges (2,572 supersteps)
+    "converges": (2, 800, 30, 4, None, 3000),
+    # R = 300: past one step per warp on 132 SMs, 75 blocks of 64-entry chunks
+    "two-steps": (5, 15_000, 1000, 8, 76_800, 300),
+}
+
+
+@pytest.mark.parametrize("case", list(_GRID_CASES))
+@pytest.mark.parametrize("cold", [False, True], ids=["eps1", "cold"])
+def test_mcmf_kernel_matches_plain_across_blocks(card, case, cold):
+    """Bit-identical to the plain version on the grid the wrapper sizes
+    (more than one block from R = 8 up), run to the longer budget and
+    cut at 7 supersteps."""
+    from ksched_tpu_torch.ops.mcmf import grid_capacity, mcmf_grid, mcmf_loop, mcmf_loop_plain
+
+    seed, tasks, machines, slots, arc_slots, budget = _GRID_CASES[case]
+    a, t, R, L, eps_cold = _mcmf_case(seed, card, arc_slots=arc_slots, tasks=tasks,
+                                      machines=machines, slots=slots)
+    eps = eps_cold if cold else 1
+    for steps in (budget, 7):
+        got = mcmf_loop(*a[:4], eps, *t, R, L, max_supersteps=steps)
+        blocks = mcmf_loop.last_blocks
+        want = mcmf_loop_plain(*a[:4], eps, *t, R, L, max_supersteps=steps)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        assert blocks == mcmf_grid(R * L, *grid_capacity(card))[0]
+        assert (blocks > 1) == (R >= 8)
+        assert int(mcmf_loop.last_barriers) >= 3 * int(got[1])
+    if case == "converges" and cold:
+        assert bool(mcmf_loop(*a[:4], eps, *t, R, L, max_supersteps=budget)[2])
+
+
+def test_mcmf_scratch_words_match_the_kernel(card):
+    from ksched_tpu_torch.ops.build import load
+    from ksched_tpu_torch.ops.mcmf import _SIGNATURES, grid_capacity, mcmf_scratch_words
+
+    lib = load("mcmf", _SIGNATURES)
+    for E, blocks in ((512, 1), (15_872, 16), (131_072, 128), (153_600, 75)):
+        assert lib.ksched_mcmf_scratch_words(E, blocks) == mcmf_scratch_words(E, blocks)
+    sms, per_sm = grid_capacity(card)
+    assert sms == torch.cuda.get_device_properties(card).multi_processor_count
+    assert per_sm >= 1
+
+
+def test_mcmf_refused_cooperative_launch_raises(card, monkeypatch):
+    """A grid larger than the card holds at once is refused and raises:
+    no fallback to a smaller grid or to the plain version."""
+    from ksched_tpu_torch.ops import mcmf
+
+    seed, tasks, machines, slots, arc_slots, _budget = _GRID_CASES["two-steps"]
+    a, t, R, L, _eps = _mcmf_case(seed, card, arc_slots=arc_slots, tasks=tasks,
+                                  machines=machines, slots=slots)
+    sms, per_sm = mcmf.grid_capacity(card)
+    monkeypatch.setitem(mcmf._capacity, card.index, (2 * sms, per_sm))
+    before = mcmf.mcmf_loop.launches
+    with pytest.raises(RuntimeError, match="mcmf kernel launch failed"):
+        mcmf.mcmf_loop(*a[:4], 1, *t, R, L, max_supersteps=7)
+    assert mcmf.mcmf_loop.launches == before
+    # the refusal leaves nothing behind: the next launch runs
+    monkeypatch.setitem(mcmf._capacity, card.index, (sms, per_sm))
+    got = mcmf.mcmf_loop(*a[:4], 1, *t, R, L, max_supersteps=7)
+    want = mcmf.mcmf_loop_plain(*a[:4], 1, *t, R, L, max_supersteps=7)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_mcmf_kernel_rejects_bad_inputs(card):

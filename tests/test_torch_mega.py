@@ -242,8 +242,9 @@ def test_fits_refusals_match_jax(case):
 
 
 def test_mega_budget_gate():
-    """The card's gate: 22 int32 tables of the padded entry count
-    within the budget; the 10k x 1k shape (R = 256) fits."""
+    """The card's gate: 21 int32 tables of the padded entry count (and a
+    few words per block) within the budget; the 10k x 1k shape (R =
+    256) fits."""
     assert mcmf.mega_entry_rows(131_072) == 256
     assert mcmf.mega_fits(131_072)
     assert mcmf.MEGA_LIVE_TABLES * 131_072 * 4 <= mcmf.MEGA_BUDGET_BYTES
