@@ -8,7 +8,11 @@ no result line):
 1. the card (nvidia-smi name and power limit), versions, and the build
    of every kernel of the path from the sources in this checkout;
 2. kernel parity: the transport kernel against its plain PyTorch
-   version on the card, bit for bit, on seeded instances;
+   version on the card, bit for bit, on seeded instances, those at the
+   row-split plan's edges among them (ops/transport.py row_plan: the
+   main [4, 1024], Mp not a multiple of 4, one warp per row, more rows
+   than warps, warps without columns) and two with all the state in
+   global memory;
 3. a reference check at a small size: Scenario W(20, 200) on the card,
    each round's objective equal to the exact cpu_ref oracle's;
 4. the main path: Scenario W(1000, 10000) — a Whare-Map cluster of 1k
@@ -18,10 +22,11 @@ no result line):
    the JAX package, every captured transport solve re-solved by the
    plain version with the same bits, and the kernel's launch count;
 5. timing of the transport kernel at the main path's shapes (CUDA
-   events) beside its plain version and its bound;
+   events) beside its plain version and its bound, with the phase
+   probe's split of each solve (ops/transport.py PROBE_SLOTS);
 6. tiered kernel parity: the tiered transport kernel against its plain
    PyTorch version on the card, bit for bit, on seeded instances with
-   random resident tiles;
+   random resident tiles, at the same plan edges as phase 2;
 7. the device-resident path: coco50k-preempt (50k tasks on 1k machines,
    CoCo, preemption on with a full tiered re-solve every round) through
    DeviceBulkCluster on cuda — the fill and 4 host-driven rounds, each
@@ -33,7 +38,7 @@ no result line):
    coco50k-preempt on a torch.Generator with the occupancy invariants
    held;
 8. timing of the tiered kernel at its captured shapes beside its plain
-   version and its bound;
+   version and its bound, with the phase split (round 2's solve too);
 9. mcmf kernel parity: the general-graph kernel (one cooperative grid)
    against its plain PyTorch version on the card, bit for bit, on seeded
    scheduling graphs at 512 and 8 lanes, at eps 1 and cold, with a pad
@@ -222,17 +227,12 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def random_instance(seed, C, Mp):
+def random_instance_m(seed, C, Mp):
     """A padded transport instance in the form the dense path emits:
     scaled costs, a zero-cost unsched column of capacity sum(supply),
-    padded columns of capacity 0. The real machine count is drawn so
+    padded columns of capacity 0. The real machine count M is drawn so
     that pad_geometry gives exactly Mp. Returns (wS, supply, col_cap,
-    n_scale)."""
-    return random_instance_m(seed, C, Mp)[:4]
-
-
-def random_instance_m(seed, C, Mp):
-    """random_instance and its real machine count M."""
+    n_scale, M)."""
     from ksched_tpu_torch.solver.layered import pad_geometry
 
     rng = np.random.default_rng(seed)
@@ -250,18 +250,72 @@ def random_instance_m(seed, C, Mp):
 
 
 def random_tiered_instance(seed, C, Mp):
-    """A tiered instance: random_instance's costs as the dear tier wHi,
-    a random continuation discount of 1-11 cost units off every real
-    column for the cheap tier wLo, and a random resident tile R (0-5 per
-    cell, none on the escape column). Returns (wLo, wHi, R, supply,
+    """A tiered instance (tiered_from) on random_instance's costs."""
+    return tiered_from(seed, random_instance_m(seed, C, Mp))
+
+
+def edge_instance(seed, C, Mp):
+    """A transport instance of exactly Mp columns, for the row-split
+    plan's edges (Mp need not be a multiple of 128, or of 4): Mp - 1
+    machines and the zero-cost escape column of capacity sum(supply),
+    costs scaled by the smallest power of two above the node count.
+    Returns (wS, supply, col_cap, n_scale, M)."""
+    rng = np.random.default_rng(seed)
+    M = Mp - 1
+    n_scale = 1 << (C + Mp + 2).bit_length()
+    wS = np.zeros((C, Mp), np.int32)
+    wS[:, :M] = rng.integers(-30, 30, (C, M)) * n_scale
+    supply = rng.integers(0, 60, C).astype(np.int32)
+    col_cap = np.zeros(Mp, np.int32)
+    col_cap[:M] = rng.integers(0, 25, M)
+    col_cap[-1] = supply.sum()
+    return wS, supply, col_cap, n_scale, M
+
+
+def tiered_from(seed, inst):
+    """A tiered instance from a transport instance: its costs as the dear
+    tier wHi, a random continuation discount of 1-11 cost units off every
+    real column for the cheap tier wLo, and a random resident tile R (0-5
+    per cell, none on the escape column). Returns (wLo, wHi, R, supply,
     col_cap)."""
-    wS, supply, col_cap, n_scale, M = random_instance_m(seed, C, Mp)
+    wS, supply, col_cap, n_scale, M = inst
     rng = np.random.default_rng(seed + 77)
     wLo = wS.copy()
     wLo[:, :M] -= int(rng.integers(1, 12)) * n_scale
-    R = rng.integers(0, 6, (C, Mp)).astype(np.int32)
+    R = rng.integers(0, 6, wS.shape).astype(np.int32)
     R[:, -1] = 0
     return wLo, wS, R, supply, col_cap
+
+
+# Parity shapes at the row-split plan's edges (ops/transport.py
+# row_plan): the main [4, 1024]; Mp not a multiple of 4, uneven slices;
+# one warp per row (32 rows); more rows than warps; most warps without a
+# column. The last two cases put the whole state in global memory.
+PLAN_EDGES = [((4, 1024), False), ((6, 1021), False), ((31, 777), False),
+              ((33, 64), False), ((3, 4), False), ((4, 1024), True), ((6, 1021), True)]
+
+
+class GlobalState:
+    """Inside the block, the transport kernels' layout keeps nothing in
+    shared memory (their shared-memory budget taken as 0)."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        from ksched_tpu_torch.ops import transport
+
+        self.saved = dict(transport._budgets)
+        if self.on:
+            for kind in ("transport", "transport_tiered"):
+                transport._budgets[(kind, 0)] = 0
+        return self
+
+    def __exit__(self, *exc):
+        from ksched_tpu_torch.ops import transport
+
+        transport._budgets.clear()
+        transport._budgets.update(self.saved)
 
 
 def on(dev, *arrays):
@@ -295,8 +349,12 @@ def phase_parity(dev):
     from ksched_tpu_torch.solver.layered import _solve_transport
 
     worst = 0
-    for shape_i, (C, Mp) in enumerate([(2, 128), (4, 1024), (16, 1152), (64, 4096)]):
-        wS, supply, col_cap, n_scale = random_instance(100 + shape_i, C, Mp)
+    cases = [((C, Mp), False, random_instance_m(100 + i, C, Mp)) for i, (C, Mp)
+             in enumerate([(2, 128), (4, 1024), (16, 1152), (64, 4096)])]
+    cases += [(shape, glob, edge_instance(150 + i, *shape))
+              for i, (shape, glob) in enumerate(PLAN_EDGES)]
+    for shape_i, ((C, Mp), glob, inst) in enumerate(cases):
+        wS, supply, col_cap, n_scale, _M = inst
         eps_full = int(max(1, np.abs(wS).max()))
         # the carried prices of a cold solve, on a perturbed instance
         rng = np.random.default_rng(200 + shape_i)
@@ -305,27 +363,27 @@ def phase_parity(dev):
         cap2[-1] = supply2.sum()
         a = on(dev, wS, supply, col_cap)
         a2 = on(dev, wS, supply2, cap2)
+        where = " global" if glob else ""
         for refine in (0, 2):
-            cold = transport_loop(*a, eps_full, alpha=8, max_supersteps=50_000,
-                                  refine_waves=refine)
+            with GlobalState(glob):
+                cold = transport_loop(*a, eps_full, alpha=8, max_supersteps=50_000,
+                                      refine_waves=refine)
+                pm0 = cold[1].clone()
+                warm = transport_loop(*a2, n_scale, pm0, alpha=8,
+                                      max_supersteps=50_000, refine_waves=refine)
             plain = _solve_transport(*a, eps_full, alpha=8, max_supersteps=50_000,
                                      refine_waves=refine)
-            cases = [("zero pm0", cold, plain)]
-            pm0 = cold[1].clone()
-            warm = transport_loop(*a2, n_scale, pm0, alpha=8, max_supersteps=50_000,
-                                  refine_waves=refine)
             warm_p = _solve_transport(*a2, n_scale, pm0, alpha=8,
                                       max_supersteps=50_000, refine_waves=refine)
-            cases.append(("carried pm0", warm, warm_p))
-            for label, k, p in cases:
+            for label, k, p in (("zero pm0", cold, plain), ("carried pm0", warm, warm_p)):
                 torch.cuda.synchronize()
                 err = max_abs_diff(k, p)
                 worst = max(worst, err)
                 ok = same_bits(k, p) and bool(k[3])
-                say(f"parity [{C},{Mp}] refine={refine} {label}: steps={int(k[2])} "
+                say(f"parity [{C},{Mp}]{where} refine={refine} {label}: steps={int(k[2])} "
                     f"converged={bool(k[3])} max_abs_err={err} "
                     f"{'bit-identical' if ok else 'MISMATCH'}")
-                check(ok, f"kernel != plain at [{C},{Mp}] refine={refine} {label}")
+                check(ok, f"kernel != plain at [{C},{Mp}]{where} refine={refine} {label}")
     return worst
 
 
@@ -515,6 +573,30 @@ def timed_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def probe_split(run, steps):
+    """One more launch of `run(cycles)` with the kernels' phase probe
+    (ops/transport.py PROBE_SLOTS), timed with CUDA events: the SM clock
+    the probe's cycles imply, and each phase's share of the launch and
+    its microseconds per superstep."""
+    from ksched_tpu_torch.ops.transport import PROBE_SLOTS
+
+    cyc = torch.zeros(len(PROBE_SLOTS), dtype=torch.int64, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(cyc)
+    end.record()
+    torch.cuda.synchronize()
+    c = dict(zip(PROBE_SLOTS, cyc.tolist()))
+    ms = start.elapsed_time(end)
+    per_us = c["total"] / (1e3 * ms)  # cycles per microsecond
+    return (f"  phase split: probed_ms={ms:.4f} clock_GHz={per_us / 1e3:.3f} "
+            + " ".join(f"{k}={100 * c[k] / c['total']:.1f}%"
+                       f"/{c[k] / per_us / max(steps, 1):.3f}us"
+                       for k in PROBE_SLOTS[:-1])
+            + " (share of the launch / per superstep)")
+
+
 def phase_timing(calls, reps=10):
     """Kernel and plain times per main-path solve (CUDA events), and
     the bound for the same work."""
@@ -540,6 +622,8 @@ def phase_timing(calls, reps=10):
             f"plain_ms={p_ms:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
             f"(bytes {b_bytes:.6f}, operations {b_ops:.6f}) "
             f"kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+        say(probe_split(lambda cyc: transport_loop(wS, supply, col_cap, eps, pm0,
+                                                   cycles=cyc, **kw), steps))
         tot_k += k_ms
         tot_p += p_ms
         tot_b += max(b_bytes, b_ops)
@@ -556,23 +640,28 @@ def phase_parity_tiered(dev):
     from ksched_tpu_torch.solver.layered import _solve_transport_tiered
 
     worst = 0
-    for shape_i, (C, Mp) in enumerate([(2, 128), (4, 1024), (16, 1152), (64, 4096)]):
-        inst = random_tiered_instance(300 + shape_i, C, Mp)
+    cases = [((C, Mp), False, random_tiered_instance(300 + i, C, Mp)) for i, (C, Mp)
+             in enumerate([(2, 128), (4, 1024), (16, 1152), (64, 4096)])]
+    cases += [(shape, glob, tiered_from(350 + i, edge_instance(350 + i, *shape)))
+              for i, (shape, glob) in enumerate(PLAN_EDGES)]
+    for (C, Mp), glob, inst in cases:
         eps_full = int(max(1, np.abs(inst[1]).max()))
         a = on(dev, *inst)
+        where = " global" if glob else ""
         for refine in (0, 8):
-            k = transport_loop_tiered(*a, eps_full, alpha=8, max_supersteps=50_000,
-                                      refine_waves=refine)
+            with GlobalState(glob):
+                k = transport_loop_tiered(*a, eps_full, alpha=8, max_supersteps=50_000,
+                                          refine_waves=refine)
             p = _solve_transport_tiered(*a, eps_full, alpha=8, max_supersteps=50_000,
                                         refine_waves=refine)
             torch.cuda.synchronize()
             err = max_abs_diff(k, p)
             worst = max(worst, err)
             ok = same_bits(k, p) and bool(k[3])
-            say(f"tiered parity [{C},{Mp}] refine={refine}: steps={int(k[2])} "
+            say(f"tiered parity [{C},{Mp}]{where} refine={refine}: steps={int(k[2])} "
                 f"converged={bool(k[3])} max_abs_err={err} "
                 f"{'bit-identical' if ok else 'MISMATCH'}")
-            check(ok, f"tiered kernel != plain at [{C},{Mp}] refine={refine}")
+            check(ok, f"tiered kernel != plain at [{C},{Mp}]{where} refine={refine}")
     return worst
 
 
@@ -736,12 +825,13 @@ def phase_steady(dev, cluster, tasks):
 def phase_timing_tiered(calls, picked, plain_ms, reps=5):
     """The tiered kernel's time at the picked captured solves (CUDA
     events), beside its plain version's (measured at the re-solve) and
-    its bound."""
+    its bound; and, for the phase split, at round 2's solve too (not in
+    the sums)."""
     from ksched_tpu_torch.ops.transport import transport_loop_tiered
 
     tot_k = tot_p = tot_b = 0.0
     by = {"bytes": 0.0, "operations": 0.0}
-    for i in picked:
+    for i in sorted(set(picked) | {2}):
         c = calls[i]
         wLo, wHi, R, supply, col_cap, eps = c["args"]
         kw = c["kw"]
@@ -757,9 +847,14 @@ def phase_timing_tiered(calls, picked, plain_ms, reps=5):
             nbytes, C * Mp * (OPS_PER_CELL_STEP_TIERED * steps + per_phase * phases))
         k_ms = timed_ms(lambda: transport_loop_tiered(*c["args"], **kw), reps)
         say(f"timing tiered solve {i} [{C},{Mp}] steps={steps}: kernel_ms={k_ms:.4f} "
-            f"plain_ms={plain_ms[i]:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
+            f"plain_ms={plain_ms.get(i, float('nan')):.3f} "
+            f"bound_ms={max(b_bytes, b_ops):.6f} "
             f"(bytes {b_bytes:.6f}, operations {b_ops:.6f}) "
             f"kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+        say(probe_split(lambda cyc: transport_loop_tiered(*c["args"], cycles=cyc, **kw),
+                        steps))
+        if i not in picked:
+            continue
         tot_k += k_ms
         tot_p += plain_ms[i]
         tot_b += max(b_bytes, b_ops)

@@ -9,17 +9,17 @@
 // carried prices), then the eps-scaling phase loop with saturate or
 // `refine_waves` price-refine waves between phases; each superstep is a
 // synchronous maximal push plus jump relabel over both tiers. The plain
-// PyTorch version is solver/layered.py `_solve_transport_tiered`; see
-// ops/transport.py for what bounds the transport kernels and why each
-// is one block.
+// PyTorch version is solver/layered.py `_solve_transport_tiered`.
 //
-// Layout: B1's (transport.cu). One block of 1024 threads runs the whole
-// solve; decisions come from __syncthreads_or, so every thread holds
-// the same eps/steps/done.
-//   - row phases: a warp owns row r and sweeps its columns in ascending
-//     order, 128 at a time; per cell the forward admissible residual is
-//     tier A's at wLo plus tier B's at wHi, then B1's row prefix. Row C
-//     is the sink (tier-less, as in B1).
+// What bounds it: neither bytes nor operations (ops/transport.py), but
+// the latency of a chain of dependent supersteps on one SM. The layout
+// answers with B1's (transport.cu): one block of 1024 threads, state on
+// chip, three barriers a superstep; every row pass (the admissible sweep
+// and push prefix, the refine wave's row bounds, the prologue's
+// tightening) runs on all 32 warps over the host's row-split plan with
+// conflict-free int4 access (transport_common.cuh). Per cell the forward
+// admissible residual is tier A's at wLo plus tier B's at wHi. Row C is
+// the sink (tier-less, as in B1).
 //   - column phases: a thread owns column m and walks the 1 + 2C
 //     entries of the column prefix in the order of transport_pallas.py:
 //     352-361 — the sink, then the dear tier over rows ascending, then
@@ -27,169 +27,88 @@
 //     backward pushes into the forward-push tile df (df -= db_hi), so
 //     the cheap pass, which still reads the old y for yA, finishes each
 //     cell with y += df - db_lo.
-// State: the vectors of B1 and five [C, Mp] tiles — y, df, the clamped
+// State: the vectors of B1 and five [C, ld] tiles — y, df, the clamped
 // resident tile R (R = min(R_in, U), U = min(supply, col_cap), written
 // by the prologue), wLo and wHi — in shared memory while they fit (all
-// of them at [4, 1024]: 80 KB of tiles), the rest in global memory.
+// of them at [4, 1024]: 80 KB of tiles), the rest in global memory, as
+// the host's layout places them (ops/transport.py `layout`).
 
 #include "transport_common.cuh"
 
 namespace {
 
-// which groups of state live in shared memory (else global memory)
-constexpr int kSmemVec = 1;   // every [Mp] and [C] vector
-constexpr int kSmemY = 2;     // the flow tile y
-constexpr int kSmemDf = 4;    // the forward-push tile df
-constexpr int kSmemR = 8;     // the clamped resident tile R
-constexpr int kSmemLo = 16;   // a copy of the cheap-tier cost tile wLo
-constexpr int kSmemHi = 32;   // a copy of the dear-tier cost tile wHi
+// the tiered kernel's tiles, after the shared arrays
+enum TieredArray { kR = kCoreArrays, kWlo, kWhi, kTieredArrays };
 
-struct State {
-  int C, Mp;
-  const int* wlo;     // [C, Mp] scaled cheap-tier costs
-  const int* whi;     // [C, Mp] scaled dear-tier costs
-  int* r;             // [C, Mp] resident capacity, clamped to U
-  int* y;             // [C, Mp] flow (both tiers)
-  int* df;            // [C, Mp] forward pushes of the current superstep
-  const int* supply;  // [C]
-  const int* cap;     // [Mp]
-  int* z;             // [Mp] col->sink flow
-  int* pm;            // [Mp] machine (column) prices
-  int* ecol;          // [Mp] column excess
-  int* dzb;           // [Mp] sink push-back of the current superstep
-  int* pr0;           // [C] row prices, double buffered
-  int* pr1;
-  int* erow;          // [C] row excess
+struct State : Core {
+  int* r;    // [C, ld] resident capacity, clamped to U
+  int* wlo;  // [C, ld] scaled cheap-tier costs
+  int* whi;  // [C, ld] scaled dear-tier costs
 };
 
-__shared__ int s_psink[2];   // sink price, double buffered like pr
-__shared__ int s_esink;      // sink excess
-__shared__ int s_total;      // sum(supply), wrapped
-
-__device__ __forceinline__ int cell(const State& s, int r, int m) {
-  return r * s.Mp + m;
-}
-
-template <bool kNonzero>
-__device__ bool excess_phase(const State& s) {
-  return block_excesses<kNonzero>(s.C, s.Mp, s.y, s.z, s.supply, s_total,
-                                  s.ecol, s.erow, &s_esink);
-}
-
-// One synchronous push/relabel superstep (transport_superstep_tiered).
-__device__ void superstep(const State& s, int cur, int eps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int* prc = cur ? s.pr1 : s.pr0;
-  int* prn = cur ? s.pr0 : s.pr1;
-  const int ps = s_psink[cur];
-
-  // ---- row phase: forward pushes over both tiers, row relabels; sink
-  // push-back ----
-  for (int r = warp; r <= s.C; r += kWarps) {
-    int carry = 0;
-    bool pushed = false;
-    if (r < s.C) {
-      const int prr = prc[r], er = s.erow[r], sup = s.supply[r];
-      int best = -kBig;
-      for (int base = 0; base < s.Mp; base += kChunk) {
-        const int m0 = base + lane * kPerLane;
-        int ra[kPerLane];
-        int local = 0;
+// Phase A's cell of source row `row`: per group the forward admissible
+// residual over both tiers, the flow, and the relabel candidates
+// pm - wLo (tier A residual) and pm - wHi (tier B residual).
+__device__ __forceinline__ auto forward_cell(const State& s, int row, const int* prc) {
+  const int sup = s.supply[row], prr = prc[row];
+  const int off = row * s.ld;
+  const int *pm = s.pm, *cap = s.cap, *rt = s.r + off, *yt = s.y + off;
+  const int *lot = s.wlo + off, *hit = s.whi + off;
+  return [=](int g, int& flow, int& best) {
+    const int4 p4 = ld4(pm, g), c4 = ld4(cap, g), r4 = ld4(rt, g), y4 = ld4(yt, g);
+    const int4 l4 = ld4(lot, g), h4 = ld4(hit, g);
+    const int pp[4] = {p4.x, p4.y, p4.z, p4.w}, cc[4] = {c4.x, c4.y, c4.z, c4.w};
+    const int rv[4] = {r4.x, r4.y, r4.z, r4.w}, yv[4] = {y4.x, y4.y, y4.z, y4.w};
+    const int lv[4] = {l4.x, l4.y, l4.z, l4.w}, hv[4] = {h4.x, h4.y, h4.z, h4.w};
+    int a[4];
 #pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int m = m0 + k;
-          int a = 0;
-          if (m < s.Mp) {
-            const int i = cell(s, r, m);
-            const int pmm = s.pm[m], rr = s.r[i], yy = s.y[i];
-            const int lo = s.wlo[i], hi = s.whi[i];
-            const int ya = min(yy, rr), yb = wsub(yy, ya);
-            const int rA = wsub(rr, ya);
-            const int rB = wsub(wsub(min(sup, s.cap[m]), rr), yb);
-            if (rA > 0) {
-              best = max(best, wsub(pmm, lo));
-              if (wsub(wadd(lo, prr), pmm) < 0) a = rA;
-            }
-            if (rB > 0) {
-              best = max(best, wsub(pmm, hi));
-              if (wsub(wadd(hi, prr), pmm) < 0) a = wadd(a, rB);
-            }
-          }
-          ra[k] = a;
-          local = wadd(local, a);
-        }
-        const int incl = warp_incl_scan(local, lane);
-        int run = wadd(carry, wsub(incl, local));
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int m = m0 + k;
-          if (m < s.Mp) {
-            const int d = clip0(wsub(er, run), ra[k]);
-            s.df[cell(s, r, m)] = d;
-            pushed |= d != 0;
-          }
-          run = wadd(run, ra[k]);
-        }
-        carry = wadd(carry, __shfl_sync(kFull, incl, 31));
+    for (int k = 0; k < kGroup; ++k) {
+      const int pmm = pp[k], rr = rv[k], yy = yv[k], lo = lv[k], hi = hv[k];
+      const int ya = min(yy, rr), yb = wsub(yy, ya);
+      const int rA = wsub(rr, ya);
+      const int rB = wsub(wsub(min(sup, cc[k]), rr), yb);
+      flow = wadd(flow, yy);
+      a[k] = 0;
+      if (rA > 0) {
+        best = max(best, wsub(pmm, lo));
+        if (wsub(wadd(lo, prr), pmm) < 0) a[k] = rA;
       }
-      pushed = __any_sync(kFull, pushed);
-      best = __reduce_max_sync(kFull, best);
-      if (lane == 0) prn[r] = (er > 0 && !pushed) ? wsub(best, eps) : prr;
-    } else {
-      const int es = s_esink;
-      int cand = -kBig;
-      for (int base = 0; base < s.Mp; base += kChunk) {
-        const int m0 = base + lane * kPerLane;
-        int za[kPerLane];
-        int local = 0;
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int m = m0 + k;
-          int a = 0;
-          if (m < s.Mp) {
-            const int zz = s.z[m], pmm = s.pm[m];
-            if (zz > 0) {
-              cand = max(cand, pmm);
-              if (wsub(ps, pmm) < 0) a = zz;
-            }
-          }
-          za[k] = a;
-          local = wadd(local, a);
-        }
-        const int incl = warp_incl_scan(local, lane);
-        int run = wadd(carry, wsub(incl, local));
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int m = m0 + k;
-          if (m < s.Mp) {
-            const int d = clip0(wsub(es, run), za[k]);
-            s.dzb[m] = d;
-            pushed |= d != 0;
-          }
-          run = wadd(run, za[k]);
-        }
-        carry = wadd(carry, __shfl_sync(kFull, incl, 31));
+      if (rB > 0) {
+        best = max(best, wsub(pmm, hi));
+        if (wsub(wadd(hi, prr), pmm) < 0) a[k] = wadd(a[k], rB);
       }
-      pushed = __any_sync(kFull, pushed);
-      cand = __reduce_max_sync(kFull, cand);
-      if (lane == 0) s_psink[cur ^ 1] = (es > 0 && !pushed) ? wsub(cand, eps) : ps;
     }
-  }
-  __syncthreads();
+    return make_int4(a[0], a[1], a[2], a[3]);
+  };
+}
+
+// One synchronous push/relabel superstep (transport_superstep_tiered),
+// after phase A (the admissible sweep and the excesses, in the loop).
+template <class P>
+__device__ __forceinline__
+void superstep(const State& s, const RowPlan& plan, const RowState& rs,
+               int cur, int eps, P& probe) {
+  // ---- phase B: forward pushes over both tiers; sink push-back ----
+  phase_b(s, plan, rs);
+  probe.mark(kProbeRow);
 
   // ---- column phase: the sink push, then the dear-tier and the
   // cheap-tier backward pushes, the flow update and the column relabel,
-  // all from the old prices ----
+  // all from the old prices, and the new column excess; the row
+  // relabels ----
+  const int* prc = cur ? s.pr1 : s.pr0;
+  const int ps = s_psink[cur];
+  relabel_rows(s, plan, rs, cur, eps);
   for (int m = threadIdx.x; m < s.Mp; m += kThreads) {
     const int zz = s.z[m], pmm = s.pm[m], ec = s.ecol[m];
-    const int rs = wsub(s.cap[m], zz);
-    const int adm_s = (rs > 0 && wsub(pmm, ps) < 0) ? rs : 0;
+    const int rs_ = wsub(s.cap[m], zz);
+    const int adm_s = (rs_ > 0 && wsub(pmm, ps) < 0) ? rs_ : 0;
     const int ds = clip0(ec, adm_s);
     bool pushed = ds != 0;
     int run = adm_s;  // exclusive prefix: sink entry first
     int cand = -kBig;
     for (int c = 0; c < s.C; ++c) {  // dear tier (cost -wHi backward)
-      const int i = cell(s, c, m);
+      const int i = c * s.ld + m;
       const int yy = s.y[i], hi = s.whi[i], prr = prc[c];
       const int yb = wsub(yy, min(yy, s.r[i]));
       int ab = 0;
@@ -202,8 +121,9 @@ __device__ void superstep(const State& s, int cur, int eps) {
       pushed |= db != 0;
       s.df[i] = wsub(s.df[i], db);
     }
+    int flow = 0;
     for (int c = 0; c < s.C; ++c) {  // cheap tier (cost -wLo backward)
-      const int i = cell(s, c, m);
+      const int i = c * s.ld + m;
       const int yy = s.y[i], lo = s.wlo[i], prr = prc[c];
       const int ya = min(yy, s.r[i]);
       int al = 0;
@@ -214,22 +134,30 @@ __device__ void superstep(const State& s, int cur, int eps) {
       const int dl = clip0(wsub(ec, run), al);
       run = wadd(run, al);
       pushed |= dl != 0;
-      s.y[i] = wsub(wadd(yy, s.df[i]), dl);
+      const int y2 = wsub(wadd(yy, s.df[i]), dl);
+      s.y[i] = y2;
+      flow = wadd(flow, y2);
     }
-    cand = max(cand, rs > 0 ? ps : -kBig);
-    s.z[m] = wsub(wadd(zz, ds), s.dzb[m]);
+    cand = max(cand, rs_ > 0 ? ps : -kBig);
+    const int z2 = wsub(wadd(zz, ds), s.dzb[m]);
+    s.z[m] = z2;
+    s.ecol[m] = wsub(flow, z2);
     s.pm[m] = (ec > 0 && !pushed) ? wsub(cand, eps) : pmm;
   }
   __syncthreads();
+  probe.mark(kProbeColumn);
 }
 
 // Phase start: saturate (eps_sat = 0) or partial saturate
-// (transport_saturate_eps_tiered) at eps_sat, per tier.
-__device__ void saturate(const State& s, const int* pr, int ps, int eps_sat) {
+// (transport_saturate_eps_tiered) at eps_sat, per tier; the column
+// excesses of the new flow.
+__device__ __forceinline__
+void saturate(const State& s, const int* pr, int ps, int eps_sat) {
   for (int m = threadIdx.x; m < s.Mp; m += kThreads) {
     const int pmm = s.pm[m], cp = s.cap[m];
+    int flow = 0;
     for (int c = 0; c < s.C; ++c) {
-      const int i = cell(s, c, m);
+      const int i = c * s.ld + m;
       const int rr = s.r[i], yy = s.y[i];
       const int rcl = wsub(wadd(s.wlo[i], pr[c]), pmm);
       const int rch = wsub(wadd(s.whi[i], pr[c]), pmm);
@@ -237,22 +165,28 @@ __device__ void saturate(const State& s, const int* pr, int ps, int eps_sat) {
       const int ya2 = rcl < -eps_sat ? rr : (rcl > eps_sat ? 0 : ya);
       const int yb2 = rch < -eps_sat ? wsub(min(s.supply[c], cp), rr)
                                      : (rch > eps_sat ? 0 : yb);
-      s.y[i] = wadd(ya2, yb2);
+      const int y2 = wadd(ya2, yb2);
+      s.y[i] = y2;
+      flow = wadd(flow, y2);
     }
     const int rcs = wsub(pmm, ps);
+    int zz = s.z[m];
     if (rcs < -eps_sat) {
-      s.z[m] = cp;
+      zz = cp;
     } else if (rcs > eps_sat) {
-      s.z[m] = 0;
+      zz = 0;
     }
+    s.z[m] = zz;
+    s.ecol[m] = wsub(flow, zz);
   }
   __syncthreads();
 }
 
 // One tiered price-refine wave (_price_refine_tiered's body) at eps, in
 // place.
-__device__ void refine_wave(const State& s, int* pr, int cur, int eps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__
+void refine_wave(const State& s, const RowPlan& plan, int* pr, int cur,
+                 int eps) {
   const int ps = s_psink[cur];
   // pm <= wLo + pr + eps over tier-A forward residuals, <= wHi + pr +
   // eps over tier-B ones, <= psink + eps over sink->col residuals
@@ -260,7 +194,7 @@ __device__ void refine_wave(const State& s, int* pr, int cur, int eps) {
     const int cp = s.cap[m];
     int bound = kBig;
     for (int c = 0; c < s.C; ++c) {
-      const int i = cell(s, c, m);
+      const int i = c * s.ld + m;
       const int rr = s.r[i], yy = s.y[i];
       const int ya = min(yy, rr), yb = wsub(yy, ya);
       if (wsub(rr, ya) > 0) bound = min(bound, wadd(wadd(s.wlo[i], pr[c]), eps));
@@ -274,29 +208,27 @@ __device__ void refine_wave(const State& s, int* pr, int cur, int eps) {
   __syncthreads();
   // pr <= pm - wLo + eps over tier-A backward residuals, <= pm - wHi +
   // eps over tier-B ones; psink <= pm + eps over col->sink residuals
-  for (int r = warp; r <= s.C; r += kWarps) {
-    int bound = kBig;
-    if (r < s.C) {
-      for (int m = lane; m < s.Mp; m += 32) {
-        const int i = cell(s, r, m);
-        const int yy = s.y[i];
-        const int ya = min(yy, s.r[i]), yb = wsub(yy, ya);
-        if (ya > 0) bound = min(bound, wadd(wsub(s.pm[m], s.wlo[i]), eps));
-        if (yb > 0) bound = min(bound, wadd(wsub(s.pm[m], s.whi[i]), eps));
+  refine_rows(s, plan, pr, cur, eps, [&](int row) {
+    const int off = row * s.ld;
+    const int *pm = s.pm, *rt = s.r + off, *yt = s.y + off;
+    const int *lot = s.wlo + off, *hit = s.whi + off;
+    return [=](int g, int& b) {
+      const int4 p4 = ld4(pm, g), r4 = ld4(rt, g), y4 = ld4(yt, g);
+      const int4 l4 = ld4(lot, g), h4 = ld4(hit, g);
+      const int pp[4] = {p4.x, p4.y, p4.z, p4.w}, rv[4] = {r4.x, r4.y, r4.z, r4.w};
+      const int yv[4] = {y4.x, y4.y, y4.z, y4.w};
+      const int lv[4] = {l4.x, l4.y, l4.z, l4.w}, hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int ya = min(yv[k], rv[k]), yb = wsub(yv[k], ya);
+        if (ya > 0) b = min(b, wadd(wsub(pp[k], lv[k]), eps));
+        if (yb > 0) b = min(b, wadd(wsub(pp[k], hv[k]), eps));
       }
-      bound = __reduce_min_sync(kFull, bound);
-      if (lane == 0) pr[r] = max(min(pr[r], bound), -kBigD);
-    } else {
-      for (int m = lane; m < s.Mp; m += 32) {
-        if (wsub(s.cap[m], s.z[m]) > 0) bound = min(bound, wadd(s.pm[m], eps));
-      }
-      bound = __reduce_min_sync(kFull, bound);
-      if (lane == 0) s_psink[cur] = max(min(ps, bound), -kBigD);
-    }
-  }
-  __syncthreads();
+    };
+  });
 }
 
+template <bool kShared, bool kProbe>
 __global__ void __launch_bounds__(kThreads, 1)
 transport_tiered_kernel(const int* __restrict__ wlo_in,
                         const int* __restrict__ whi_in,
@@ -307,108 +239,80 @@ transport_tiered_kernel(const int* __restrict__ wlo_in,
                         int* __restrict__ y_out, int* __restrict__ pm_out,
                         int* __restrict__ result, int* __restrict__ scratch,
                         int C, int Mp, int alpha, int max_supersteps,
-                        int refine_waves, int flags) {
-  extern __shared__ int smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                        int refine_waves, const RowPlan plan_in, const Layout layout,
+                        long long* __restrict__ cycles) {
+  extern __shared__ int4 smem4[];
+  int* smem = reinterpret_cast<int*>(smem4);
   int eps = *eps_in;
+  Probe<kProbe> probe(cycles);
+  load_plan(plan_in);  // published by the prologue's barrier
+  const RowPlan& plan = s_plan;
 
-  // ---- carve the state: shared memory where the plan put it, else
-  // the inputs/outputs themselves or the global scratch ----
+  // ---- the state, where the host's layout put it ----
   State s;
   s.C = C;
   s.Mp = Mp;
-  int* sp = smem;
-  int* gp = scratch;
-  const bool sv = flags & kSmemVec;
-  auto take = [&](bool in_smem, int n) {
-    int* p = in_smem ? sp : gp;
-    (in_smem ? sp : gp) += n;
-    return p;
-  };
-  int* cap_s = sv ? take(true, Mp) : nullptr;
-  int* sup_s = sv ? take(true, C) : nullptr;
-  s.cap = sv ? cap_s : cap_in;
-  s.supply = sv ? sup_s : supply_in;
-  s.pm = sv ? take(true, Mp) : pm_out;
-  s.z = take(sv, Mp);
-  s.ecol = take(sv, Mp);
-  s.dzb = take(sv, Mp);
-  s.pr0 = take(sv, C);
-  s.pr1 = take(sv, C);
-  s.erow = take(sv, C);
-  s.y = (flags & kSmemY) ? take(true, C * Mp) : y_out;
-  s.df = take(flags & kSmemDf, C * Mp);
-  s.r = take(flags & kSmemR, C * Mp);
-  int* lo_s = (flags & kSmemLo) ? take(true, C * Mp) : nullptr;
-  int* hi_s = (flags & kSmemHi) ? take(true, C * Mp) : nullptr;
-  s.wlo = lo_s ? lo_s : wlo_in;
-  s.whi = hi_s ? hi_s : whi_in;
+  s.ld = (Mp + kGroup - 1) / kGroup * kGroup;
+  s.S = plan_in.split ? kWarps : C + 1;
+  s.carve<kShared>(layout, smem, scratch);
+  s.r = place<kShared>(layout, kR, smem, scratch);
+  s.wlo = place<kShared>(layout, kWlo, smem, scratch);
+  s.whi = place<kShared>(layout, kWhi, smem, scratch);
+  const int ld = s.ld;
 
   // ---- prologue, column phase: inputs in, zero flow, the resident
   // tile clamped to U, cold prices (0 on live columns, dead ones sunk
-  // to -BIG_D) ----
-  for (int m = threadIdx.x; m < Mp; m += kThreads) {
-    const int cp = cap_in[m];
-    if (cap_s) cap_s[m] = cp;
+  // to -BIG_D); the columns past Mp dead ----
+  for (int m = threadIdx.x; m < ld; m += kThreads) {
+    const bool live = m < Mp;
+    const int cp = live ? cap_in[m] : 0;
+    s.cap[m] = cp;
     s.pm[m] = cp > 0 ? 0 : -kBigD;
     s.z[m] = 0;
+    s.ecol[m] = 0;
     for (int c = 0; c < C; ++c) {
-      const int i = c * Mp + m;
+      const int i = c * ld + m, j = c * Mp + m;
       s.y[i] = 0;
-      s.r[i] = min(r_in[i], min(supply_in[c], cp));
-      if (lo_s) lo_s[i] = wlo_in[i];
-      if (hi_s) hi_s[i] = whi_in[i];
+      s.r[i] = live ? min(r_in[j], min(supply_in[c], cp)) : 0;
+      s.wlo[i] = live ? wlo_in[j] : 0;
+      s.whi[i] = live ? whi_in[j] : 0;
     }
   }
-  if (sup_s) {
-    for (int r = threadIdx.x; r < C; r += kThreads) sup_s[r] = supply_in[r];
-  }
+  for (int r = threadIdx.x; r < C; r += kThreads) s.supply[r] = supply_in[r];
   __syncthreads();
 
-  // ---- prologue, row phase: tightening against the cheap tier,
+  // ---- prologue, row pass: tightening against the cheap tier,
   // pr = max_{U>0}(pm - wLo) (0 with no arc); psink = min_{cap>0} pm
   // (0 with no live column); sum(supply) ----
-  for (int r = warp; r <= C; r += kWarps) {
-    if (r < C) {
-      const int sup = s.supply[r];
-      int mx = -kBigD;
-      bool any = false;
-      for (int m = lane; m < Mp; m += 32) {
-        if (min(sup, s.cap[m]) > 0) {
+  tighten_rows(s, plan, [&](int row) {
+    const int sup = s.supply[row];
+    const int *pm = s.pm, *cap = s.cap, *lot = s.wlo + row * ld;
+    return [=](int g, bool& any, int& mx) {
+      const int4 c4 = ld4(cap, g), p4 = ld4(pm, g), l4 = ld4(lot, g);
+      const int cc[4] = {c4.x, c4.y, c4.z, c4.w}, pp[4] = {p4.x, p4.y, p4.z, p4.w};
+      const int lv[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        if (min(sup, cc[k]) > 0) {
           any = true;
-          mx = max(mx, wsub(s.pm[m], s.wlo[r * Mp + m]));
+          mx = max(mx, wsub(pp[k], lv[k]));
         }
       }
-      any = __any_sync(kFull, any);
-      mx = __reduce_max_sync(kFull, mx);
-      if (lane == 0) s.pr0[r] = any ? mx : 0;
-    } else {
-      int mn = kBigD, total = 0;
-      bool any = false;
-      for (int m = lane; m < Mp; m += 32) {
-        if (s.cap[m] > 0) {
-          any = true;
-          mn = min(mn, s.pm[m]);
-        }
-      }
-      for (int c = lane; c < C; c += 32) total = wadd(total, s.supply[c]);
-      any = __any_sync(kFull, any);
-      mn = __reduce_min_sync(kFull, mn);
-      total = warp_sum(total);
-      if (lane == 0) {
-        s_psink[0] = any ? mn : 0;
-        s_total = total;
-      }
-    }
-  }
-  __syncthreads();
+    };
+  });
 
   // ---- the phase loop, as in B1 ----
+  const PlanLane pl(plan, threadIdx.x & 31);
+  RowState rs{};
+  probe.lap();
   int steps = 0, cur = 0;
   bool done = false;
+  const auto fwd = [&](int row) { return forward_cell(s, row, cur ? s.pr1 : s.pr0); };
   while (!done && steps < max_supersteps) {
-    if (excess_phase<false>(s)) {
-      superstep(s, cur, eps);
+    const bool active = phase_a<false>(s, plan, pl, s_psink[cur], fwd, rs);
+    probe.mark(kProbeExcess);
+    if (active) {
+      superstep(s, plan, rs, cur, eps, probe);
       cur ^= 1;
       ++steps;
     } else if (eps <= 1) {
@@ -417,89 +321,72 @@ transport_tiered_kernel(const int* __restrict__ wlo_in,
       eps = max(1, eps / alpha);  // eps >= 2 > 0: truncation == floor
       int* pr = cur ? s.pr1 : s.pr0;
       if (refine_waves > 0) {
-        for (int k = 0; k < refine_waves; ++k) refine_wave(s, pr, cur, eps);
+        for (int k = 0; k < refine_waves; ++k) refine_wave(s, plan, pr, cur, eps);
         saturate(s, pr, s_psink[cur], eps);
       } else {
         saturate(s, pr, s_psink[cur], 0);
       }
+      probe.mark(kProbePhase);
     }
   }
-  const bool unbalanced = excess_phase<true>(s);
+  const bool unbalanced = phase_a<true>(s, plan, pl, s_psink[cur], fwd, rs);
+  probe.mark(kProbeExcess);
 
-  // ---- epilogue: outputs out of shared memory ----
+  // ---- epilogue: outputs out ----
   for (int m = threadIdx.x; m < Mp; m += kThreads) {
-    if (sv) pm_out[m] = s.pm[m];
-    if (flags & kSmemY) {
-      for (int c = 0; c < C; ++c) y_out[c * Mp + m] = s.y[c * Mp + m];
-    }
+    pm_out[m] = s.pm[m];
+    for (int c = 0; c < C; ++c) y_out[c * Mp + m] = s.y[c * ld + m];
   }
   if (threadIdx.x == 0) {
     result[0] = steps;
     result[1] = (done && !unbalanced) ? 1 : 0;
   }
-}
-
-// Which state groups go to shared memory: the vectors first, then the
-// y, df, R, wLo and wHi tiles while they fit. Returns the dynamic bytes.
-long long plan_smem(int C, int Mp, long long budget, int* flags) {
-  const long long vec = 5LL * Mp + 4LL * C, tile = 1LL * C * Mp;
-  long long used = 0;
-  int f = 0;
-  if (vec * 4 <= budget) {
-    f |= kSmemVec;
-    used = vec;
-    const int tiles[5] = {kSmemY, kSmemDf, kSmemR, kSmemLo, kSmemHi};
-    for (int bit : tiles) {
-      if ((used + tile) * 4 <= budget) {
-        f |= bit;
-        used += tile;
-      }
-    }
-  }
-  *flags = f;
-  return used * 4;
+  probe.finish();
 }
 
 }  // namespace
 
 extern "C" {
 
-// int32 words of global scratch one solve may need (vectors, df and R).
-long long ksched_transport_tiered_scratch_words(int C, int Mp) {
-  return 3LL * Mp + 3LL * C + 2LL * C * Mp;
+// Dynamic shared memory one block of this kernel may use on the current
+// device: the opt-in limit less the kernel's static shared variables.
+// Negative: minus a cudaError_t code.
+long long ksched_transport_tiered_smem_budget() {
+  return smem_budget(transport_tiered_kernel<false, false>);
 }
 
-// Launch one tiered solve on `stream`. Pointers are device pointers;
-// eps_in holds the start eps (an int32 on the device). Returns a
-// cudaError_t code (0 = launched).
+// Launch one tiered solve on `stream`. Pointers are device pointers
+// except `plan` (kPlanWords ints: ops/transport.py RowPlan.pack) and
+// `layout` (kTieredArrays ints: ops/transport.py layout), which are
+// host memory; eps_in holds the start eps (an int32 on the device);
+// `cycles`, when not null, receives the phase probe (kProbeTotal + 1
+// int64). Returns a cudaError_t code (0 = launched).
 int ksched_transport_tiered_solve(const void* wlo, const void* whi,
                                   const void* r, const void* supply,
                                   const void* cap, const void* eps_in,
                                   void* y, void* pm, void* result,
-                                  void* scratch, int C, int Mp, int alpha,
-                                  int max_supersteps, int refine_waves,
-                                  void* stream) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+                                  void* scratch, const int* plan,
+                                  const int* layout, int smem_bytes, int C,
+                                  int Mp, int alpha, int max_supersteps,
+                                  int refine_waves, void* cycles, void* stream) {
+  RowPlan p;
+  Layout L;
+  read_plan(plan, layout, kTieredArrays, &p, &L);
+  const auto kernel = pick(
+      all_shared(L, kTieredArrays), cycles != nullptr,
+      transport_tiered_kernel<true, true>, transport_tiered_kernel<true, false>,
+      transport_tiered_kernel<false, true>, transport_tiered_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  // room for the kernel's static shared variables
-  const long long budget = static_cast<long long>(optin) - 256;
-  int flags = 0;
-  const long long bytes = plan_smem(C, Mp, budget, &flags);
-  err = cudaFuncSetAttribute(transport_tiered_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  transport_tiered_kernel<<<1, kThreads, static_cast<size_t>(bytes),
+  kernel<<<1, kThreads, static_cast<size_t>(smem_bytes),
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(wlo), static_cast<const int*>(whi),
       static_cast<const int*>(r), static_cast<const int*>(supply),
       static_cast<const int*>(cap), static_cast<const int*>(eps_in),
       static_cast<int*>(y), static_cast<int*>(pm), static_cast<int*>(result),
-      static_cast<int*>(scratch), C, Mp, alpha, max_supersteps, refine_waves,
-      flags);
+      static_cast<int*>(scratch), C, Mp, alpha, max_supersteps, refine_waves, p, L,
+      static_cast<long long*>(cycles));
   return cudaGetLastError();
 }
 

@@ -1,11 +1,12 @@
-"""The port on the card: the CUDA transport kernels (plain and tiered)
-and the mcmf kernel (on its cooperative grid, across blocks) against
-their plain PyTorch versions, bit for bit,
+"""The port on the card: the CUDA transport kernels (plain and tiered,
+also at the row-split plan's edges and with all their state in global
+memory, and their phase probe) and the mcmf kernel (on its cooperative
+grid, across blocks) against their plain PyTorch versions, bit for bit,
 Scenario W(20, 200) through the default cuda backend and through
 "mega", Scenario P(20, 200) on the card against the CPU, and the
 device-resident round on the card against the same round on the CPU.
-Marked `cuda`; every test skips where no CUDA device is present. Imports nothing of JAX, so it runs on a machine
-without it:
+Marked `cuda`; every test skips where no CUDA device is present.
+Imports nothing of JAX, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -59,6 +60,77 @@ def test_kernel_matches_plain(card, seed, C, M, refine):
     warm_p = _solve_transport(*args, n_scale, got[1], max_supersteps=50_000)
     for a, b in zip(warm, warm_p):
         assert torch.equal(a, b)
+
+
+def _edge_instance(seed, C, Mp, dev):
+    """An instance of exactly Mp columns (Mp - 1 machines and the escape
+    column), for the row-split plan's edges: (tensors, cold eps,
+    n_scale)."""
+    rng = np.random.default_rng(seed)
+    M = Mp - 1
+    n_scale = 1 << (C + Mp + 2).bit_length()
+    wS = np.zeros((C, Mp), np.int32)
+    wS[:, :M] = rng.integers(-30, 30, (C, M)) * n_scale
+    supply = rng.integers(0, 60, C).astype(np.int32)
+    col_cap = np.zeros(Mp, np.int32)
+    col_cap[:M] = rng.integers(0, 25, M)
+    col_cap[-1] = supply.sum()
+    t = [torch.as_tensor(a, device=dev) for a in (wS, supply, col_cap)]
+    return t, int(max(1, np.abs(wS).max())), n_scale
+
+
+# the row-split plan's edges (ops/transport.py row_plan): the main
+# [4, 1024]; Mp not a multiple of 4 with uneven slices; one warp per row
+# (32 rows); more rows than warps; most warps without a column
+_PLAN_EDGES = [(4, 1024), (6, 1021), (31, 777), (33, 64), (3, 4)]
+
+
+def _all_in_global_memory(monkeypatch, card):
+    """The kernels' layout with no shared memory: every array global."""
+    from ksched_tpu_torch.ops import transport
+
+    for kind in ("transport", "transport_tiered"):
+        monkeypatch.setitem(transport._budgets, (kind, card.index), 0)
+
+
+@pytest.mark.parametrize("C,Mp", _PLAN_EDGES)
+@pytest.mark.parametrize("refine", [0, 2])
+@pytest.mark.parametrize("where", ["layout", "global"])
+def test_kernel_matches_plain_at_plan_edges(card, monkeypatch, C, Mp, refine, where):
+    """Bit-identical to the plain version where the row-split plan has
+    its edges, cold and from carried prices, with the state where the
+    layout puts it and with all of it in global memory."""
+    if where == "global":
+        _all_in_global_memory(monkeypatch, card)
+    args, eps, n_scale = _edge_instance(C * 1000 + Mp, C, Mp, card)
+    got = transport_loop(*args, eps, refine_waves=refine, max_supersteps=50_000)
+    want = _solve_transport(*args, eps, refine_waves=refine, max_supersteps=50_000)
+    assert bool(want[3])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    warm = transport_loop(*args, n_scale, got[1], refine_waves=refine,
+                          max_supersteps=50_000)
+    warm_p = _solve_transport(*args, n_scale, got[1], refine_waves=refine,
+                              max_supersteps=50_000)
+    for a, b in zip(warm, warm_p):
+        assert torch.equal(a, b)
+
+
+def test_kernel_phase_probe(card):
+    """The probe leaves the solve's outputs as they are and counts
+    cycles in every phase a solve runs."""
+    from ksched_tpu_torch.ops.transport import PROBE_SLOTS
+
+    args, eps, _n = _edge_instance(4, 4, 1024, card)
+    cycles = torch.zeros(len(PROBE_SLOTS), dtype=torch.int64, device=card)
+    got = transport_loop(*args, eps, cycles=cycles)
+    want = transport_loop(*args, eps)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    c = dict(zip(PROBE_SLOTS, cycles.tolist()))
+    assert all(v > 0 for v in c.values())
+    assert sum(c[k] for k in PROBE_SLOTS[:-1]) < c["total"]
+    with pytest.raises(ValueError):
+        transport_loop(*args, eps, cycles=cycles.to(torch.int32))
 
 
 def test_kernel_matches_plain_at_group_mode_scale(card):
@@ -155,6 +227,37 @@ def test_tiered_kernel_matches_plain_in_global_memory(card, refine):
                                    max_supersteps=2000)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C,Mp", _PLAN_EDGES)
+@pytest.mark.parametrize("refine", [0, 8])
+@pytest.mark.parametrize("where", ["layout", "global"])
+def test_tiered_kernel_matches_plain_at_plan_edges(card, monkeypatch, C, Mp, refine,
+                                                   where):
+    """The tiered kernel where the row-split plan has its edges, with the
+    state where the layout puts it and all of it in global memory."""
+    if where == "global":
+        _all_in_global_memory(monkeypatch, card)
+    (wHi, supply, col_cap), eps, n_scale = _edge_instance(C * 1000 + Mp, C, Mp, card)
+    rng = np.random.default_rng(Mp)
+    wLo = wHi.clone()
+    wLo[:, :-1] -= int(rng.integers(1, 12)) * n_scale
+    R = torch.as_tensor(rng.integers(0, 6, (C, Mp)).astype(np.int32), device=card)
+    R[:, -1] = 0
+    args = (wLo, wHi, R, supply, col_cap)
+    got = transport_loop_tiered(*args, eps, refine_waves=refine, max_supersteps=50_000)
+    want = _solve_transport_tiered(*args, eps, refine_waves=refine,
+                                   max_supersteps=50_000)
+    assert bool(want[3])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    from ksched_tpu_torch.ops.transport import PROBE_SLOTS
+
+    cycles = torch.zeros(len(PROBE_SLOTS), dtype=torch.int64, device=card)
+    probed = transport_loop_tiered(*args, eps, refine_waves=refine,
+                                   max_supersteps=50_000, cycles=cycles)
+    assert all(torch.equal(a, b) for a, b in zip(probed, want))
+    assert int(cycles[-1]) > 0
 
 
 def test_tiered_kernel_rejects_bad_inputs(card):
