@@ -27,16 +27,35 @@ no result line):
 6. tiered kernel parity: the tiered transport kernel against its plain
    PyTorch version on the card, bit for bit, on seeded instances with
    random resident tiles, at the same plan edges as phase 2;
-7. the device-resident path: coco50k-preempt (50k tasks on 1k machines,
-   CoCo, preemption on with a full tiered re-solve every round) through
-   DeviceBulkCluster on cuda — the fill and 4 host-driven rounds, each
-   round's values and the final placements equal to those of the JAX
-   package, the tiered kernel's launch count, the fill's and two later
-   captured solves re-solved by the plain version with the same bits;
-   then coco50k (preemption off: the transport kernel) and 10kx1k (the
-   closed form: no kernel) likewise, and 32 steady churn rounds of
-   coco50k-preempt on a torch.Generator with the occupancy invariants
-   held;
+7. the device-resident path: coco50k-preempt-full (50k tasks on 1k
+   machines, CoCo, preemption on with a full tiered re-solve every
+   round) through DeviceBulkCluster on cuda — the fill and 4
+   host-driven rounds, each round's values and the final placements
+   equal to those of the JAX package, the tiered kernel's launch count,
+   the fill's and two later captured solves re-solved by the plain
+   version with the same bits; then coco50k (preemption off: the
+   transport kernel) and 10kx1k (the closed form: no kernel) likewise,
+   and 32 steady churn rounds of coco50k-preempt-full on a
+   torch.Generator with the occupancy invariants held; host reads
+   throughout equal to the flag reads that the solves' retries, the
+   grouped stage 1 and the incremental tier's escalation need (one per
+   solve attempt in these runs) plus the counted branch reads;
+7b. coco50k-preempt at bench.py's three-tier arguments: the fill and 4
+   host-driven rounds, then 130 steady rounds on the JAX package's
+   draws (incremental rounds on the transport kernel under an 8,192-
+   superstep budget, scoped and global re-solves on the tiered one),
+   each round's tier, supersteps, census drift and wall time printed;
+   the count of rounds of each tier, the sha256 of the stacked per-round
+   stats and the final placements equal to the JAX package's; a scoped
+   tiered solve and a capped incremental solve re-solved by the plain
+   versions with the same bits, and timed with their bounds;
+7c. quincy10k (group mode: 480 blocks x 3 replicas, 512 groups): the
+   fill, 2 host-driven rounds and 32 steady rounds on the JAX package's
+   draws, each round's compaction rung and two-stage or full solve
+   printed, per-round values and the final placements equal to the JAX
+   package's; a stage-1 and a second grouped transport solve re-solved
+   by the plain version with the same bits, and the transport kernel's
+   time per superstep at these shapes beside its bound;
 8. timing of the tiered kernel at its captured shapes beside its plain
    version and its bound, with the phase split (round 2's solve too);
 9. mcmf kernel parity: the general-graph kernel (one cooperative grid)
@@ -97,10 +116,11 @@ REF_W_SMALL = {
 # DeviceBulkCluster scenarios (drivers/device_bulk.py: the fill, then
 # host-driven rounds), per round, as produced by the JAX package
 # (ksched_tpu DeviceBulkCluster with the same constructor arguments and
-# the same host-driven sequence, on the CPU; tests/torch_device_bulk_reference.py),
+# the same host-driven sequence, on the CPU; tests/torch_device_bulk_reference.py,
+# which builds quincy10k's groups with the JAX package's QuincyGroupTable),
 # with the sha256 of the final `pu` array (int32 bytes).
 REF_BULK = {
-    "coco50k-preempt": {
+    "coco50k-preempt-full": {
         "placed": [50000, 500, 500, 500, 500],
         "migrated": [0, 49398, 49036, 49407, 49129],
         "preempted": [0, 0, 0, 0, 0],
@@ -125,6 +145,48 @@ REF_BULK = {
         "supersteps": [0, 0, 0],
         "converged": [1, 1, 1],
         "pu_sha256": "880c6eda2ff26eca0b50254549715dbc2c2cee21be58afe5ef2aa9efbed05426",
+    },
+    "coco50k-preempt": {
+        "placed": [50000, 500, 500, 500, 500],
+        "migrated": [0, 49398, 49036, 49407, 49129],
+        "preempted": [0, 0, 0, 0, 0],
+        "unscheduled": [0, 0, 0, 0, 0],
+        "objective": [254504, 1747299, 1478165, 1304970, 1410419],
+        "supersteps": [527, 2898, 7411, 6585, 4571],
+        "converged": [1, 1, 1, 1, 1],
+        "pu_sha256": "ad34f333b515aad6ced7cb817e6f77bea04f86b85f58858332ba0d6aabf61317",
+    },
+    "quincy10k": {
+        "placed": [10000, 100, 100],
+        "unscheduled": [0, 0, 0],
+        "objective": [0, 264, 176],
+        "supersteps": [115, 287, 287],
+        "converged": [1, 1, 1],
+        "pu_sha256": "d64a1a01aaa95205f1bf575210eedd2e56306ff05294a8a471786288622bc242",
+    },
+}
+
+# Steady rounds after those (`run_steady_rounds(seed=STEADY_SEED)` at
+# the bench's churn, the JAX package's draws), likewise: the rounds of
+# each tier (hybrid), per-round values (quincy10k), the sha256 of every
+# round's stats stacked as int32 in key order, and of the final `pu`.
+STEADY_SEED = 1
+REF_STEADY = {
+    "coco50k-preempt": {
+        "rounds": 130,
+        "tiers": {"global": 1, "scoped": 9, "escalated": 0, "incremental": 120},
+        "stats_sha256": "6616a135b6b465d5ab29328425fe5980f3417f952005b7b735847a07bc9dc036",
+        "pu_sha256": "cbbce10a845b59467716f54181273074e1dfebd8737e689313a678922b0d8bf1",
+    },
+    "quincy10k": {
+        "rounds": 32,
+        "placed": [100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100],
+        "unscheduled": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+        "objective": [160, 184, 176, 88, 88, 120, 120, 48, 72, 88, 56, 80, 144, 96, 112, 88, 72, 48, 72, 72, 56, 32, 48, 64, 56, 48, 64, 64, 72, 64, 96, 88],
+        "supersteps": [287, 12, 9, 287, 12, 295, 295, 9, 9, 287, 287, 300, 9, 9, 24, 295, 12, 12, 12, 9, 9, 9, 9, 9, 290, 300, 9, 12, 13, 9, 287, 9],
+        "active_groups": [93, 92, 92, 93, 91, 96, 96, 93, 92, 89, 90, 92, 93, 89, 87, 88, 91, 92, 91, 90, 92, 94, 89, 93, 89, 93, 91, 92, 96, 87, 92, 91],
+        "stats_sha256": "34547a27ffb6c9796f6753a8718e8713c19539a06e3aafe7e918661b818ea6dc",
+        "pu_sha256": "f032d51a4682e963eda9649683210c4c346326924a7f9c58ade8afe6b92aaf10",
     },
 }
 
@@ -453,6 +515,37 @@ class EventTimer:
         return sum(a.elapsed_time(b) for a, b in self.events[first:])
 
 
+class SolveLog(EventTimer):
+    """EventTimer over the bounded solves (transport_fori(_tiered)) that
+    also records, per call, its solve attempts (kernel launches), how it
+    reads its flags — `retry`: the first attempt's flag decides the
+    full-range retry inside the call; `stage1`: retry off, the caller
+    reads the flag — and what the host knew of the flag on return."""
+
+    def __init__(self, fn):
+        super().__init__(fn)
+        self.calls = []
+
+    def wrap(self, fn):
+        from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+
+        timed = super().wrap(fn)
+
+        def logged(*args, **kw):
+            first = transport_loop.launches + transport_loop_tiered.launches
+            out = timed(*args, **kw)
+            iterative = kw.get("eps0") is not None
+            self.calls.append({
+                "attempts": transport_loop.launches + transport_loop_tiered.launches - first,
+                "retry": iterative and kw.get("eps0_retry", True),
+                "stage1": iterative and not kw.get("eps0_retry", True),
+                "known": out[4],
+            })
+            return out
+
+        return logged
+
+
 def phase_reference(dev):
     """W(20, 200) on the card; each round's objective equals the exact
     cpu_ref oracle's on the same flow problem."""
@@ -680,9 +773,9 @@ def run_bulk(dev, config, rounds):
     (cluster, tasks, recorders, launches)."""
     import ksched_tpu_torch.ops as ops
     import ksched_tpu_torch.scheduler.device_bulk as device_bulk
-    from ksched_tpu_torch.drivers.device_bulk import device_cluster, run_rounds
+    from ksched_tpu_torch.drivers.device_bulk import device_cluster, group_setup, run_rounds
     from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
-    from ksched_tpu_torch.solver.layered import read_flag
+    from ksched_tpu_torch.solver.layered import read_branch, read_flag
 
     ref = REF_BULK[config]
     cluster, tasks = device_cluster(config, device=dev)
@@ -691,7 +784,7 @@ def run_bulk(dev, config, rounds):
     # read), as the round calls them
     solvers = {name: getattr(device_bulk, name)
                for name in ("transport_fori", "transport_fori_tiered")}
-    solve = EventTimer(None)
+    solve = SolveLog(None)
     for name, fn in solvers.items():
         setattr(device_bulk, name, solve.wrap(fn))
     walls = []
@@ -706,16 +799,17 @@ def run_bulk(dev, config, rounds):
         return stats
 
     cluster.round = timed_round
-    transport_loop.launches = transport_loop_tiered.launches = read_flag.count = 0
+    transport_loop.launches = transport_loop_tiered.launches = 0
+    read_flag.count = read_branch.count = 0
     with Recorder(ops, "transport_solve") as rec, \
             Recorder(ops, "transport_solve_tiered") as rec_t:
         # solves, tiered solves, decodes, reads, launches, bounded solves
         seen = [0, 0, 0, 0, 0, 0]
-        for r, stats in run_rounds(cluster, tasks, rounds):
+        for r, stats in run_rounds(cluster, tasks, rounds, setup=group_setup(config)):
             got = cluster.fetch_stats(stats)
             launches = transport_loop.launches + transport_loop_tiered.launches
             now = [len(rec.calls), len(rec_t.calls), len(decode.events),
-                   read_flag.count, launches, len(solve.events)]
+                   read_flag.count + read_branch.count, launches, len(solve.events)]
             say(f"{config} round {r}: "
                 + " ".join(f"{k}={int(got[k])}" for k in ref if k in got)
                 + f" wall_ms={1e3 * walls[r]:.3f}"
@@ -736,10 +830,8 @@ def run_bulk(dev, config, rounds):
     say(f"{config}: final pu sha256 {sha}")
     check(sha == ref["pu_sha256"], f"{config}: final placements differ from the "
           "JAX package's")
-    # every read of the device was an iterative attempt's converged flag
-    check(read_flag.count == len(rec.calls) + len(rec_t.calls),
-          f"{config}: {read_flag.count} host reads for "
-          f"{len(rec.calls) + len(rec_t.calls)} solve attempts")
+    check_reads(config, read_flag.count, read_branch.count, solve.calls,
+                rounds + 1 if cluster.grouped else 0)
     launches = (transport_loop.launches, transport_loop_tiered.launches)
     check(launches == (len(rec.calls), len(rec_t.calls)),
           f"{config}: launches {launches} != attempts "
@@ -748,12 +840,34 @@ def run_bulk(dev, config, rounds):
     return cluster, tasks, (rec, rec_t), launches
 
 
+def check_reads(where, flags, branches, calls, branch_points, escalations=0):
+    """Every host read of a device-bulk run decided something: a
+    bounded solve's flag where it decides the full-range retry (one per
+    call with a retry that launched), where the grouped stage 1's caller
+    branches on it (one per launched stage 1) or where the incremental
+    tier's escalation needs a flag the host does not know
+    (`escalations`), and a branch point's predicates (one per hybrid
+    steady round, one per grouped solve). Retried attempts whose flag no
+    decision needs are not read."""
+    attempts = sum(c["attempts"] for c in calls)
+    retries = sum(c["attempts"] > 0 and c["retry"] for c in calls)
+    stage1 = sum(c["attempts"] > 0 and c["stage1"] for c in calls)
+    say(f"{where}: host reads {flags + branches} = {flags} flag reads "
+        f"+ {branches} branch reads; {attempts} solve attempts; flags needed "
+        f"by {retries} retry decisions, {stage1} stage-1 outcomes and "
+        f"{escalations} escalation tests; {branch_points} branch points")
+    check(flags == retries + stage1 + escalations and branches == branch_points,
+          f"{where}: {flags} flag reads and {branches} branch reads for "
+          f"{retries + stage1 + escalations} flag decisions and {branch_points} "
+          "branch points")
+
+
 def phase_device_bulk(dev):
-    """coco50k-preempt, then coco50k and 10kx1k, on the card."""
+    """coco50k-preempt-full, then coco50k and 10kx1k, on the card."""
     from ksched_tpu_torch.solver.layered import _solve_transport_tiered
 
-    cluster, tasks, (rec, rec_t), (l1, l2) = run_bulk(dev, "coco50k-preempt", 4)
-    check(l1 == 0 and l2 > 0, "coco50k-preempt did not run the tiered kernel alone")
+    cluster, tasks, (rec, rec_t), (l1, l2) = run_bulk(dev, "coco50k-preempt-full", 4)
+    check(l1 == 0 and l2 > 0, "coco50k-preempt-full did not run the tiered kernel alone")
     # the fill's and two later captured solves, re-solved by the plain
     # version on the card (timed with CUDA events: it syncs every superstep)
     picked = sorted({0, 1, len(rec_t.calls) - 1})
@@ -770,10 +884,11 @@ def phase_device_bulk(dev):
         plain_ms[i] = start.elapsed_time(end)
         err = max_abs_diff(c["out"], plain)
         worst = max(worst, err)
-        say(f"coco50k-preempt solve {i}: shape={list(c['args'][0].shape)} "
+        say(f"coco50k-preempt-full solve {i}: shape={list(c['args'][0].shape)} "
             f"eps={int(c['args'][5])} steps={int(c['out'][2])} "
             f"max_abs_err={err} vs plain (plain_ms={plain_ms[i]:.1f})")
-        check(same_bits(c["out"], plain), f"coco50k-preempt solve {i}: kernel != plain")
+        check(same_bits(c["out"], plain),
+              f"coco50k-preempt-full solve {i}: kernel != plain")
 
     _c, _t, _r, (b1, b2) = run_bulk(dev, "coco50k", 2)
     check(b1 > 0 and b2 == 0, "coco50k did not run the transport kernel alone")
@@ -796,7 +911,7 @@ def check_occupancy(cluster, where):
 
 
 def phase_steady(dev, cluster, tasks):
-    """32 steady churn rounds of coco50k-preempt on a torch.Generator:
+    """32 steady churn rounds of coco50k-preempt-full on a torch.Generator:
     16, then 1% of the machines disabled, then 16 more."""
     from ksched_tpu_torch.drivers.device_bulk import steady_rounds
     from ksched_tpu_torch.ops.transport import transport_loop_tiered
@@ -822,16 +937,16 @@ def phase_steady(dev, cluster, tasks):
         check_occupancy(cluster, f"steady chunk {chunk}")
 
 
-def phase_timing_tiered(calls, picked, plain_ms, reps=5):
+def phase_timing_tiered(calls, picked, plain_ms, reps=5, extra=(2,)):
     """The tiered kernel's time at the picked captured solves (CUDA
     events), beside its plain version's (measured at the re-solve) and
-    its bound; and, for the phase split, at round 2's solve too (not in
-    the sums)."""
+    its bound; and, for the phase split, at the `extra` solves too (not
+    in the sums)."""
     from ksched_tpu_torch.ops.transport import transport_loop_tiered
 
     tot_k = tot_p = tot_b = 0.0
     by = {"bytes": 0.0, "operations": 0.0}
-    for i in sorted(set(picked) | {2}):
+    for i in sorted(set(picked) | set(extra)):
         c = calls[i]
         wLo, wHi, R, supply, col_cap, eps = c["args"]
         kw = c["kw"]
@@ -861,6 +976,220 @@ def phase_timing_tiered(calls, picked, plain_ms, reps=5):
         by["bytes"] += b_bytes
         by["operations"] += b_ops
     return tot_k, tot_p, tot_b, max(by, key=by.get)
+
+
+def stats_sha256(stats) -> str:
+    """sha256 of per-round stats stacked as int32 in key order, as
+    tests/torch_device_bulk_reference.py computes it."""
+    return hashlib.sha256(np.ascontiguousarray(np.stack(
+        [np.asarray(stats[k]).astype(np.int32) for k in sorted(stats)])).tobytes()
+    ).hexdigest()
+
+
+def tier_of(got, r):
+    if not got.get("full_round", np.zeros(r + 1))[r]:
+        return "incremental"
+    if got["global_round"][r]:
+        return "global"
+    return "escalated" if got["escalated_round"][r] else "scoped"
+
+
+def round_summary(rows):
+    """rounds, and wall ms (mean, p50, max) beside the mean solve,
+    kernel and decode ms of `rows` (run_steady's per-round records)."""
+    walls = np.array([p[2] for p in rows])
+    kms = [sum(c["events"][0].elapsed_time(c["events"][1]) for c in p[0] + p[1])
+           for p in rows]
+    return (f"rounds={len(rows)} wall_ms mean={walls.mean():.3f} "
+            f"p50={np.median(walls):.3f} max={walls.max():.3f} "
+            f"solve_ms mean={np.mean([p[4][0] for p in rows]):.3f} "
+            f"kernel_ms mean={np.mean(kms):.3f} "
+            f"decode_ms mean={np.mean([p[4][1] for p in rows]):.3f}")
+
+
+def run_steady(dev, config):
+    """The config's scenario (run_bulk: the fill and host-driven rounds
+    against the JAX package's values), then REF_STEADY's steady rounds
+    on the JAX package's draws with every count set to 0 just before:
+    per round its tier or grouped path, supersteps, census drift, wall
+    time (host clock, a synchronize on each side) and kernel time (CUDA
+    events around each solve); the tiers or per-round values, the stats'
+    and the final placements' sha256 against the JAX package's; host
+    reads against attempts and branch points. Returns (cluster, per-round
+    stats, per-round (B1 calls, B2 calls, wall ms, grouped path),
+    launches (B1, B2))."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers.device_bulk import CHURN
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+    from ksched_tpu_torch.solver.layered import read_branch, read_flag
+
+    import ksched_tpu_torch.scheduler.device_bulk as device_bulk
+
+    ref = REF_STEADY[config]
+    cluster, tasks, _rec, _l = run_bulk(dev, config, len(REF_BULK[config]["placed"]) - 1)
+    per_round = []
+    plain_step = cluster.steady_round
+    decode = cluster.rank_match_decode = EventTimer(cluster.rank_match_decode)
+    solvers = {name: getattr(device_bulk, name)
+               for name in ("transport_fori", "transport_fori_tiered")}
+    solve = SolveLog(None)
+    for name, fn in solvers.items():
+        setattr(device_bulk, name, solve.wrap(fn))
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        first = (len(rec.calls), len(rec_t.calls), len(solve.events), len(decode.events))
+        t0 = time.perf_counter()
+        out = plain_step(*a, **kw)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        per_round.append((rec.calls[first[0]:], rec_t.calls[first[1]:], wall,
+                          cluster.last_grouped_path,
+                          (solve.ms(first[2]), decode.ms(first[3])),
+                          solve.calls[first[2]:]))
+        return out
+
+    cluster.steady_round = timed_step
+    transport_loop.launches = transport_loop_tiered.launches = 0
+    read_flag.count = read_branch.count = 0
+    with Recorder(ops, "transport_solve") as rec, \
+            Recorder(ops, "transport_solve_tiered") as rec_t:
+        t0 = time.perf_counter()
+        stats = cluster.run_steady_rounds(ref["rounds"], CHURN, max(1, int(tasks * CHURN)),
+                                          seed=STEADY_SEED)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    del cluster.steady_round, cluster.rank_match_decode
+    for name, fn in solvers.items():
+        setattr(device_bulk, name, fn)
+    launches = (transport_loop.launches, transport_loop_tiered.launches)
+    got = cluster.fetch_stats(stats)
+    say(f"{config} steady: {ref['rounds']} rounds in {total:.3f} s, "
+        f"{total - sum(p[2] for p in per_round) / 1e3:.3f} s of it outside the "
+        f"rounds' walls (the run's keys on the host, each chunk's draws on the card)")
+    for r, (c1, c2, wall, path, (solve_ms, decode_ms), _s) in enumerate(per_round):
+        kms = sum(c["events"][0].elapsed_time(c["events"][1]) for c in c1 + c2)
+        where = (f"tier={tier_of(got, r)} census_drift={int(got['census_drift'][r])}"
+                 if cluster.hybrid_preempt else
+                 f"rows={path[0]} solve={path[1]} active_groups={int(got['active_groups'][r])}")
+        say(f"{config} steady {r}: {where} supersteps={int(got['supersteps'][r])} "
+            f"placed={int(got['placed'][r])} migrated={int(got.get('migrated', got['placed'] * 0)[r])} "
+            f"objective={int(got['objective'][r])} wall_ms={wall:.3f} "
+            f"solve_ms={solve_ms:.3f} kernel_ms={kms:.3f} decode_ms={decode_ms:.3f} "
+            f"b1={len(c1)} b2={len(c2)}")
+    check(bool(got["converged"].all()), f"{config} steady: a round did not converge")
+    if cluster.hybrid_preempt:
+        tiers = {t: sum(tier_of(got, r) == t for r in range(ref["rounds"]))
+                 for t in ("global", "scoped", "escalated", "incremental")}
+        tiers["scoped"] += tiers["escalated"]  # an escalated round is a scoped one
+        for t in ("incremental", "scoped", "escalated", "global"):
+            rows = [i for i in range(ref["rounds"]) if tier_of(got, i) == t]
+            if rows:
+                say(f"{config} tier {t}: " + round_summary([per_round[i] for i in rows])
+                    + f" supersteps mean={got['supersteps'][rows].mean():.1f} "
+                    f"max={int(got['supersteps'][rows].max())}")
+        say(f"{config} steady tiers: {tiers} (JAX package: {ref['tiers']})")
+        check(tiers == ref["tiers"], f"{config}: tier counts differ from the JAX package's")
+        check(min(tiers["incremental"], tiers["scoped"], tiers["global"]) > 0,
+              f"{config}: not every tier ran")
+    else:
+        for k in ("placed", "unscheduled", "objective", "supersteps", "active_groups"):
+            check(got[k].astype(np.int64).tolist() == ref[k],
+                  f"{config} steady: {k} differs from the JAX package's")
+        for kind in ("two-stage", "fallback", "full"):
+            rows = [p for p in per_round if p[3][1] == kind]
+            if rows:
+                say(f"{config} steady {kind} rounds: " + round_summary(rows))
+    sha = stats_sha256(got)
+    say(f"{config} steady: stats sha256 {sha}")
+    check(sha == ref["stats_sha256"], f"{config} steady: stats differ from the JAX package's")
+    sha = pu_sha256(cluster)
+    say(f"{config} steady: final pu sha256 {sha}")
+    check(sha == ref["pu_sha256"], f"{config} steady: placements differ from the JAX package's")
+    check_occupancy(cluster, f"{config} steady")
+    # the incremental tier tests its capped solve's flag for escalation,
+    # a read only where the host does not know it (the attempt retried)
+    escalations = sum(
+        bool(p[5]) and p[5][0]["known"] is None for r, p in enumerate(per_round)
+        if cluster.hybrid_preempt and tier_of(got, r) in ("incremental", "escalated"))
+    check_reads(f"{config} steady", read_flag.count, read_branch.count,
+                solve.calls, ref["rounds"], escalations)
+    check(launches == (len(rec.calls), len(rec_t.calls)),
+          f"{config} steady: launches {launches} != attempts")
+    say(f"{config} steady: launches transport={launches[0]} "
+        f"transport_tiered={launches[1]}")
+    return cluster, got, per_round, launches
+
+
+def resolve_plain(tag, c, tiered):
+    """A captured solve re-solved by the plain version on the card,
+    timed with CUDA events: bits equal or the phase fails. Returns
+    (max_abs_err, plain ms)."""
+    from ksched_tpu_torch.solver.layered import _solve_transport, _solve_transport_tiered
+
+    plain_fn = _solve_transport_tiered if tiered else _solve_transport
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = plain_fn(*c["args"], **c["kw"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    err = max_abs_diff(c["out"], plain)
+    say(f"{tag}: shape={list(c['args'][0].shape)} eps={int(c['args'][3 if not tiered else 5])} "
+        f"budget={c['kw'].get('max_supersteps')} alpha={c['kw'].get('alpha')} "
+        f"steps={int(c['out'][2])} converged={bool(c['out'][3])} "
+        f"max_abs_err={err} vs plain (plain_ms={ms:.1f})")
+    check(same_bits(c["out"], plain), f"{tag}: kernel != plain")
+    return err, ms
+
+
+def phase_tiers(dev):
+    """coco50k-preempt at bench.py's three-tier arguments: the host-driven
+    rounds, 130 steady rounds, then a scoped tiered solve and a capped
+    incremental solve re-solved by the plain versions and timed."""
+    _cluster, got, per_round, launches = run_steady(dev, "coco50k-preempt")
+    check(launches[0] > 0 and launches[1] > 0,
+          "coco50k-preempt steady rounds did not run both transport kernels")
+    scoped = [c for r, p in enumerate(per_round) if tier_of(got, r) == "scoped"
+              for c in p[1]]
+    incr = [c for r, p in enumerate(per_round) if tier_of(got, r) == "incremental"
+            for c in p[0]]
+    check(scoped and incr, "no scoped tiered solve or no incremental solve captured")
+    s_pick = min(scoped, key=lambda c: int(c["out"][2]))
+    i_pick = max(incr, key=lambda c: int(c["out"][2]))
+    check(i_pick["kw"]["max_supersteps"] == 8192, "the incremental solve was not capped")
+    err_s, ms_s = resolve_plain("coco50k-preempt scoped solve", s_pick, True)
+    err_i, ms_i = resolve_plain("coco50k-preempt capped incremental solve", i_pick, False)
+    phase_timing_tiered([s_pick], [0], {0: ms_s}, extra=())
+    phase_timing([i_pick], reps=5)
+    say(f"  (plain_ms of the incremental solve above: {ms_i:.3f})")
+    return launches, max(err_s, err_i)
+
+
+def phase_quincy(dev):
+    """quincy10k: the host-driven rounds, 32 steady rounds, then a
+    stage-1 solve and the longest other grouped solve re-solved by the
+    plain version and timed beside their bound."""
+    _cluster, _got, per_round, launches = run_steady(dev, "quincy10k")
+    check(launches[0] > 0 and launches[1] == 0,
+          "quincy10k steady rounds did not run the transport kernel alone")
+    calls = [c for p in per_round for c in p[0]]
+    stage1 = [c for c in calls if int(c["args"][3]) == 1 and c["kw"]["max_supersteps"] == 256]
+    done = [c for c in stage1 if bool(c["out"][3])]
+    spent = [c for c in stage1 if not bool(c["out"][3])]
+    full = [c for c in calls if all(c is not x for x in stage1)]
+    check(done and full, "no converged stage-1 solve or no full grouped solve captured")
+    other = max(full, key=lambda c: int(c["out"][2]))
+    worst = 0
+    for tag, c in (("quincy10k stage-1 solve", done[0]),
+                   ("quincy10k full (fallback) solve", other)):
+        err, _ms = resolve_plain(tag, c, False)
+        worst = max(worst, err)
+    # B1 at the grouped shapes: a converged and a budget-exhausted
+    # stage 1, and the fallback's full solve
+    phase_timing(done[:1] + spent[:1] + [other], reps=10)
+    return launches, worst
 
 
 def bindings_sha256(sched) -> str:
@@ -1183,6 +1512,10 @@ def main() -> int:
     phase_steady(dev, cluster, tasks)
     tk_ms, tp_ms, tb_ms, t_bound_by = phase_timing_tiered(t_calls, picked, plain_ms)
     say(f"transport launches on the coco50k path: {b1_bulk}")
+    (tier_b1, tier_b2), tier_err = phase_tiers(dev)
+    (q_b1, _q_b2), q_err = phase_quincy(dev)
+    say(f"launches on the coco50k-preempt steady path: transport {tier_b1}, "
+        f"transport_tiered {tier_b2}; on the quincy10k steady path: transport {q_b1}")
     m_err = phase_parity_mcmf(dev)
     m_launches, m_main_err, m_calls, m_picked, m_plain_ms = phase_mega_main(dev)
     p_launches = phase_ladder(dev)
@@ -1195,7 +1528,7 @@ def main() -> int:
         "source": "ksched_tpu_torch/ops/csrc/transport.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:59",
         "launches": launches,
-        "max_abs_err": max(parity_err, main_err),
+        "max_abs_err": max(parity_err, main_err, tier_err, q_err),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": b_ms,
@@ -1207,7 +1540,7 @@ def main() -> int:
         "source": "ksched_tpu_torch/ops/csrc/transport_tiered.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:233",
         "launches": t_launches,
-        "max_abs_err": max(t_err, t_main_err),
+        "max_abs_err": max(t_err, t_main_err, tier_err),
         "ms": tk_ms,
         "plain_ms": tp_ms,
         "bound_ms": tb_ms,

@@ -2,10 +2,11 @@
 
 The JAX package's exported problems and states are numpy arrays at its
 public boundary (`DeviceGraphState.problem()`, `LayeredProblem`, a
-solve's machine prices, `DeviceBulkCluster.fetch_state()`). These
-functions turn such arrays into this package's objects without
-importing the JAX package, so one problem or one mid-run cluster state
-can be fed to both and the answers compared.
+solve's machine prices, `DeviceBulkCluster.fetch_state()`, a grouped
+cluster's GroupSpec, arrival map and hybrid carry). These functions
+turn such arrays into this package's objects without importing the JAX
+package, so one problem or one mid-run cluster can be fed to both and
+the answers compared.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from .graph.device_export import FlowProblem
-from .scheduler.device_bulk import DeviceClusterState
+from .scheduler.device_bulk import DeviceClusterState, GroupSpec
 from .solver.layered import LayeredProblem
 
 
@@ -73,3 +74,32 @@ def device_cluster_state(np_state: dict, device="cpu") -> DeviceClusterState:
         name: torch.as_tensor(np.array(np_state[name], dt), device=device)
         for name, dt in dtypes.items()
     })
+
+
+def continue_cluster(cluster, np_state: dict, groups: Optional[dict] = None,
+                     arrival=None, hybrid=None) -> None:
+    """Carry a mid-run cluster into `cluster` (this package's
+    DeviceBulkCluster of the same geometry): its state (fetch_state()),
+    in group mode its GroupSpec fields (a dict of numpy arrays: cls, job,
+    e, u [G] and pref_w [G, M], e.g. the JAX cluster's
+    `groups._asdict()` fetched to numpy) and arrival map
+    (map int32[G], count), and in stability-aware preemption mode its
+    hybrid carry (census_ref int32[M, C], rounds since the last
+    re-solve, rounds since the last global one). The next rounds then
+    continue the same run."""
+    dev = cluster.device
+    cluster.state = device_cluster_state(np_state, dev)
+    if groups is not None:
+        cluster.groups = GroupSpec(**{
+            name: torch.as_tensor(np.array(groups[name], np.int32), device=dev)
+            for name in GroupSpec._fields
+        })
+        cluster._groups_cls_host = np.array(groups["cls"], np.int32)
+    if arrival is not None:
+        amap, count = arrival
+        cluster._arrival_map = torch.as_tensor(np.array(amap, np.int32), device=dev)
+        cluster._arrival_n = int(count)
+    if hybrid is not None:
+        census, k, kg = hybrid
+        cluster._hyb_census = torch.as_tensor(np.array(census, np.int32), device=dev)
+        cluster._hyb_k, cluster._hyb_kg = int(k), int(kg)

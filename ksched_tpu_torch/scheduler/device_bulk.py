@@ -4,12 +4,20 @@ The ENTIRE cluster state — task table, placements, per-PU occupancy,
 machine membership — lives in tensors on one device, and one scheduling
 round (capacity refresh -> class census -> transport solve -> flow
 decode -> placement apply) is a sequence of tensor operations and one
-solve per attempt on that device. Rounds chain on the device: the only
-host read of a round is a solve attempt's converged flag, which decides
-the full-range retry (solver/layered.py `read_flag`), and closed-form
-rounds read nothing. Stats come back as device tensors; `fetch_stats`
-materializes them after the timed region, where the reference pushes
-its bindings (cmd/k8sscheduler/scheduler.go:146-187).
+solve per attempt on that device. Rounds chain on the device. The
+host reads two kinds of values, each counted: a solve attempt's
+converged flag (solver/layered.py `read_flag`), where it decides the
+full-range retry, the grouped stage 1's outcome or the incremental
+tier's escalation and the host does not know it yet, and a branch
+point's predicates, read in one transfer
+(`read_branch`): the stability-aware tier of a hybrid round (one read
+a round where the census-drift trigger is on) and the compaction rung
+and two-stage test of a grouped solve (one read a solve). These are the
+decisions the reference takes with lax.cond on device values; the
+cadence counters stay on the host, exact given the escalation flag.
+Closed-form rounds read nothing. Stats come back as device tensors;
+`fetch_stats` materializes them after the timed region, where the
+reference pushes its bindings (cmd/k8sscheduler/scheduler.go:146-187).
 
 The solve is the dense layered transport: `ops.transport_solve` (kernel
 B1) with preemption off, `ops.transport_solve_tiered` (kernel B2) for
@@ -19,12 +27,18 @@ rank-matches placed tasks to machine grants with integer row gathers
 and exclusive in-group ranks, then splits each machine's grant across
 its PUs — every count exact in int32.
 
-This slice ports the ungrouped modes: the per-round round core with
-preemption off and on (the full tiered re-solve every round), host
-mutations, and steady churn rounds whose random draws come in as
-tensors (`draw_steady` makes them from a `torch.Generator`). Group mode,
-the stability-aware and three-tier preemption schemes, realized-cost
-tracking and replay rounds raise NotImplementedError naming their
+Modes: preemption off and on (the full tiered re-solve every round),
+the stability-aware (two-tier) and three-tier preemption schemes of
+steady rounds (`hybrid_round`: incremental rounds with residents
+pinned, scoped re-solves over the drifted machines, rare global
+re-solves, budgeted incremental attempts escalating to the scoped
+tier), realized-cost tracking, and group mode (`GroupSpec`: rows are
+caller-defined interchangeability groups with per-group costs and
+preference overrides; the exact two-stage decomposition and the
+compaction ladder). Steady churn rounds take their random draws as
+tensors: `run_steady_rounds(seed=...)` makes the JAX package's own
+draws (utils/threefry.py), `draw_steady` others from a
+`torch.Generator`. Replay rounds raise NotImplementedError naming their
 ROADMAP item.
 
 Graph semantics are those of the host BulkCluster: the same aggregate
@@ -43,13 +57,17 @@ from ..solver.layered import (
     COST_SCALE_LIMIT,
     _true,
     choose_eps0,
+    converged_on_host,
     pad_geometry,
+    read_branch,
     solve_row_constant,
+    split_grants_by_class,
     transport_fori,
     transport_fori_tiered,
     validate_alpha,
     validate_job_unsched_cost,
 )
+from ..utils import threefry
 from ..utils.device import resolve_device
 
 _I32 = torch.int32
@@ -62,8 +80,32 @@ class DeviceClusterState(NamedTuple):
     pu: torch.Tensor  # int32[Tcap]; PU index or -1
     pu_running: torch.Tensor  # int32[num_pus]
     machine_enabled: torch.Tensor  # bool[M]
-    #: interchangeability group per task (group mode; all-zero here)
+    #: interchangeability group per task (group mode; all-zero otherwise)
     grp: torch.Tensor  # int32[Tcap]
+
+
+class GroupSpec(NamedTuple):
+    """Group metadata on the device (group mode): row g of the transport
+    is one interchangeability class of tasks — same task class, same
+    escape cost, same per-machine cost profile. Per-task preference arcs
+    (graph_manager.go:1229-1264) ride the dense solve this way: tasks
+    sharing a preference signature share a row, and the signature's
+    preferred machines become per-row cost overrides (pref_w) min'd
+    into the class cost row. The host updates them between rounds
+    (set_groups)."""
+
+    cls: torch.Tensor  # int32[G] class of each group (census/cost row)
+    job: torch.Tensor  # int32[G] job of each group (bookkeeping)
+    e: torch.Tensor  # int32[G] task->EC route base cost
+    u: torch.Tensor  # int32[G] escape (unsched) cost
+    pref_w: torch.Tensor  # int32[G, M] absolute route cost overrides;
+    #                       PREF_NONE where the group has no preference
+
+
+#: pref_w fill for "no preference": large enough never to win the min
+#: against a guarded route cost, small enough that min() cannot
+#: overflow int32
+PREF_NONE = 1 << 30
 
 
 def _not_ported(what: str, item: str):
@@ -81,22 +123,30 @@ def _count(idx, n: int):
     return out[:n]
 
 
+#: steady rounds whose JAX-package draws the device makes in one pass.
+#: A pass is ~170 elementwise launches whatever its size (1.7-2.4 ms at
+#: Tcap 65,536 on an H100), more than an incremental round's solve; its
+#: int64 temporaries are [DRAW_ROUNDS, 5, Tcap] (42 MB each at 65,536).
+DRAW_ROUNDS = 16
+
+
 def draw_steady(generator: torch.Generator, task_capacity: int,
-                num_task_classes: int, num_jobs: int):
+                range_a: int, range_b: int):
     """One steady round's random draws, made on the generator's device:
     (done_u float32[Tcap] — a row completes if placed and done_u <
-    churn_prob; new_cls, new_job int32[Tcap] — the class and job of the
-    arrival admitted into each free row; window_offset int32 scalar —
-    the rotation of the decode window)."""
+    churn_prob; draw_a, draw_b int32[Tcap] in [0, range_a) and [0,
+    range_b) — the class and job of the arrival admitted into each free
+    row, or in group mode draw_a its index into the arrival map;
+    window_offset int32 scalar — the rotation of the decode window)."""
     dev = generator.device
     done_u = torch.rand(task_capacity, generator=generator, device=dev)
-    new_cls = torch.randint(0, num_task_classes, (task_capacity,),
-                            generator=generator, device=dev, dtype=_I32)
-    new_job = torch.randint(0, num_jobs, (task_capacity,),
-                            generator=generator, device=dev, dtype=_I32)
+    draw_a = torch.randint(0, range_a, (task_capacity,),
+                           generator=generator, device=dev, dtype=_I32)
+    draw_b = torch.randint(0, range_b, (task_capacity,),
+                           generator=generator, device=dev, dtype=_I32)
     window_offset = torch.randint(0, 1 << 30, (), generator=generator,
                                   device=dev, dtype=_I32)
-    return done_u, new_cls, new_job, window_offset
+    return done_u, draw_a, draw_b, window_offset
 
 
 class DeviceBulkCluster:
@@ -123,31 +173,16 @@ class DeviceBulkCluster:
         preempt_every: int = 1,
         preempt_drift: int = 0,
         preempt_global_every: int = 0,
+        preempt_scope_tau: int = 1,
+        preempt_scoped_width: Optional[int] = None,
         preempt_incr_budget: Optional[int] = None,
         track_realized_cost: bool = False,
         num_groups: int = 0,
+        active_groups_cap=256,  # an int or a ladder of widths
         refine_waves: int = 8,
+        two_stage_eps0: str = "one",
         device="cuda",
     ) -> None:
-        if num_groups > 0:
-            raise _not_ported("group mode (num_groups > 0)", "5a")
-        if preempt_every < 1:
-            raise ValueError("preempt_every must be >= 1")
-        if preempt_drift < 0:
-            raise ValueError("preempt_drift must be >= 0")
-        if preempt_global_every < 0:
-            raise ValueError("preempt_global_every must be >= 0")
-        for name, value, default in (
-            ("preempt_every", preempt_every, 1),
-            ("preempt_drift", preempt_drift, 0),
-            ("preempt_global_every", preempt_global_every, 0),
-            ("preempt_incr_budget", preempt_incr_budget, None),
-            ("track_realized_cost", track_realized_cost, False),
-        ):
-            if value != default:
-                raise _not_ported(
-                    f"{name}={value!r} (stability-aware / three-tier "
-                    "preemption)", "5b")
         self.device = resolve_device(device)
         self.M = num_machines
         self.P = pus_per_machine
@@ -168,15 +203,90 @@ class DeviceBulkCluster:
         )
         self.per_job = self.job_unsched_cost is not None
         self.G = num_jobs * num_task_classes if self.per_job else num_task_classes
+        # Group mode: rows are caller-defined interchangeability groups
+        # (GroupSpec) instead of classes or (job, class) pairs.
+        self.grouped = num_groups > 0
+        if self.grouped:
+            if self.per_job:
+                raise ValueError(
+                    "num_groups and job_unsched_cost are exclusive: group "
+                    "escape costs (GroupSpec.u) subsume per-job unsched costs"
+                )
+            self.G = int(num_groups)
+        # Rows the compacted grouped solve can hold: one width, or a
+        # ladder of widths of which a round takes the smallest that
+        # fits its active-row count.
+        if isinstance(active_groups_cap, (int, np.integer)):
+            caps = (int(active_groups_cap),)
+        else:
+            caps = tuple(int(c) for c in active_groups_cap)
+        if not caps or any(c < 1 for c in caps):
+            raise ValueError("active_groups_cap entries must be >= 1")
+        self.active_groups_caps = tuple(sorted({min(c, max(self.G, 1)) for c in caps}))
+        self.active_groups_cap = self.active_groups_caps[-1]
         # Price refinement between eps phases (solver/layered.py
         # _price_refine) for the iterative solves.
         self.refine_waves = int(refine_waves)
+        # Stage-1 eps schedule of the grouped two-stage solve: "one"
+        # (eps0 = 1, budget 256) or "quarter" (n_scale/4, budget 2048).
+        if two_stage_eps0 not in ("one", "quarter"):
+            raise ValueError("two_stage_eps0 must be 'one' or 'quarter'")
+        self.two_stage_eps0 = two_stage_eps0
         # Preemption (keep-arcs semantics, graph_manager.go:855-888):
         # every round re-solves PLACED tasks too; staying is discounted
         # by `continuation_discount`, machine capacity counts total
         # slots. The round emits PLACE / MIGRATE / PREEMPT counts.
         self.preemption = bool(preemption)
         self.continuation_discount = int(continuation_discount)
+        # Stability-aware preemption: steady rounds run the incremental
+        # core (residents pinned, bounded backlog decode); a re-solve
+        # fires every `preempt_every` rounds or when the running-class
+        # census drifted by `preempt_drift` task positions (L1) since
+        # the last one. With `preempt_global_every` > 0 (three tiers)
+        # those re-solves are SCOPED to the machines whose census moved
+        # by `preempt_scope_tau` (their residents and the backlog
+        # re-solve, the rest stay pinned; movers decoded through a
+        # `preempt_scoped_width` window) and a GLOBAL re-solve fires
+        # every `preempt_global_every` rounds; `preempt_incr_budget`
+        # bounds an incremental attempt, and one that does not converge
+        # escalates the round to the scoped tier.
+        self.preempt_every = int(preempt_every)
+        self.preempt_drift = int(preempt_drift)
+        self.preempt_global_every = int(preempt_global_every)
+        self.preempt_scope_tau = int(preempt_scope_tau)
+        self.preempt_scoped_width = (
+            None if preempt_scoped_width is None else int(preempt_scoped_width)
+        )
+        self.preempt_incr_budget = (
+            None if preempt_incr_budget is None else int(preempt_incr_budget)
+        )
+        if self.preempt_every < 1:
+            raise ValueError("preempt_every must be >= 1")
+        if self.preempt_drift < 0:
+            raise ValueError("preempt_drift must be >= 0")
+        if self.preempt_global_every < 0:
+            raise ValueError("preempt_global_every must be >= 0")
+        if self.preempt_scope_tau < 1:
+            raise ValueError("preempt_scope_tau must be >= 1")
+        self.hybrid_preempt = self.preemption and (
+            self.preempt_every > 1 or self.preempt_drift > 0
+        )
+        if self.preempt_global_every > 0 and not self.hybrid_preempt:
+            raise ValueError(
+                "preempt_global_every requires stability-aware "
+                "preemption (preempt_every > 1 or preempt_drift > 0)"
+            )
+        if self.preempt_incr_budget is not None:
+            if self.preempt_incr_budget < 1:
+                raise ValueError("preempt_incr_budget must be >= 1")
+            if self.preempt_global_every <= 0:
+                raise ValueError(
+                    "preempt_incr_budget requires the three-tier scheme "
+                    "(preempt_global_every > 0) — escalation targets the "
+                    "scoped tier"
+                )
+        # Opt-in: price the whole assignment after every hybrid round.
+        self.track_realized_cost = bool(track_realized_cost)
         if self.preemption and continuation_discount < 0:
             raise ValueError("continuation_discount must be >= 0")
         if decode_width is not None:
@@ -188,13 +298,14 @@ class DeviceBulkCluster:
                 decode_width = None  # wider than the pool = the full path
         self.decode_width = None if decode_width is None else int(decode_width)
         # Degenerate = every row shares one cost row: the closed form.
+        # Group mode is heterogeneous (preference overrides).
         jc = self.job_unsched_cost
-        self.class_degenerate = class_cost_fn is None and (
+        self.class_degenerate = (not self.grouped and class_cost_fn is None and (
             jc is None or bool((jc == jc[0]).all())
-        )
+        ))
         # Row-constant: each row machine-uniform, rows differ — the
         # fractional-knapsack closed form.
-        self.row_constant = self.per_job and class_cost_fn is None
+        self.row_constant = not self.grouped and self.per_job and class_cost_fn is None
         # A positive discount makes cells residency-dependent.
         if self.preemption and self.continuation_discount > 0:
             self.class_degenerate = False
@@ -210,8 +321,8 @@ class DeviceBulkCluster:
         # Padded transport columns: [machines | zero-cap padding | unsched]
         self.Mp, self.n_scale = pad_geometry(num_machines, self.G)
         # The one-hot decode's [W, G] ranks scale with G; beyond ~2M
-        # G*M cells the sort-based ranks win.
-        self.use_sorted_decode = self.G * self.M >= (1 << 21)
+        # G*M cells, and always in group mode, the sort-based ranks win.
+        self.use_sorted_decode = self.grouped or self.G * self.M >= (1 << 21)
         # Per-row escape costs: row g = j*C + c escapes at job j's cost.
         self.u_row = torch.as_tensor(
             np.repeat(self.job_unsched_cost, self.C).astype(np.int32)
@@ -229,8 +340,34 @@ class DeviceBulkCluster:
             machine_enabled=torch.ones(self.M, dtype=torch.bool, device=dev),
             grp=torch.zeros(self.Tcap, dtype=_I32, device=dev),
         )
+        # The hybrid carry: the running-class census at the last
+        # re-solve (the drift reference), and the rounds since the last
+        # re-solve and the last global one. Both counters start
+        # saturated, so the first steady round re-solves (globally):
+        # host mutations before it are unseen drift.
+        self._hyb_census = torch.zeros((self.M, self.C), dtype=_I32, device=dev)
+        self._hyb_k = self.preempt_every - 1
+        self._hyb_kg = max(self.preempt_global_every - 1, 0)
+        # Benign defaults until set_groups: every group is class 0 /
+        # job 0 at the scalar costs with no preferences.
+        self.groups = GroupSpec(
+            cls=torch.zeros(self.G, dtype=_I32, device=dev),
+            job=torch.zeros(self.G, dtype=_I32, device=dev),
+            e=torch.full((self.G,), self.ec_cost, dtype=_I32, device=dev),
+            u=torch.full((self.G,), self.unsched_cost, dtype=_I32, device=dev),
+            pref_w=torch.full((self.G, self.M), PREF_NONE, dtype=_I32, device=dev),
+        ) if self.grouped else None
+        # host mirror of GroupSpec.cls: grouped admissions derive their
+        # tasks' classes without a device read
+        self._groups_cls_host = np.zeros(self.G, np.int32) if self.grouped else None
+        #: steady-round arrival group map (see set_arrival_groups)
+        self._arrival_map = torch.arange(max(self.G, 1), dtype=_I32, device=dev)
+        self._arrival_n = max(self.G, 1)
         self.last_stats: Optional[dict] = None
         self.last_admitted = None  # device int32 from the latest add_tasks
+        #: per grouped solve, on the host: (rows of the solve — a ladder
+        #: width or G —, "two-stage", "fallback" or "full")
+        self.last_grouped_path = None
 
     # ------------------------------------------------------------------
     # the round's parts
@@ -238,6 +375,9 @@ class DeviceBulkCluster:
 
     def _i32(self, value):
         return torch.full((), value, dtype=_I32, device=self.device)
+
+    def _flag(self, value: bool):
+        return torch.full((), bool(value), dtype=torch.bool, device=self.device)
 
     def census_of(self, state: DeviceClusterState):
         """Per-machine running-class census [M, C] (the vectorized
@@ -248,18 +388,40 @@ class DeviceBulkCluster:
         idx = torch.where(placed, machine * C + state.cls, M * C)
         return _count(idx, M * C).view(M, C)
 
+    def _group_of(self, state):
+        """int32[Tcap]: each task's transport row."""
+        if self.grouped:
+            return state.grp
+        return state.job * self.C + state.cls if self.per_job else state.cls
+
     def _costs(self, state):
         """(cost_eff int32[G, M], w int32[G, M]): the effective per-unit
         place cost and the solve's shifted cost (minus the row's escape
-        cost, so the escape column is 0)."""
+        cost, so the escape column is 0). In group mode the route is
+        e_g + cost[cls_g, m] and a preference override wins where
+        cheaper: min(EC route, preference arc), the two parallel paths a
+        task has in the reference graph (graph_manager.go:1183-1264)."""
         if self.class_cost_fn is not None:
             cost_cm = self.class_cost_fn(self.census_of(state)).to(_I32)
         else:
+            cost_cm = None
+        if self.grouped:
+            gs = self.groups
+            if cost_cm is None:
+                route = gs.e[:, None].expand(self.G, self.M)
+            else:
+                route = cost_cm[gs.cls.clamp(0, self.C - 1)] + gs.e[:, None]
+            cost_eff = torch.minimum(route, gs.pref_w)
+            return cost_eff, cost_eff - gs.u[:, None]
+        if cost_cm is None:
             cost_cm = torch.zeros((self.C, self.M), dtype=_I32, device=self.device)
         # row g = j*C + c carries class c's cost row
         cost_gm = cost_cm.repeat(self.J, 1) if self.per_job else cost_cm
         cost_eff = cost_gm + self.ec_cost
         return cost_eff, cost_eff - self.u_row[:, None]
+
+    def _escape_costs(self):
+        return self.groups.u if self.grouped else self.u_row
 
     def _padded(self, x):
         """[G, M] -> [G, Mp], zero in the padding and escape columns."""
@@ -302,9 +464,9 @@ class DeviceBulkCluster:
         pu_abs is meaningful only where granted.
 
         A row's exclusive in-group rank comes from a one-hot cumsum
-        ([W, G], for few groups) or one stable sort (many groups); its
-        group's cumulative-grant row is an integer row gather, so every
-        count stays exact."""
+        ([W, G], for few groups) or one stable sort (many groups, and
+        group mode); its group's cumulative-grant row is an integer row
+        gather, so every count stays exact."""
         Gn, M, P = self.G, self.M, self.P
         W = g_safe.shape[0]
         dev = self.device
@@ -342,16 +504,106 @@ class DeviceBulkCluster:
         pu_in = (cumg[m_clip] <= slot[:, None]).sum(dim=1, dtype=_I32)
         return granted, machine * P + pu_in
 
-    def round_core(self, state: DeviceClusterState, decode_width=None,
-                   window_offset=None):
-        """One preemption-off scheduling round. decode_width bounds the
-        decode to a compacted window of that many unplaced rows (the
-        admission-batch bound, k8sclient/client.go:153-193): tasks
-        beyond it stay pending; window_offset (int32 scalar) rotates
-        which backlog ranks the window covers. decode_width=None decodes
-        all Tcap rows (the one-shot round). Returns (state, stats)."""
+    # ---- the grouped solve ----
+
+    def _grouped_solve(self, w, wS, supply, total, col_cap, machine_free,
+                       ss_budget):
+        """The grouped round's solve (device_bulk.py:722-915 of the
+        reference): row compaction to the smallest ladder width that
+        fits the active rows, and on each instance either the exact
+        two-stage decomposition (cost_fn None, every active row's ground
+        profitable, the round not oversubscribed: stage 1 matches the
+        sparse preference discounts, stage 2 spreads the rest in closed
+        form) or the full solve at alpha 2 with refinement. The branch
+        predicates — the active-row count and the two-stage test — are
+        one host read, stage 1's flag another. Returns (y int32[G, Mp],
+        steps, converged, what the host knows of converged: a bool, or
+        None where only the device has it)."""
+        Gn, M, n_scale = self.G, self.M, self.n_scale
+        gs = self.groups
+        two_stage = self.class_cost_fn is None
+        ground = gs.e - gs.u  # [G] route - escape
+        if two_stage:
+            D = torch.clamp(ground[:, None] - w, min=0)
+            wS1 = self._padded(torch.where(D > 0, -D, 1) * n_scale)
+        else:
+            wS1 = wS  # unused
+        caps = tuple(c for c in self.active_groups_caps if c < Gn)
+        act = supply > 0
+        preds = []
+        if caps:
+            preds.append(act.sum(dtype=_I32))
+        if two_stage:
+            preds.append(((total <= machine_free.sum(dtype=_I32))
+                          & ((ground < 0) | ~act).all()).to(_I32))
+        got = read_branch(torch.stack(preds)) if preds else []
+        n_act = got[0] if caps else Gn
+        two_stage_ok = two_stage and bool(got[-1])
+        rows = next((c for c in caps if n_act <= c), Gn)
+        mfree_total = machine_free.sum(dtype=_I32)
+
+        def solve_full(wS_x, supply_x, budget):
+            # full-unit eps start for grouped instances
+            eps_full_x = wS_x.abs().amax().clamp(min=1)
+            y_f, _pm, s_f, c_f, known = transport_fori(
+                wS_x, supply_x, col_cap, budget, alpha=2, refine_waves=8,
+                eps0=choose_eps0(n_scale, eps_full_x, supply_x.sum(dtype=_I32),
+                                 mfree_total, short=n_scale),
+            )
+            return y_f, s_f, c_f, known
+
+        def solve(wS_x, wS1_x, supply_x):
+            if not two_stage_ok:
+                self.last_grouped_path = (rows, "full")
+                return solve_full(wS_x, supply_x, ss_budget)
+            if self.two_stage_eps0 == "quarter":
+                s1_eps0, s1_budget = max(1, n_scale // 4), 2048
+            else:
+                s1_eps0, s1_budget = 1, 256
+            y1, _pm1, s1, conv1, known1 = transport_fori(
+                wS1_x, supply_x, col_cap, ss_budget, alpha=2, refine_waves=8,
+                eps0=s1_eps0, eps0_budget=s1_budget, eps0_retry=False,
+            )
+            if converged_on_host(conv1, known1):
+                self.last_grouped_path = (rows, "two-stage")
+                y1r = y1[:, :M]
+                left = supply_x - y1r.sum(dim=1, dtype=_I32)
+                rem = machine_free - y1r.sum(dim=0, dtype=_I32)
+                excl = torch.cumsum(rem, 0, dtype=_I32) - rem
+                grants_m = torch.minimum(
+                    torch.clamp(left.sum(dtype=_I32) - excl, min=0), rem)
+                y_out = y1.clone()
+                y_out[:, :M] += split_grants_by_class(grants_m, left)
+                y_out[:, self.Mp - 1] = supply_x - y_out[:, :M].sum(dim=1, dtype=_I32)
+                return y_out, s1, conv1, True
+            # the round's budget is shared: the fallback gets what the
+            # exhausted stage 1 left of it
+            self.last_grouped_path = (rows, "fallback")
+            fb_budget = ss_budget - min(s1_budget, ss_budget)
+            if fb_budget <= 0:
+                return y1, s1, conv1, False
+            y_f, s_f, c_f, known = solve_full(wS_x, supply_x, fb_budget)
+            return y_f, s1 + s_f, c_f, known
+
+        if rows == Gn:
+            return solve(wS, wS1, supply)
+        order = torch.sort((~act).to(_I32), stable=True).indices
+        sel = order[:rows]
+        valid_c = act[sel]
+        y_c, steps, conv, known = solve(
+            wS[sel], wS1[sel], torch.where(valid_c, supply[sel], 0))
+        y = torch.zeros((Gn, self.Mp), dtype=_I32, device=self.device)
+        y.index_add_(0, sel, torch.where(valid_c[:, None], y_c, 0))
+        return y, steps, conv, known
+
+    def _round_core(self, state: DeviceClusterState, decode_width=None,
+                    window_offset=None, supersteps_cap=None):
+        """round_core, and what the host knows of the converged flag
+        (a bool, or None where only the device has it)."""
         M, P, S, C, Tcap = self.M, self.P, self.S, self.C, self.Tcap
         Gn, num_pus, n_scale = self.G, self.num_pus, self.n_scale
+        ss_budget = (self.supersteps if supersteps_cap is None
+                     else min(int(supersteps_cap), self.supersteps))
         pu_free = torch.where(
             state.machine_enabled.repeat_interleave(P), S - state.pu_running, 0
         )
@@ -361,14 +613,18 @@ class DeviceBulkCluster:
         if decode_width is None:
             backlog = unplaced.sum(dtype=_I32)
             idx = None  # identity window
-            valid, cls_w, job_w = unplaced, state.cls, state.job
+            valid, cls_w, job_w, grp_w = unplaced, state.cls, state.job, state.grp
         else:
             backlog, idx, valid = self._window(unplaced, int(decode_width),
                                                window_offset)
             rows = idx.clamp(0, Tcap - 1)
             cls_w = torch.where(valid, state.cls[rows], C)
             job_w = torch.where(valid, state.job[rows], 0)
-        g_w = job_w * C + cls_w if self.per_job else cls_w
+            grp_w = torch.where(valid, state.grp[rows], Gn)
+        if self.grouped:
+            g_w = grp_w
+        else:
+            g_w = job_w * C + cls_w if self.per_job else cls_w
         g_safe = torch.where(valid, g_w, Gn)
         supply = _count(g_safe, Gn)
         total = supply.sum(dtype=_I32)
@@ -382,11 +638,14 @@ class DeviceBulkCluster:
         # costs and recreate the identical-cost herding pathology.
         if self.row_constant:
             y = solve_row_constant(w[:, 0], supply, col_cap)
-            solve_steps, converged = self._i32(0), _true(self.device)
+            solve_steps, converged, known = self._i32(0), _true(self.device), True
+        elif self.grouped:
+            y, solve_steps, converged, known = self._grouped_solve(
+                w, wS, supply, total, col_cap, machine_free, ss_budget)
         else:
             eps_full = wS.abs().amax().clamp(min=1)
-            y, _pm, solve_steps, converged = transport_fori(
-                wS, supply, col_cap, self.supersteps, alpha=self.alpha,
+            y, _pm, solve_steps, converged, known = transport_fori(
+                wS, supply, col_cap, ss_budget, alpha=self.alpha,
                 eps0=choose_eps0(n_scale, eps_full, total,
                                  machine_free.sum(dtype=_I32)),
                 class_degenerate=self.class_degenerate,
@@ -410,11 +669,13 @@ class DeviceBulkCluster:
         # unscheduled counts the WHOLE backlog left pending (solver
         # escapes + rows beyond the decode window)
         placed_cost = (cost_eff * y_real).sum(dtype=_I32)
-        if self.per_job:
-            g_all = torch.where(unplaced, state.job * C + state.cls, Gn)
+        if self.per_job or self.grouped:
+            # per-row escape pricing needs the whole backlog by row
+            g_all = torch.where(unplaced, self._group_of(state), Gn)
             backlog_g = _count(g_all, Gn)
             placed_g = y_real.sum(dim=1, dtype=_I32)
-            objective = (self.u_row * (backlog_g - placed_g)).sum(dtype=_I32) + placed_cost
+            objective = ((self._escape_costs() * (backlog_g - placed_g)).sum(dtype=_I32)
+                         + placed_cost)
         else:
             objective = self.unsched_cost * (backlog - placed_count) + placed_cost
         stats = {
@@ -427,10 +688,27 @@ class DeviceBulkCluster:
             # solver supersteps this round (0 on closed-form paths)
             "supersteps": solve_steps,
         }
-        return state._replace(pu=new_pu, pu_running=pu_running), stats
+        if self.grouped:
+            stats["active_groups"] = (supply > 0).sum(dtype=_I32)
+        return state._replace(pu=new_pu, pu_running=pu_running), stats, known
+
+    def round_core(self, state: DeviceClusterState, decode_width=None,
+                   window_offset=None, supersteps_cap=None):
+        """One preemption-off scheduling round. decode_width bounds the
+        decode to a compacted window of that many unplaced rows (the
+        admission-batch bound, k8sclient/client.go:153-193): tasks
+        beyond it stay pending; window_offset (int32 scalar) rotates
+        which backlog ranks the window covers. decode_width=None decodes
+        all Tcap rows (the one-shot round). supersteps_cap bounds the
+        round's transport budget below `supersteps` (the grouped
+        two-stage fallback gets what stage 1 left of it); a capped solve
+        may return converged=False. Returns (state, stats)."""
+        state, stats, _known = self._round_core(state, decode_width, window_offset,
+                                             supersteps_cap)
+        return state, stats
 
     def round_core_preempt(self, state: DeviceClusterState, decode_width=None,
-                           window_offset=None):
+                           window_offset=None, scope_m=None):
         """Preemption-on round (keep-arcs semantics, graph_manager.go:
         855-888): every live task re-solves. Staying on the current
         machine is discounted, moving pays full price, escaping pays the
@@ -444,7 +722,13 @@ class DeviceBulkCluster:
 
         decode_width bounds the MOVER decode to a compacted window, as
         round_core's does for the backlog; movers beyond a binding
-        window keep pu=-1 and re-enter the next solve."""
+        window keep pu=-1 and re-enter the next solve.
+
+        scope_m (bool[M] or None) makes this the SCOPED re-solve of the
+        three-tier scheme: residents of out-of-scope machines are pinned
+        (they stay, take their machine's capacity, and pay their
+        discounted cost in the objective); only residents of in-scope
+        machines and the backlog re-solve."""
         M, P, S, C, Tcap = self.M, self.P, self.S, self.C, self.Tcap
         Gn, num_pus, n_scale = self.G, self.num_pus, self.n_scale
         discount = self.continuation_discount
@@ -454,18 +738,29 @@ class DeviceBulkCluster:
         placed = live & (state.pu >= 0)
         cur_pu = state.pu.clamp(0, num_pus - 1)
         cur_m = torch.where(placed, cur_pu // P, M)  # sentinel M
-        g_t = state.job * C + state.cls if self.per_job else state.cls
+        g_t = self._group_of(state)
 
-        g_safe = torch.where(live, g_t, Gn)
+        if scope_m is None:
+            in_scope, forced = placed, None
+            solve_live = live
+            col_cap_m = torch.where(state.machine_enabled, P * S, 0).to(_I32)
+        else:
+            scope_pad = torch.cat([scope_m, torch.zeros(1, dtype=torch.bool, device=dev)])
+            in_scope = placed & scope_pad[cur_m]
+            forced = placed & ~in_scope
+            solve_live = live & (~placed | in_scope)
+            # forced (out-of-scope) stays take their machine's capacity
+            F_m = _count(torch.where(forced, cur_m, M), M)
+            col_cap_m = torch.where(state.machine_enabled, P * S - F_m, 0).to(_I32)
+        g_safe = torch.where(solve_live, g_t, Gn)
         supply = _count(g_safe, Gn)
         total = supply.sum(dtype=_I32)
-        col_cap_m = torch.where(state.machine_enabled, P * S, 0).to(_I32)
 
         cost_eff, w = self._costs(state)
         cost_overflow = (w.abs().amax() + discount) >= COST_SCALE_LIMIT // n_scale
 
-        # resident census per cell [G, M]
-        cell = torch.where(placed, g_t * M + cur_m, Gn * M)
+        # resident census per cell [G, M] (in-scope placed tasks)
+        cell = torch.where(in_scope, g_t * M + cur_m, Gn * M)
         R_real = _count(cell, Gn * M).view(Gn, M)
 
         wS_hi = self._padded(w * n_scale)
@@ -482,13 +777,13 @@ class DeviceBulkCluster:
             solve_steps, converged = self._i32(0), _true(dev)
         elif discount == 0:
             # tiers coincide: the ordinary solve is exact
-            y, _pm, solve_steps, converged = transport_fori(
+            y, _pm, solve_steps, converged, _known = transport_fori(
                 wS_hi, supply, col_cap, self.supersteps, alpha=self.alpha,
                 eps0=eps0, class_degenerate=self.class_degenerate,
                 refine_waves=self.refine_waves,
             )
         else:
-            y, _pm, solve_steps, converged = transport_fori_tiered(
+            y, _pm, solve_steps, converged, _known = transport_fori_tiered(
                 wS_lo, wS_hi, R_pad, supply, col_cap, self.supersteps,
                 alpha=self.alpha, eps0=eps0, refine_waves=self.refine_waves,
             )
@@ -504,7 +799,9 @@ class DeviceBulkCluster:
         rank_sorted = torch.arange(Tcap, dtype=_I32, device=dev) - starts[cell[order]]
         rank_cell = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
         ret_flat = torch.cat([retained.reshape(-1), torch.zeros(1, dtype=_I32, device=dev)])
-        stay = placed & (rank_cell < ret_flat[cell])
+        stay = in_scope & (rank_cell < ret_flat[cell])
+        if forced is not None:
+            stay = stay | forced
 
         # movers: every live task not staying; their grants fill the
         # slots left after stays
@@ -533,8 +830,15 @@ class DeviceBulkCluster:
         objective = (
             (cost_eff * y_real).sum(dtype=_I32)
             - discount * retained.sum(dtype=_I32)
-            + (self.u_row * (supply - y_real.sum(dim=1, dtype=_I32))).sum(dtype=_I32)
+            + (self._escape_costs()
+               * (supply - y_real.sum(dim=1, dtype=_I32))).sum(dtype=_I32)
         )
+        if forced is not None:
+            # forced stays pay their discounted cost, so scoped and
+            # global objectives price the same pool
+            F_gm = _count(torch.where(forced, g_t * M + cur_m, Gn * M), Gn * M).view(Gn, M)
+            objective = (objective + (cost_eff * F_gm).sum(dtype=_I32)
+                         - discount * F_gm.sum(dtype=_I32))
         stats = {
             "placed": (granted_full & ~placed).sum(dtype=_I32),
             "migrated": (granted_full & placed).sum(dtype=_I32),
@@ -548,29 +852,115 @@ class DeviceBulkCluster:
         }
         return state._replace(pu=new_pu, pu_running=pu_running), stats
 
+    def realized_cluster_cost(self, state: DeviceClusterState):
+        """The cost of the CURRENT assignment at this state's census:
+        every placed task pays its row's effective route cost on its
+        machine, every unplaced live task its row's escape cost (int32
+        scalar)."""
+        cost_eff, _w = self._costs(state)
+        on = state.live & (state.pu >= 0)
+        m_t = state.pu.clamp(0, self.num_pus - 1) // self.P
+        g_c = self._group_of(state).clamp(0, self.G - 1)
+        c_task = cost_eff[g_c, m_t]
+        esc = self._escape_costs()[g_c]
+        return (torch.where(on, c_task, 0).sum(dtype=_I32)
+                + torch.where(state.live & ~on, esc, 0).sum(dtype=_I32))
+
+    def hybrid_round(self, state: DeviceClusterState, window_offset):
+        """Stability-aware preemption round on the hybrid carry
+        (self._hyb_census, _hyb_k, _hyb_kg): the incremental core
+        (residents pinned, bounded backlog decode) serves steady rounds;
+        a re-solve fires on cadence or when the running census drifted
+        past preempt_drift — the full tiered re-solve, or with three
+        tiers a scoped one, and a global one every preempt_global_every
+        rounds. Only the taken branch runs: the drift test is the one
+        branch read, and the cadence counters live on the host. Returns
+        (state, stats) and advances the carry."""
+        cen = self.census_of(state)
+        per_machine = (cen - self._hyb_census).abs().sum(dim=1, dtype=_I32)
+        drift = per_machine.sum(dtype=_I32)
+        k, kg = self._hyb_k, self._hyb_kg
+        do_full = k + 1 >= self.preempt_every
+        if self.preempt_drift > 0:
+            fire = read_branch((drift >= self.preempt_drift).to(_I32)[None])[0]
+            do_full = do_full or bool(fire)
+        global_every = self.preempt_global_every
+        do_global = kg + 1 >= global_every if global_every > 0 else do_full
+
+        def full():
+            s2, st = self.round_core_preempt(state)
+            return s2, self.census_of(s2), st
+
+        def scoped():
+            # the drift reference re-bases globally after a scoped round
+            # too, as after a full one
+            s2, st = self.round_core_preempt(
+                state, decode_width=self.preempt_scoped_width,
+                window_offset=window_offset,
+                scope_m=per_machine >= self.preempt_scope_tau)
+            return s2, self.census_of(s2), st
+
+        escalated = False
+        if do_full or do_global:
+            state2, census2, stats = full() if do_global else scoped()
+        else:
+            state2, stats, known = self._round_core(
+                state, decode_width=self.decode_width, window_offset=window_offset,
+                supersteps_cap=self.preempt_incr_budget)
+            stats.pop("active_groups", None)  # the preempt core has none
+            stats["migrated"] = self._i32(0)
+            stats["preempted"] = self._i32(0)
+            census2 = self._hyb_census
+            if (self.preempt_incr_budget is not None
+                    and not converged_on_host(stats["converged"], known)):
+                # a budget-exhausted incremental attempt is discarded and
+                # the round re-runs as a scoped re-solve from the same
+                # state; its supersteps stay in the round's count
+                incr_steps = stats["supersteps"]
+                state2, census2, stats = scoped()
+                stats["supersteps"] = stats["supersteps"] + incr_steps
+                escalated = True
+        if global_every > 0:
+            fired = do_full or do_global or escalated
+            self._hyb_kg = 0 if do_global else kg + 1
+        else:
+            fired = do_full
+        self._hyb_k = 0 if fired else k + 1
+        self._hyb_census = census2
+        stats["full_round"] = self._flag(fired)
+        stats["global_round"] = self._flag(do_global if global_every > 0 else fired)
+        stats["escalated_round"] = self._flag(escalated)
+        stats["census_drift"] = drift
+        if self.track_realized_cost:
+            stats["realized_cost"] = self.realized_cluster_cost(state2)
+        return state2, stats
+
     def _round(self, state, decode_width=None, window_offset=None):
         core = self.round_core_preempt if self.preemption else self.round_core
         return core(state, decode_width=decode_width, window_offset=window_offset)
 
-    def _occupy(self, state: DeviceClusterState, count, cls, job):
-        """Occupy the first `count` free rows, row t taking class cls[t]
-        and job job[t] (int32[Tcap]). Returns (state, admitted):
-        admitted < count when the task pool is exhausted."""
+    def _occupy(self, state: DeviceClusterState, count, cls, job, grp=None):
+        """Occupy the first `count` free rows, row t taking class cls[t],
+        job job[t] and group grp[t] (int32[Tcap]; grp None = 0). Returns
+        (state, admitted): admitted < count when the task pool is
+        exhausted."""
         free_rank = torch.cumsum(~state.live, 0, dtype=_I32) - 1
         newmask = ~state.live & (free_rank < count)
         return state._replace(
             live=state.live | newmask,
             cls=torch.where(newmask, cls, state.cls),
             job=torch.where(newmask, job, state.job),
-            grp=torch.where(newmask, 0, state.grp),
+            grp=torch.where(newmask, 0 if grp is None else grp, state.grp),
             pu=torch.where(newmask, -1, state.pu),
         ), newmask.sum(dtype=_I32)
 
-    def admit(self, state: DeviceClusterState, jobs, classes, count: int):
+    def admit(self, state: DeviceClusterState, jobs, classes, count: int,
+              groups=None):
         """Occupy the first `count` free rows with the first `count`
-        entries of (jobs, classes). Returns (state, admitted)."""
+        entries of (jobs, classes, groups). Returns (state, admitted)."""
         src = (torch.cumsum(~state.live, 0, dtype=_I32) - 1).clamp(0, self.Tcap - 1)
-        return self._occupy(state, count, classes[src], jobs[src])
+        return self._occupy(state, count, classes[src], jobs[src],
+                            None if groups is None else groups[src])
 
     def _retire(self, state: DeviceClusterState, done):
         """Retire the live rows where `done` (bool[Tcap]) holds, freeing
@@ -610,27 +1000,38 @@ class DeviceBulkCluster:
             pu_running=torch.where(pu_mask, 0, state.pu_running),
         )
 
-    def steady_round(self, done_u, new_cls, new_job, window_offset,
+    def steady_round(self, done_u, draw_a, draw_b, window_offset,
                      churn_prob: float, arrivals: int) -> dict:
         """One churn round on the device: complete the placed rows whose
         done_u < churn_prob, admit `arrivals` new tasks into the first
-        free rows (class and job from new_cls / new_job at each row),
-        then schedule with the decode bounded to the configured window
-        rotated by window_offset. The draws are tensors (see
-        draw_steady). Updates the cluster and returns the round's stats
-        as device tensors."""
+        free rows, then schedule with the decode bounded to the
+        configured window rotated by window_offset — through the hybrid
+        round in stability-aware preemption mode. An arrival at row t
+        takes class draw_a[t] and job draw_b[t]; in group mode it takes
+        group arrival_map[draw_a[t]] and that group's class and job. The
+        draws are tensors (draw_steady, utils/threefry.py). Updates the
+        cluster and returns the round's stats as device tensors."""
         state = self.state
         placed = state.live & (state.pu >= 0)
         done = placed & (done_u < torch.full((), churn_prob, dtype=torch.float32,
                                              device=self.device))
         state = self._retire(state, done)
-        state, admitted = self._occupy(state, arrivals, new_cls, new_job)
+        if self.grouped:
+            new_grp = self._arrival_map[draw_a.long()]
+            state, admitted = self._occupy(
+                state, arrivals, self.groups.cls[new_grp.long()],
+                self.groups.job[new_grp.long()], new_grp)
+        else:
+            state, admitted = self._occupy(state, arrivals, draw_a, draw_b)
         # steady rounds bound the decode to the configured window; the
         # random offset rotates it over the backlog (or the movers) so
         # no pending task starves
-        self.state, stats = self._round(
-            state, decode_width=self.decode_width, window_offset=window_offset
-        )
+        if self.hybrid_preempt:
+            self.state, stats = self.hybrid_round(state, window_offset)
+        else:
+            self.state, stats = self._round(
+                state, decode_width=self.decode_width, window_offset=window_offset
+            )
         stats["completed"] = done.sum(dtype=_I32)
         stats["admitted"] = admitted
         return stats
@@ -639,20 +1040,119 @@ class DeviceBulkCluster:
     # host API
     # ------------------------------------------------------------------
 
-    def add_tasks(self, count, job_ids=None, classes=None) -> None:
+    def add_tasks(self, count, job_ids=None, classes=None, groups=None) -> None:
         """Admit up to `count` tasks. The admitted count is kept on the
         device in ``last_admitted``: compare it with `count` at a safe
-        point to detect an exhausted task pool."""
+        point to detect an exhausted task pool. In group mode, `groups`
+        assigns each task its interchangeability group; the tasks'
+        classes are derived from the group table when omitted and must
+        agree with it otherwise."""
         jobs = np.zeros(self.Tcap, np.int32)
         cls = np.zeros(self.Tcap, np.int32)
+        grp = np.zeros(self.Tcap, np.int32)
         if job_ids is not None:
             jobs[: len(job_ids)] = job_ids
         if classes is not None:
             cls[: len(classes)] = classes
+        if groups is not None:
+            if not self.grouped:
+                raise ValueError("groups requires num_groups > 0")
+            g = np.asarray(groups, np.int32)
+            if ((g < 0) | (g >= self.G)).any():
+                raise ValueError(
+                    f"task group out of range [0, {self.G}): "
+                    f"{g.min()}..{g.max()}"
+                )
+            grp[: len(g)] = g
+            derived = self._groups_cls_host[g]
+            if classes is None:
+                cls[: len(g)] = derived
+            else:
+                got = np.asarray(classes, np.int32)
+                if len(got) < len(g):
+                    raise ValueError(
+                        f"classes ({len(got)}) shorter than groups "
+                        f"({len(g)}): every grouped task needs both"
+                    )
+                got = got[: len(g)]
+                if (got != derived).any():
+                    bad = int(np.nonzero(got != derived)[0][0])
+                    raise ValueError(
+                        f"task {bad}: class {got[bad]} inconsistent with "
+                        f"group {g[bad]}'s class {derived[bad]}"
+                    )
+        dev = self.device
         self.state, self.last_admitted = self.admit(
-            self.state, torch.as_tensor(jobs, device=self.device),
-            torch.as_tensor(cls, device=self.device), int(count),
+            self.state, torch.as_tensor(jobs, device=dev),
+            torch.as_tensor(cls, device=dev), int(count),
+            torch.as_tensor(grp, device=dev),
         )
+
+    def set_groups(self, cls=None, job=None, e=None, u=None, pref_w=None) -> None:
+        """Upload group metadata (group mode). Each argument replaces
+        that GroupSpec field ([G] arrays; pref_w [G, M], PREF_NONE = no
+        preference); omitted fields keep their values."""
+        if not self.grouped:
+            raise ValueError("set_groups requires num_groups > 0")
+        limit = COST_SCALE_LIMIT // self.n_scale
+        dev = self.device
+
+        def _vec(name, val, cur, index_range=None):
+            if val is None:
+                return cur
+            a = np.asarray(val, np.int64)
+            if a.shape != (self.G,):
+                raise ValueError(f"{name} must have shape ({self.G},), got {a.shape}")
+            if index_range is not None:
+                if a.size and ((a < 0) | (a >= index_range)).any():
+                    raise ValueError(
+                        f"{name} out of range [0, {index_range}): "
+                        f"{a.min()}..{a.max()}"
+                    )
+            elif a.size and np.abs(a).max() >= limit:
+                raise OverflowError(
+                    f"{name} magnitude {np.abs(a).max()} exceeds the "
+                    f"scaled-cost limit {limit}"
+                )
+            return torch.as_tensor(a.astype(np.int32), device=dev)
+
+        pw = self.groups.pref_w
+        if pref_w is not None:
+            a = np.asarray(pref_w, np.int64)
+            if a.shape != (self.G, self.M):
+                raise ValueError(
+                    f"pref_w must have shape ({self.G}, {self.M}), got {a.shape}"
+                )
+            real = a[a < PREF_NONE]
+            if real.size and np.abs(real).max() >= limit:
+                raise OverflowError(
+                    f"pref_w magnitude {np.abs(real).max()} exceeds the "
+                    f"scaled-cost limit {limit}"
+                )
+            pw = torch.as_tensor(np.minimum(a, PREF_NONE).astype(np.int32), device=dev)
+        self.groups = GroupSpec(
+            cls=_vec("cls", cls, self.groups.cls, index_range=self.C),
+            job=_vec("job", job, self.groups.job, index_range=self.J),
+            e=_vec("e", e, self.groups.e),
+            u=_vec("u", u, self.groups.u),
+            pref_w=pw,
+        )
+        if cls is not None:
+            self._groups_cls_host = np.asarray(cls, np.int32).copy()
+
+    def set_arrival_groups(self, gids) -> None:
+        """Restrict steady-round arrivals to these group ids, drawn
+        exactly uniformly over them (the map is padded to [G]; the draw
+        indexes only its first len(gids) entries)."""
+        if not self.grouped:
+            raise ValueError("set_arrival_groups requires group mode")
+        g = np.asarray(gids, np.int32)
+        if g.size == 0 or ((g < 0) | (g >= self.G)).any():
+            raise ValueError("gids must be non-empty, within [0, G)")
+        if g.size > self.G:
+            raise ValueError("more arrival gids than groups")
+        self._arrival_map = torch.as_tensor(np.resize(g, self.G), device=self.device)
+        self._arrival_n = int(g.size)
 
     def complete_tasks(self, rows) -> None:
         rows = np.asarray(rows, np.int64)
@@ -667,24 +1167,46 @@ class DeviceBulkCluster:
 
     def round(self) -> dict:
         """One scheduling round over the whole pool; returns un-fetched
-        device stats (call fetch_stats() to materialize them)."""
+        device stats (call fetch_stats() to materialize them). In
+        stability-aware preemption mode this one-shot round is always a
+        full tiered re-solve and resets the hybrid carry."""
         self.state, stats = self._round(self.state)
+        if self.hybrid_preempt:
+            self._hyb_census = self.census_of(self.state)
+            self._hyb_k = 0
+            self._hyb_kg = 0
         self.last_stats = stats
         return stats
 
     def run_steady_rounds(self, num_rounds: int, churn_prob: float,
                           arrivals: int, seed: int = 0,
                           generator: Optional[torch.Generator] = None):
-        """`num_rounds` chained churn rounds on the device, their draws
-        from `generator` (default: a new one on the cluster's device
-        seeded with `seed`). Returns stacked stats (device tensors,
-        un-fetched)."""
+        """`num_rounds` chained churn rounds on the device. Without a
+        generator their draws are the JAX package's for the same seed
+        (utils/threefry.py): the host makes the run's keys once, a few
+        words a round, and the device draws the bits of each chunk of
+        DRAW_ROUNDS rounds as the chunk starts; with one, they come from
+        `generator`. Returns stacked stats (device tensors, un-fetched)."""
+        R = int(num_rounds)
+        # group mode draws an arrival-map index and no job
+        range_a, range_b = (self._arrival_n, 1) if self.grouped else (self.C, self.J)
         if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-        rows = []
-        for _ in range(int(num_rounds)):
-            draws = draw_steady(generator, self.Tcap, self.C, self.J)
-            rows.append(self.steady_round(*draws, churn_prob, int(arrivals)))
+            keys, offsets = threefry.steady_keys(seed, R, self.grouped)
+            keys = torch.as_tensor(keys, device=self.device)
+            offsets = torch.as_tensor(offsets, device=self.device)
+
+            def jax_draws():
+                for c in range(0, R, DRAW_ROUNDS):
+                    chunk = threefry.steady_draws(keys[c:c + DRAW_ROUNDS], self.Tcap,
+                                                  range_a, range_b)
+                    for i in range(chunk[0].shape[0]):
+                        yield tuple(d[i] for d in chunk) + (offsets[c + i],)
+
+            per_round = jax_draws()
+        else:
+            per_round = (draw_steady(generator, self.Tcap, range_a, range_b)
+                         for _ in range(R))
+        rows = [self.steady_round(*d, churn_prob, int(arrivals)) for d in per_round]
         stats = {k: torch.stack([r[k] for r in rows]) for k in rows[0]} if rows else {}
         self.last_stats = stats
         return stats

@@ -680,16 +680,37 @@ def _solve_transport_tiered(wLo, wHi, R, supply, col_cap, eps_init,
 
 
 def read_flag(flag) -> bool:
-    """The device round's one host read: a solve attempt's converged
-    flag, read to decide the full-range retry. Counted in
-    `read_flag.count`, so a run can show that a round read the device
-    once per iterative attempt and at no other point."""
+    """The device round's host read of a solve attempt's converged
+    flag: read to decide the full-range retry, or by a round that
+    branches on a flag the host does not know yet (the incremental
+    tier's escalation, the grouped stage 1). Counted in
+    `read_flag.count`."""
     read_flag.count += 1
     return bool(flag)
 
 
 #: host reads since the count was last set to 0
 read_flag.count = 0
+
+
+def read_branch(values) -> list:
+    """The device round's host read of one branch point's predicates
+    (int32 scalars stacked into one tensor), in one transfer: the
+    decisions that the reference takes with lax.cond on device values.
+    Counted in `read_branch.count`."""
+    read_branch.count += 1
+    return [int(v) for v in values.tolist()]
+
+
+#: branch reads since the count was last set to 0
+read_branch.count = 0
+
+
+def converged_on_host(converged, known) -> bool:
+    """A bounded solve's converged flag on the host: `known` (the last
+    element of transport_fori(_tiered)'s result) where the host already
+    has it, else one read_flag of the device flag."""
+    return known if known is not None else read_flag(converged)
 
 
 def _scalar(value, like):
@@ -702,9 +723,32 @@ def _true(device):
     return torch.ones((), dtype=torch.bool, device=device)
 
 
+def _attempts(run, eps0, eps_full, num_supersteps: int, eps0_budget,
+              eps0_retry: bool, device):
+    """The bounded attempts of transport_fori(_tiered): from eps0 under
+    min(eps0_budget, num_supersteps) supersteps, then (eps0_retry) one
+    full-range retry under num_supersteps when the first did not
+    converge — the first attempt's flag is the one host read, which
+    decides it. Returns (y, pm, steps, converged, known): known is True
+    when that read found the first attempt converged, else None (the
+    flag is on the device only)."""
+    if eps0 is None:
+        return run(eps_full, num_supersteps) + (None,)
+    budget = min(eps0_budget or num_supersteps, num_supersteps)
+    y1, pm1, s1, conv1 = run(torch.as_tensor(eps0, dtype=_I32, device=device), budget)
+    if not eps0_retry:
+        # the caller owns the fallback: the bounded attempt as it is
+        return y1, pm1, s1, conv1, None
+    if read_flag(conv1):
+        return y1, pm1, s1, conv1, True
+    y2, pm2, s2, conv2 = run(eps_full, num_supersteps)
+    return y2, pm2, s1 + s2, conv2, None
+
+
 def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,
                    eps0=None, class_degenerate: bool = False,
-                   refine_waves: int = 0):
+                   refine_waves: int = 0, eps0_budget: Optional[int] = None,
+                   eps0_retry: bool = True):
     """Bounded transport solve for the device round.
 
     C == 1: the exact closed form (solve_single_class). A class-
@@ -712,36 +756,35 @@ def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,
     caller): the closed form on the total supply, grants split by class.
     Otherwise the cost-scaling solve through ops.transport_solve — the
     kernel on the card, the plain version on the CPU — from eps0 (an
-    int or an int32 scalar tensor), retried once from the full range
-    when the short start does not converge; the retry decision is the
-    one host read (read_flag). Returns (y, pm, steps, converged) as
-    tensors; pm and steps are zero on the closed forms."""
+    int or an int32 scalar tensor) under min(eps0_budget,
+    num_supersteps) supersteps, retried once from the full range when
+    the short start does not converge (unless eps0_retry is False: the
+    caller then owns the fallback); the retry decision is a host read
+    (read_flag). Returns (y, pm, steps, converged) as tensors, pm and
+    steps zero on the closed forms, and what the host knows of the
+    flag: True on the closed forms and after a converged first attempt,
+    else None (converged_on_host reads it where a round needs it)."""
     C, _Mp1 = wS.shape
     zero, true = _scalar(0, col_cap), _true(wS.device)
     if C == 1:
         y = solve_single_class(wS[0], supply[0], col_cap)[None, :]
-        return y, torch.zeros_like(col_cap), zero, true
+        return y, torch.zeros_like(col_cap), zero, true, True
     if class_degenerate:
         y_tot = solve_single_class(wS[0], supply.sum(dtype=_I32), col_cap)
-        return split_grants_by_class(y_tot, supply), torch.zeros_like(col_cap), zero, true
+        return (split_grants_by_class(y_tot, supply), torch.zeros_like(col_cap),
+                zero, true, True)
 
     from .. import ops
 
-    eps_full = wS.abs().amax().clamp(min=1)
-
-    def run(eps_init):
+    def run(eps_init, budget):
         return ops.transport_solve(
             wS, supply, col_cap, eps_init, alpha=alpha,
-            max_supersteps=num_supersteps, refine_waves=refine_waves,
+            max_supersteps=budget, refine_waves=refine_waves,
         )
 
-    if eps0 is None:
-        return run(eps_full)
-    y1, pm1, s1, conv1 = run(torch.as_tensor(eps0, dtype=_I32, device=wS.device))
-    if read_flag(conv1):
-        return y1, pm1, s1, conv1
-    y2, pm2, s2, conv2 = run(eps_full)
-    return y2, pm2, s1 + s2, conv2
+    eps_full = wS.abs().amax().clamp(min=1)
+    return _attempts(run, eps0, eps_full, num_supersteps, eps0_budget,
+                     eps0_retry, wS.device)
 
 
 def transport_fori_tiered(wLo, wHi, R, supply, col_cap, num_supersteps: int,
@@ -750,31 +793,25 @@ def transport_fori_tiered(wLo, wHi, R, supply, col_cap, num_supersteps: int,
     transport_fori: the exact closed form for a single row, else
     ops.transport_solve_tiered (the tiered kernel on the card, its plain
     version on the CPU) from eps0 with one full-range retry decided by
-    one host read. Returns (y, pm, steps, converged)."""
+    one host read. Returns (y, pm, steps, converged, known) as
+    transport_fori does."""
     C, _Mp1 = wLo.shape
     if C == 1:
         R1 = torch.minimum(R, torch.minimum(supply[:, None], col_cap[None, :]))
         y = solve_single_class_tiered(wLo[0], wHi[0], R1[0], supply[0], col_cap)
         return (y[None, :], torch.zeros_like(col_cap), _scalar(0, col_cap),
-                _true(wLo.device))
+                _true(wLo.device), True)
 
     from .. import ops
 
-    eps_full = wHi.abs().amax().clamp(min=1)
-
-    def run(eps_init):
+    def run(eps_init, budget):
         return ops.transport_solve_tiered(
             wLo, wHi, R, supply, col_cap, eps_init, alpha=alpha,
-            max_supersteps=num_supersteps, refine_waves=refine_waves,
+            max_supersteps=budget, refine_waves=refine_waves,
         )
 
-    if eps0 is None:
-        return run(eps_full)
-    y1, pm1, s1, conv1 = run(torch.as_tensor(eps0, dtype=_I32, device=wLo.device))
-    if read_flag(conv1):
-        return y1, pm1, s1, conv1
-    y2, pm2, s2, conv2 = run(eps_full)
-    return y2, pm2, s1 + s2, conv2
+    eps_full = wHi.abs().amax().clamp(min=1)
+    return _attempts(run, eps0, eps_full, num_supersteps, None, True, wLo.device)
 
 
 def solve_layered_host(lp: LayeredProblem, *, pad, solve,

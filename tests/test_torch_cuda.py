@@ -4,7 +4,8 @@ memory, and their phase probe) and the mcmf kernel (on its cooperative
 grid, across blocks) against their plain PyTorch versions, bit for bit,
 Scenario W(20, 200) through the default cuda backend and through
 "mega", Scenario P(20, 200) on the card against the CPU, and the
-device-resident round on the card against the same round on the CPU.
+device-resident round on the card against the same round on the CPU,
+three-tier preemption and group mode included.
 Marked `cuda`; every test skips where no CUDA device is present.
 Imports nothing of JAX, so it runs on a machine without it:
 
@@ -315,6 +316,87 @@ def test_device_bulk_on_card_matches_cpu(card):
         ran = (transport_loop.launches - launches[0],
                transport_loop_tiered.launches - launches[1])
         assert (ran[1] > 0 and ran[0] == 0) if preemption else (ran[0] > 0 and ran[1] == 0)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_steady_draws_on_card_match_cpu(card, grouped):
+    """utils/threefry.py's steady draws (int64 words masked to 32 bits),
+    a chunk of rounds in one pass, give the same bits on the card as on
+    the CPU at Tcap = 65,536, where tests/test_torch_threefry.py holds
+    the CPU's against jax.random."""
+    from ksched_tpu_torch.utils import threefry
+
+    keys, _offsets = threefry.steady_keys(6, 4, grouped)
+    a = threefry.steady_draws(torch.as_tensor(keys, device=card), 65_536,
+                              480 if grouped else 4, 20)
+    b = threefry.steady_draws(torch.as_tensor(keys), 65_536, 480 if grouped else 4, 20)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape == (4, 65_536)
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("mode", ["three-tier", "grouped"])
+def test_tiers_and_groups_on_card_match_cpu(card, mode):
+    """Three-tier preemption (incremental rounds on the transport kernel
+    under a budget, scoped and global re-solves on the tiered one) and
+    group mode (compacted two-stage solves on the transport kernel):
+    steady rounds on the JAX package's draws (utils/threefry.py) equal
+    on the card and on the CPU, stats, state and hybrid carry."""
+    from ksched_tpu_torch.costmodels import coco
+    from ksched_tpu_torch.costmodels.device_costs import coco_device_cost_fn
+    from ksched_tpu_torch.costmodels.quincy_device import QuincyGroupTable
+    from ksched_tpu_torch.drivers.device_bulk import run_rounds
+    from ksched_tpu_torch.scheduler.device_bulk import DeviceBulkCluster
+
+    pen = np.random.default_rng(7).integers(0, 40, (40, 4))
+    if mode == "three-tier":
+        kw = dict(num_task_classes=4, class_cost_fn=coco_device_cost_fn(pen),
+                  unsched_cost=coco.UNSCHEDULED_COST, ec_cost=0, preemption=True,
+                  continuation_discount=8, preempt_every=4, preempt_drift=60,
+                  preempt_global_every=12, preempt_scope_tau=2,
+                  preempt_incr_budget=4096, preempt_scoped_width=512,
+                  track_realized_cost=True)
+        setup = None
+    else:
+        kw = dict(num_groups=64, active_groups_cap=(8, 32))
+
+        def setup(cluster, rng):
+            table = QuincyGroupTable(num_groups=64, num_machines=40, cost_unit_mb=64)
+            for b in range(1, 49):
+                table.blocks.register(b, 512 << 20, rng.choice(40, 3, replace=False).tolist())
+            groups = table.groups_for(np.zeros(400, np.int32),
+                                      [[int(b)] for b in rng.integers(1, 49, 400)])
+            table.sync(cluster)
+            return groups
+
+    def make(dev):
+        return DeviceBulkCluster(num_machines=40, pus_per_machine=4, slots_per_pu=4,
+                                 num_jobs=4, task_capacity=1024, supersteps=1 << 16,
+                                 decode_width=256, device=dev, **kw)
+
+    gpu, cpu = make(card), make("cpu")
+    launches = (transport_loop.launches, transport_loop_tiered.launches)
+    for (_r, a), (_r2, b) in zip(run_rounds(gpu, 400, 2, setup=setup),
+                                 run_rounds(cpu, 400, 2, setup=setup)):
+        ga, gb = gpu.fetch_stats(a), cpu.fetch_stats(b)
+        assert {k: int(v) for k, v in ga.items()} == {k: int(v) for k, v in gb.items()}
+    a = gpu.fetch_stats(gpu.run_steady_rounds(24, 0.05, 20, seed=2))
+    b = cpu.fetch_stats(cpu.run_steady_rounds(24, 0.05, 20, seed=2))
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    sa, sb = gpu.fetch_state(), cpu.fetch_state()
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+    ran = (transport_loop.launches - launches[0],
+           transport_loop_tiered.launches - launches[1])
+    if mode == "three-tier":
+        np.testing.assert_array_equal(gpu._hyb_census.cpu().numpy(), cpu._hyb_census.numpy())
+        assert (gpu._hyb_k, gpu._hyb_kg) == (cpu._hyb_k, cpu._hyb_kg)
+        assert a["full_round"].any() and a["global_round"].any() and not a["full_round"].all()
+        assert ran[0] > 0 and ran[1] > 0
+    else:
+        assert ran[0] > 0 and ran[1] == 0
 
 
 def _mcmf_case(seed, dev, lanes=None, arc_slots=None, tasks=40, machines=4,

@@ -156,6 +156,47 @@ def test_state_carried_over_from_the_jax_package():
         _assert_same_state(jc, tc)
 
 
+@pytest.mark.parametrize("mode", ["grouped", "hybrid"])
+def test_group_and_hybrid_carry_from_the_jax_package(mode):
+    """A JAX cluster mid-run — grouped with a restricted arrival map, or
+    three-tier preemption between re-solves — carried into a fresh port
+    cluster with interop.continue_cluster: the next steady rounds are
+    equal."""
+    if mode == "grouped":
+        over = dict(num_groups=8, active_groups_cap=(2, 4), preemption=False)
+    else:
+        over = dict(preempt_every=4, preempt_global_every=8, preempt_scope_tau=2,
+                    track_realized_cost=True)
+    jc, tc = _pair(**over)
+    if mode == "grouped":
+        jc.set_groups(cls=np.arange(8) % 4, job=np.zeros(8), e=np.zeros(8),
+                      u=60 + np.arange(8), pref_w=np.where(
+                          PEN[None, :, 0] < 8, PEN[None, :, 1], 1 << 30).repeat(8, 0))
+        jc.set_arrival_groups([1, 3, 4, 6])
+    rng = np.random.default_rng(4)
+    jc.add_tasks(T, rng.integers(0, 4, T).astype(np.int32),
+                 groups=(rng.integers(0, 8, T).astype(np.int32)
+                         if mode == "grouped" else None))
+    jc.fetch_stats(jc.round())
+    jc.fetch_stats(jc.run_steady_rounds(5, 0.05, 20, seed=1))
+    if mode == "hybrid":
+        assert 0 < int(jc._hyb_k) and 0 < int(jc._hyb_kg)  # mid-interval
+    interop.continue_cluster(
+        tc, jc.fetch_state(),
+        groups=({k: np.asarray(v) for k, v in jc.groups._asdict().items()}
+                if mode == "grouped" else None),
+        arrival=((np.asarray(jc._arrival_map), int(jc._arrival_n))
+                 if mode == "grouped" else None),
+        hybrid=((np.asarray(jc._hyb_census), int(jc._hyb_k), int(jc._hyb_kg))
+                if mode == "hybrid" else None),
+    )
+    _assert_same_state(jc, tc)
+    a = jc.fetch_stats(jc.run_steady_rounds(6, 0.05, 20, seed=2))
+    b = tc.fetch_stats(tc.run_steady_rounds(6, 0.05, 20, seed=2))
+    assert _ints(a) == _ints(b)
+    _assert_same_state(jc, tc)
+
+
 def _migration_cost_fns():
     """tests/test_preemption_device.py `_device_cost_fn(10, 1, 2)`: cost
     = interference * (other classes on the machine) + (class + 1) *
@@ -250,13 +291,35 @@ def test_cost_overflow_raises():
     dict(num_groups=4),
     dict(preempt_every=2),
     dict(preempt_drift=5),
-    dict(preempt_global_every=3),
-    dict(preempt_incr_budget=10),
-    dict(track_realized_cost=True),
+    dict(preempt_global_every=3, preempt_every=2),
+    dict(preempt_incr_budget=10, preempt_every=2, preempt_global_every=3),
+    dict(track_realized_cost=True, preempt_every=2),
 ], ids=lambda o: next(iter(o)))
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
-        DeviceBulkCluster(**_kw(**option), device="cpu")
+def test_options_match_the_jax_package(option):
+    """Each option of group mode and of the stability-aware and
+    three-tier preemption schemes: a cluster with it runs the fill, two
+    host-driven rounds and six steady rounds (each package's own
+    run_steady_rounds(seed)) equal to the JAX package's."""
+    jc, tc = _pair(**option)
+    if tc.grouped:
+        # one group per class, group g escaping at 60 + g
+        for c in (jc, tc):
+            c.set_groups(cls=np.arange(4), job=np.zeros(4), e=np.zeros(4),
+                         u=60 + np.arange(4))
+    rng = np.random.default_rng(2)
+    for r in range(3):
+        n = T if r == 0 else 8
+        jobs = rng.integers(0, 4, n).astype(np.int32)
+        classes = rng.integers(0, 4, n).astype(np.int32)
+        groups = classes if tc.grouped else None
+        for c in (jc, tc):
+            c.add_tasks(n, jobs, classes, groups=groups)
+        assert _ints(jc.fetch_stats(jc.round())) == _ints(tc.fetch_stats(tc.round()))
+        _assert_same_state(jc, tc)
+    a = jc.fetch_stats(jc.run_steady_rounds(6, 0.05, 20, seed=9))
+    b = tc.fetch_stats(tc.run_steady_rounds(6, 0.05, 20, seed=9))
+    assert _ints(a) == _ints(b)
+    _assert_same_state(jc, tc)
 
 
 def test_replay_rounds_and_no_card_raise(monkeypatch):

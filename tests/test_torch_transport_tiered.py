@@ -130,8 +130,11 @@ def test_tiered_solve_on_cpu_runs_the_plain_version():
 
 
 def _fori_pair(port, ref):
-    """Compare (y, pm, steps, converged) from transport_fori(_tiered)."""
-    _assert_same(port, tuple(np.asarray(a) for a in ref))
+    """Compare (y, pm, steps, converged) from transport_fori(_tiered);
+    the port's fifth element, what the host knows of the flag, is None
+    or the flag itself."""
+    _assert_same(port[:4], tuple(np.asarray(a) for a in ref))
+    assert port[4] is None or port[4] == bool(port[3])
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -190,6 +193,9 @@ def test_fori_short_start_stall_takes_the_retry():
     _fori_pair(port, ref)
     assert bool(port[3]) and int(port[2]) == 265 + 264
     assert tl.read_flag.count == reads + 1
+    # the retry's flag is not read until a round branches on it
+    assert port[4] is None
+    assert tl.converged_on_host(port[3], port[4]) and tl.read_flag.count == reads + 2
 
     wLo, wHi, R, supply, col_cap, _n = _instance(5, 4, 40)
     port = tl.transport_fori_tiered(*_t(wLo, wHi, R, supply, col_cap), 200, eps0=1,
