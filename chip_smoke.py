@@ -56,6 +56,31 @@ no result line):
    package's; a stage-1 and a second grouped transport solve re-solved
    by the plain version with the same bits, and the transport kernel's
    time per superstep at these shapes beside its bound;
+7d. whare-hetero (Whare-Map with platform factors: the transport
+   kernel) and ref100 (the closed form): the fill, 2 host-driven rounds
+   and 32 or 64 steady rounds on the JAX package's draws, per-round
+   values, the stats' and the final placements' sha256 equal to the JAX
+   package's;
+7e. trace replay at 12,500 machines: gtrace12k, gtrace12k-burst (the
+   closed form) and gtrace12k-coco (the transport kernel at [4, 12,544]
+   every window), each trace staged on the host and its first 1,024
+   windows replayed in 4 chunks of 256 (seeds 1-4): per chunk its wall
+   and per-window times, supersteps, evictions, launches, host reads and
+   decode time, its summed stats, per-window convergence and the sha256
+   of all its stats equal to the JAX package's, the final placements'
+   sha256 too; gtrace12k-coco's longest solve of its first chunk
+   re-solved by the plain version with the same bits and timed beside
+   its bound;
+7f. gtrace12k-host: the host BulkCluster's replay, 60 rounds through
+   TraceReplayDriver on a LayeredTransportSolver on the card, per-round
+   placed, unscheduled and evicted counts and the final placements equal
+   to the JAX package's, with ReplayStats' p50 and the rounds' spans;
+7g. quincy10k-multiblock: the fill, 3 chunks of 32 steady rounds each
+   after the table maintenance (LRU eviction, fresh templates, re-sync)
+   and the compression-loss probe, each chunk's stats sha256, the
+   table's counters, the placements, the probe's gaps and its 16
+   solves' flows (sha256) equal to the JAX package's; the widest ladder rung's transport solve re-solved by
+   the plain version with the same bits and timed beside its bound;
 8. timing of the tiered kernel at its captured shapes beside its plain
    version and its bound, with the phase split (round 2's solve too);
 9. mcmf kernel parity: the general-graph kernel (one cooperative grid)
@@ -81,7 +106,12 @@ no result line):
 12. timing of the mcmf kernel at the re-solved shapes (blocks, grid
    barriers per superstep, time per superstep) beside its plain version
    and its bound, and of its grid barrier alone; then the `kernels` line
-   and the result line.
+   and the result line. The transport kernel's entry there covers two
+   paths, each counted from 0 just before it ran: Scenario W(1000,
+   10000) (phase 4) and gtrace12k-coco (phase 7e). Its `launches` is the
+   sum of their launches, and its `ms`, `plain_ms` and `bound_ms` sum
+   the solves timed on them: W's two and gtrace12k-coco's longest at
+   [4, 12,544]. The other paths' launches are printed before the line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -164,6 +194,22 @@ REF_BULK = {
         "converged": [1, 1, 1],
         "pu_sha256": "d64a1a01aaa95205f1bf575210eedd2e56306ff05294a8a471786288622bc242",
     },
+    "whare-hetero": {
+        "placed": [20000, 200, 200],
+        "unscheduled": [0, 0, 0],
+        "objective": [0, 0, 0],
+        "supersteps": [19, 19, 19],
+        "converged": [1, 1, 1],
+        "pu_sha256": "2c96d9c17de92f80deaf8285696cad0de503a06d2c2572709f654ba5432f3f12",
+    },
+    "ref100": {
+        "placed": [100, 5, 5],
+        "unscheduled": [0, 0, 0],
+        "objective": [200, 10, 10],
+        "supersteps": [0, 0, 0],
+        "converged": [1, 1, 1],
+        "pu_sha256": "8075d1f56c6b2e7d49ce705490014afadc39f27aac1fab472836db821aaa1499",
+    },
 }
 
 # Steady rounds after those (`run_steady_rounds(seed=STEADY_SEED)` at
@@ -187,6 +233,24 @@ REF_STEADY = {
         "active_groups": [93, 92, 92, 93, 91, 96, 96, 93, 92, 89, 90, 92, 93, 89, 87, 88, 91, 92, 91, 90, 92, 94, 89, 93, 89, 93, 91, 92, 96, 87, 92, 91],
         "stats_sha256": "34547a27ffb6c9796f6753a8718e8713c19539a06e3aafe7e918661b818ea6dc",
         "pu_sha256": "f032d51a4682e963eda9649683210c4c346326924a7f9c58ade8afe6b92aaf10",
+    },
+    "whare-hetero": {
+        "rounds": 32,
+        "placed": [200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200],
+        "unscheduled": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+        "objective": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+        "supersteps": [19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19],
+        "stats_sha256": "e6fbe68cb2afa8d94255281a0b5c2c639b73c3e755e4dabaef11bccb4c1d9919",
+        "pu_sha256": "68c3e2a58a67fafd819d1e740aa73c6b757c05e94b63b63f8fbece9c59712144",
+    },
+    "ref100": {
+        "rounds": 64,
+        "placed": [5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5],
+        "unscheduled": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+        "objective": [10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10],
+        "supersteps": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+        "stats_sha256": "809480819b0dee4d674288462e103d7fbde5536c52ba57c969c599871efed520",
+        "pu_sha256": "a044e921d3fdd2689cf9072329f71fcd7805f3e7f7df846057c603fe9108f87e",
     },
 }
 
@@ -219,6 +283,85 @@ REF_MEGA = {
         ],
         "stall": {"round": 2, "path": "mega", "last_supersteps": 50000},
     },
+}
+
+# Trace replay (drivers/gtrace.py, the card branch of bench.py's gtrace
+# cells at 1,024 windows), as produced by the JAX package on the CPU
+# (tests/torch_replay_reference.py): the staging counts and the fixed
+# widths [Amax, Dmax, Emax]; per chunk of 256 windows (seeds 1-4) its
+# stats summed, supersteps max and p50, whether every window converged,
+# `live` after its last window and the sha256 of all its stats stacked
+# as int32 in key order; the `pu` sha256 after the four chunks.
+REF_REPLAY = {
+    "gtrace12k": {
+        "rounds": 1644,
+        "submitted": 102400,
+        "finished": 102400,
+        "dropped": 0,
+        "widths": [131, 129, 12500],
+        "chunks": [
+            {"placed": 25753, "evicted": 48, "admitted": 25706, "completed": 14921, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 10785, "stats_sha256": "66eea00cfeb6c962c468be899994ef4a255422e83befc65a476dbe7ee9ed2115"},
+            {"placed": 25630, "evicted": 96, "admitted": 25534, "completed": 24341, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 11978, "stats_sha256": "b8be4c625587fc896d7633b87ed738e7b55c2ac99991440c4bfbf48ee81df536"},
+            {"placed": 25680, "evicted": 96, "admitted": 25584, "completed": 25505, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 12057, "stats_sha256": "ce7acef064adadeb9af22225203f44a59baeb2b16d7757d5a85b996a3f308c63"},
+            {"placed": 25592, "evicted": 16, "admitted": 25576, "completed": 25528, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 12105, "stats_sha256": "a6ab200d2477fa7526dc7de051245dbda22f00e8464dca90515e953fd1c17584"},
+        ],
+        "pu_sha256": "893920d86d9c508b23457b63c99b2ddd4af529f5871b66c843ac22861ab021f4",
+    },
+    "gtrace12k-burst": {
+        "rounds": 1657,
+        "submitted": 102400,
+        "finished": 102400,
+        "dropped": 0,
+        "widths": [554, 194, 12500],
+        "chunks": [
+            {"placed": 16411, "evicted": 152, "admitted": 16260, "completed": 9531, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 6729, "stats_sha256": "0584a29d31f6f458a7532cbeb46538061d5b53f201ae06f99839fb99a16b8564"},
+            {"placed": 28842, "evicted": 152, "admitted": 28691, "completed": 17984, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 17436, "stats_sha256": "4c38f8c78f91585bef9b91dc299429cf95b9a07058c78fee696d16822877d0df"},
+            {"placed": 29459, "evicted": 739, "admitted": 28721, "completed": 30330, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 15827, "stats_sha256": "3d15084b151faaca0ce5fa46836575d69a0247b4dd22f08c322de07a84a35775"},
+            {"placed": 28746, "evicted": 18, "admitted": 28728, "completed": 31667, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 12888, "stats_sha256": "0054006891e07aef28353871f873a4a305b179bc543d7bcbcab678e408953338"},
+        ],
+        "pu_sha256": "8971c71b5ca8776fc01c826395c0a3185c2029965a6e54be0249197d031e2050",
+    },
+    "gtrace12k-coco": {
+        "rounds": 1698,
+        "submitted": 163840,
+        "finished": 163840,
+        "dropped": 0,
+        "widths": [199, 204, 12500],
+        "chunks": [
+            {"placed": 40958, "evicted": 54, "admitted": 40905, "completed": 23763, "unscheduled": 0, "supersteps_max": 3316, "supersteps_p50": 36, "converged": True, "live_last": 17142, "stats_sha256": "ff335497c5efdf531ddce35872eec0326723c098a2d3df1c377271589aa1df43"},
+            {"placed": 41093, "evicted": 140, "admitted": 40953, "completed": 39085, "unscheduled": 0, "supersteps_max": 301, "supersteps_p50": 104, "converged": True, "live_last": 19010, "stats_sha256": "b899a0e3bdc438f03f3a9b62dcc8b25f1d678ea61b7ea37977889f9cf8258295"},
+            {"placed": 41114, "evicted": 155, "admitted": 40960, "completed": 40605, "unscheduled": 0, "supersteps_max": 338, "supersteps_p50": 122, "converged": True, "live_last": 19365, "stats_sha256": "6da17c2534a00dbd314a2bd8a524957a7be755f5cab71e82dfbbbe1ddef479d8"},
+            {"placed": 41051, "evicted": 29, "admitted": 41022, "completed": 41236, "unscheduled": 0, "supersteps_max": 341, "supersteps_p50": 121, "converged": True, "live_last": 19151, "stats_sha256": "330b073ab279b415718759831ee321caafe2c0d260bf4266ea8459a88dc9b182"},
+        ],
+        "pu_sha256": "d47263d2c3b4bcd670c24717604b80d8a3205ecf096f850213a5d9cd2bbc927f",
+    },
+}
+# gtrace12k-host (TraceReplayDriver on LayeredTransportSolver, 60 rounds
+# of 5 s windows), likewise: per round placed, unscheduled and evicted,
+# the ReplayStats totals and the sha256 of the final task_pu (int32).
+REF_HOST = {
+    "placed": [515, 479, 471, 499, 479, 474, 479, 480, 523, 460, 472, 479, 506, 520, 514, 505, 473, 460, 483, 481, 514, 464, 498, 493, 532, 471, 506, 530, 523, 460, 484, 506, 517, 489, 494, 528, 466, 474, 492, 503, 505, 511, 514, 465, 461, 485, 535, 481, 508, 452, 504, 483, 488, 511, 505, 482, 506, 508, 478, 484],
+    "unscheduled": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "evicted": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 8, 0, 0, 0, 0, 8, 0, 8, 0, 0, 0, 8, 0, 8, 16, 0, 0, 8, 0, 16, 0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8, 0],
+    "totals": {"rounds": 60, "submitted": 30048, "finished": 18927, "placed": 29562, "evicted": 136},
+    "task_pu_sha256": "ec8a045d8f79b3383d95b0282b4166d09e8048974999a59201c1337c19b7fa87",
+}
+# quincy10k-multiblock (drivers/multiblock.py), likewise: the fill's
+# stats, per chunk of 32 steady rounds (seeds 2-4, each after the table
+# maintenance) its stats sha256 and summary, the table's counters, the
+# final `pu` sha256 and bench.py's quality probe (8 rounds): its gaps
+# and the sha256 of its 16 solves' flows y (int32, in order).
+REF_MULTIBLOCK = {
+    "fill": {"active_groups": 483, "converged": 1, "cost_overflow": 0, "live": 10000, "objective": 163360, "placed": 10000, "supersteps": 1704, "unscheduled": 0},
+    "chunks": [
+        {"stats_sha256": "07af11689d97a53a83b7a7393689c70340455e01a39f3afbcae31841ce114448", "converged": True, "placed": 3200, "supersteps_max": 1549, "active_groups_max": 96},
+        {"stats_sha256": "9d999ed2e0be00c975d27a473b11b771940a53e42f135893bde813d871db048d", "converged": True, "placed": 3200, "supersteps_max": 1391, "active_groups_max": 96},
+        {"stats_sha256": "c9f452b865e6328327c9731ce3fb6a0b0de9bd881a8e3a60e20d9349fc5484bb", "converged": True, "placed": 3200, "supersteps_max": 1276, "active_groups_max": 98},
+    ],
+    "counters": {"signatures_initial": 483, "signatures_final": 506, "overflow_distinct": 0, "evicted": 0},
+    "pu_sha256": "1889130ffbbfe4602f2de76541d0215df626060cf91329997bceaf0744ef3255",
+    "probe": {"realized_cost_gap_mean": 4e-05, "realized_cost_gap_max": 0.00034,
+              "y_sha256": "aa149b3bfa0e13865355e9b6f2a1117a263ad13757274ead135e954151ab0b67"},
 }
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
@@ -773,7 +916,12 @@ def run_bulk(dev, config, rounds):
     (cluster, tasks, recorders, launches)."""
     import ksched_tpu_torch.ops as ops
     import ksched_tpu_torch.scheduler.device_bulk as device_bulk
-    from ksched_tpu_torch.drivers.device_bulk import device_cluster, group_setup, run_rounds
+    from ksched_tpu_torch.drivers.device_bulk import (
+        churn_of,
+        device_cluster,
+        group_setup,
+        run_rounds,
+    )
     from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
     from ksched_tpu_torch.solver.layered import read_branch, read_flag
 
@@ -805,7 +953,8 @@ def run_bulk(dev, config, rounds):
             Recorder(ops, "transport_solve_tiered") as rec_t:
         # solves, tiered solves, decodes, reads, launches, bounded solves
         seen = [0, 0, 0, 0, 0, 0]
-        for r, stats in run_rounds(cluster, tasks, rounds, setup=group_setup(config)):
+        for r, stats in run_rounds(cluster, tasks, rounds, setup=group_setup(config),
+                                   churn=churn_of(config)):
             got = cluster.fetch_stats(stats)
             launches = transport_loop.launches + transport_loop_tiered.launches
             now = [len(rec.calls), len(rec_t.calls), len(decode.events),
@@ -978,14 +1127,6 @@ def phase_timing_tiered(calls, picked, plain_ms, reps=5, extra=(2,)):
     return tot_k, tot_p, tot_b, max(by, key=by.get)
 
 
-def stats_sha256(stats) -> str:
-    """sha256 of per-round stats stacked as int32 in key order, as
-    tests/torch_device_bulk_reference.py computes it."""
-    return hashlib.sha256(np.ascontiguousarray(np.stack(
-        [np.asarray(stats[k]).astype(np.int32) for k in sorted(stats)])).tobytes()
-    ).hexdigest()
-
-
 def tier_of(got, r):
     if not got.get("full_round", np.zeros(r + 1))[r]:
         return "incremental"
@@ -1019,7 +1160,7 @@ def run_steady(dev, config):
     stats, per-round (B1 calls, B2 calls, wall ms, grouped path),
     launches (B1, B2))."""
     import ksched_tpu_torch.ops as ops
-    from ksched_tpu_torch.drivers.device_bulk import CHURN
+    from ksched_tpu_torch.drivers.device_bulk import churn_of, stats_sha256
     from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
     from ksched_tpu_torch.solver.layered import read_branch, read_flag
 
@@ -1055,7 +1196,8 @@ def run_steady(dev, config):
     with Recorder(ops, "transport_solve") as rec, \
             Recorder(ops, "transport_solve_tiered") as rec_t:
         t0 = time.perf_counter()
-        stats = cluster.run_steady_rounds(ref["rounds"], CHURN, max(1, int(tasks * CHURN)),
+        churn = churn_of(config)
+        stats = cluster.run_steady_rounds(ref["rounds"], churn, max(1, int(tasks * churn)),
                                           seed=STEADY_SEED)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
@@ -1069,9 +1211,13 @@ def run_steady(dev, config):
         f"rounds' walls (the run's keys on the host, each chunk's draws on the card)")
     for r, (c1, c2, wall, path, (solve_ms, decode_ms), _s) in enumerate(per_round):
         kms = sum(c["events"][0].elapsed_time(c["events"][1]) for c in c1 + c2)
-        where = (f"tier={tier_of(got, r)} census_drift={int(got['census_drift'][r])}"
-                 if cluster.hybrid_preempt else
-                 f"rows={path[0]} solve={path[1]} active_groups={int(got['active_groups'][r])}")
+        if cluster.hybrid_preempt:
+            where = f"tier={tier_of(got, r)} census_drift={int(got['census_drift'][r])}"
+        elif cluster.grouped:
+            where = (f"rows={path[0]} solve={path[1]} "
+                     f"active_groups={int(got['active_groups'][r])}")
+        else:
+            where = "rows=" + str(cluster.G)
         say(f"{config} steady {r}: {where} supersteps={int(got['supersteps'][r])} "
             f"placed={int(got['placed'][r])} migrated={int(got.get('migrated', got['placed'] * 0)[r])} "
             f"objective={int(got['objective'][r])} wall_ms={wall:.3f} "
@@ -1094,12 +1240,15 @@ def run_steady(dev, config):
               f"{config}: not every tier ran")
     else:
         for k in ("placed", "unscheduled", "objective", "supersteps", "active_groups"):
-            check(got[k].astype(np.int64).tolist() == ref[k],
-                  f"{config} steady: {k} differs from the JAX package's")
+            if k in ref:
+                check(got[k].astype(np.int64).tolist() == ref[k],
+                      f"{config} steady: {k} differs from the JAX package's")
         for kind in ("two-stage", "fallback", "full"):
-            rows = [p for p in per_round if p[3][1] == kind]
+            rows = [p for p in per_round if p[3] is not None and p[3][1] == kind]
             if rows:
                 say(f"{config} steady {kind} rounds: " + round_summary(rows))
+        if not cluster.grouped:
+            say(f"{config} steady rounds: " + round_summary(per_round))
     sha = stats_sha256(got)
     say(f"{config} steady: stats sha256 {sha}")
     check(sha == ref["stats_sha256"], f"{config} steady: stats differ from the JAX package's")
@@ -1112,8 +1261,9 @@ def run_steady(dev, config):
     escalations = sum(
         bool(p[5]) and p[5][0]["known"] is None for r, p in enumerate(per_round)
         if cluster.hybrid_preempt and tier_of(got, r) in ("incremental", "escalated"))
+    branch_points = ref["rounds"] if cluster.hybrid_preempt or cluster.grouped else 0
     check_reads(f"{config} steady", read_flag.count, read_branch.count,
-                solve.calls, ref["rounds"], escalations)
+                solve.calls, branch_points, escalations)
     check(launches == (len(rec.calls), len(rec_t.calls)),
           f"{config} steady: launches {launches} != attempts")
     say(f"{config} steady: launches transport={launches[0]} "
@@ -1190,6 +1340,245 @@ def phase_quincy(dev):
     # stage 1, and the fallback's full solve
     phase_timing(done[:1] + spent[:1] + [other], reps=10)
     return launches, worst
+
+
+def phase_suite_bulk(dev):
+    """whare-hetero (kernel B1) and ref100 (the closed form): the fill, 2
+    host-driven rounds and the steady rounds on the JAX package's draws,
+    against the JAX package's values."""
+    _c, _g, _p, (w1, w2) = run_steady(dev, "whare-hetero")
+    check(w1 > 0 and w2 == 0, "whare-hetero steady rounds did not run the transport kernel alone")
+    _c, _g, _p, (r1, r2) = run_steady(dev, "ref100")
+    check(r1 == 0 and r2 == 0, "ref100 launched a kernel (expected the closed form)")
+    return w1
+
+
+def run_gtrace(dev, config):
+    """A gtrace cell (drivers/gtrace.py) on the card: the trace staged on
+    the host, then its first 1,024 windows replayed as replay_chunks
+    replays them (4 chunks of 256, seeds 1-4), every count set to 0 just
+    before each chunk and read just after it. Per chunk its wall (host
+    clock, a synchronize on each side), the per-window p50 and p99 (wall
+    / windows, and CUDA events around each window), supersteps,
+    evictions, transport launches and kernel ms, host reads and decode
+    ms; its values against the JAX package's; the final placements'
+    sha256. Returns the transport solve with the most supersteps of each
+    chunk that ran one, and the launches."""
+    import ksched_tpu_torch.ops as ops
+    import ksched_tpu_torch.scheduler.device_bulk as device_bulk
+    from ksched_tpu_torch.drivers.gtrace import (
+        CHUNK_WINDOWS,
+        WINDOW_S,
+        chunk_summary,
+        gtrace_driver,
+        replay_chunks,
+    )
+    from ksched_tpu_torch.ops.transport import transport_loop
+    from ksched_tpu_torch.solver.layered import read_branch, read_flag
+
+    ref = REF_REPLAY[config]
+    t0 = time.perf_counter()
+    driver, events = gtrace_driver(config, device=dev)
+    sch = driver.stage(events, window_s=WINDOW_S)
+    widths = [int(sch[k].shape[1]) for k in ("adm_job", "done_rows", "tog_idx")]
+    say(f"{config}: {driver.num_machines} machines, staged {sch['rounds']} windows "
+        f"({sch['submitted']} submits, {sch['finished']} finishes, {sch['dropped']} "
+        f"dropped; widths {widths}) in {time.perf_counter() - t0:.2f} s on the host")
+    check([int(sch[k]) for k in ("rounds", "submitted", "finished", "dropped")] + [widths]
+          == [ref[k] for k in ("rounds", "submitted", "finished", "dropped", "widths")],
+          f"{config}: the staged schedule differs from the JAX package's")
+    cluster = driver.cluster
+    decode = cluster.rank_match_decode = EventTimer(cluster.rank_match_decode)
+    window = cluster.replay_round = EventTimer(cluster.replay_round)
+    solver = device_bulk.transport_fori
+    solve = SolveLog(None)
+    device_bulk.transport_fori = solve.wrap(solver)
+    worst, launches, n_chunks = [], 0, 0
+    chunk = CHUNK_WINDOWS
+
+    def start():
+        """Every count to 0 and the clock started, just before a chunk."""
+        transport_loop.launches = read_flag.count = read_branch.count = 0
+        torch.cuda.synchronize()
+        return ((len(rec.calls), len(decode.events), len(window.events), len(solve.calls)),
+                time.perf_counter())
+
+    try:
+        with Recorder(ops, "transport_solve") as rec:
+            first, t0 = start()
+            for c, stats in replay_chunks(driver, sch):
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+                flags, branches = read_flag.count, read_branch.count
+                n_launch = transport_loop.launches
+                want = ref["chunks"][c]
+                summary = chunk_summary(cluster.fetch_stats(stats))
+                spans = np.array([a.elapsed_time(b) for a, b in window.events[first[2]:]])
+                calls = rec.calls[first[0]:]
+                say(f"{config} chunk {c} ({chunk} windows, seed {1 + c}): wall_ms={wall:.3f} "
+                    f"per_window_ms={wall / chunk:.4f} window_span_ms p50={np.median(spans):.4f} "
+                    f"p99={np.percentile(spans, 99):.4f} max={spans.max():.4f} "
+                    f"supersteps p50={summary['supersteps_p50']} max={summary['supersteps_max']} "
+                    f"evicted={summary['evicted']} placed={summary['placed']} "
+                    f"admitted={summary['admitted']} completed={summary['completed']} "
+                    f"live={summary['live_last']} transport_launches={n_launch} "
+                    f"kernel_ms={rec.kernel_ms(first[0]):.3f} host_reads={flags + branches} "
+                    f"decode_ms={decode.ms(first[1]):.3f} "
+                    f"(per window {decode.ms(first[1]) / chunk:.4f})")
+                say(f"  stats sha256 {summary['stats_sha256']}")
+                check(summary == want, f"{config} chunk {c}: {summary} differs from the JAX "
+                      f"package's {want}")
+                check(n_launch == len(calls), f"{config} chunk {c}: launches {n_launch} != "
+                      f"attempts {len(calls)}")
+                check_reads(f"{config} chunk {c}", flags, branches, solve.calls[first[3]:], 0)
+                launches += n_launch
+                n_chunks += 1
+                if calls:
+                    worst.append(max(calls, key=lambda x: int(x["out"][2])))
+                first, t0 = start()
+    finally:
+        device_bulk.transport_fori = solver
+        del cluster.rank_match_decode, cluster.replay_round
+    check(n_chunks == len(ref["chunks"]), f"{config}: {n_chunks} chunks replayed")
+    sha = pu_sha256(cluster)
+    say(f"{config}: final pu sha256 {sha}; transport launches {launches}")
+    check(sha == ref["pu_sha256"], f"{config}: final placements differ from the JAX package's")
+    check_occupancy(cluster, config)
+    return worst, launches
+
+
+def phase_gtrace(dev):
+    """gtrace12k and gtrace12k-burst (the closed form: no kernel), then
+    gtrace12k-coco (kernel B1 at [4, 12,544] every window); the coco
+    cell's solve with the most supersteps in its first chunk re-solved
+    by the plain version with the same bits, and timed beside its
+    bound."""
+    for config in ("gtrace12k", "gtrace12k-burst"):
+        _w, n = run_gtrace(dev, config)
+        check(n == 0, f"{config} launched a kernel (expected the closed form)")
+    worst, n = run_gtrace(dev, "gtrace12k-coco")
+    check(n >= 1024, f"gtrace12k-coco: {n} transport launches for 1,024 windows")
+    pick = worst[0]
+    check(tuple(pick["args"][0].shape) == (4, 12_544), "gtrace12k-coco's solve is not [4, 12544]")
+    err, plain_ms = resolve_plain("gtrace12k-coco solve", pick, False)
+    k_ms, _p, b_ms, bound_by = phase_timing([pick], reps=3)
+    say(f"  (plain_ms of the gtrace12k-coco solve above: {plain_ms:.3f})")
+    return n, err, (k_ms, plain_ms, b_ms, bound_by)
+
+
+def phase_gtrace_host(dev):
+    """gtrace12k-host: TraceReplayDriver on the host BulkCluster with a
+    LayeredTransportSolver on the card, 60 rounds of 5 s windows; per
+    round placed, unscheduled and evicted, the totals and the final
+    placements against the JAX package's; ReplayStats' p50 and the p50
+    of the round's spans."""
+    from ksched_tpu_torch.drivers.gtrace import HOST_REPLAY, host_driver, placements_sha256
+    from ksched_tpu_torch.ops.transport import transport_loop
+    from ksched_tpu_torch.solver.layered import LayeredTransportSolver
+
+    t0 = time.perf_counter()
+    driver, events = host_driver(LayeredTransportSolver(device=dev))
+    say(f"gtrace12k-host: {driver.num_machines} machines, {len(events)} events, "
+        f"cluster of {driver.cluster.task_cap} task rows built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    transport_loop.launches = 0
+    t0 = time.perf_counter()
+    stats = driver.replay(events, **HOST_REPLAY)
+    rows = stats.round_log
+    wall = time.perf_counter() - t0
+    spans = {k: np.median([r[3][k] for r in rows]) * 1e3
+             for k in ("stats_s", "solve_s", "decode_s", "apply_s")}
+    totals = {k: getattr(stats, k) for k in ("rounds", "submitted", "finished", "placed",
+                                             "evicted")}
+    say(f"gtrace12k-host: {stats.rounds} rounds in {wall:.3f} s, p50_ms={stats.p50_ms:.3f} "
+        f"p99_ms={1e3 * np.percentile(stats.round_latencies_s, 99):.3f} span p50 ms "
+        + " ".join(f"{k[:-2]}={v:.3f}" for k, v in spans.items())
+        + f" totals={totals} transport_launches={transport_loop.launches}")
+    for i, name in enumerate(("placed", "unscheduled", "evicted")):
+        check([r[i] for r in rows] == REF_HOST[name],
+              f"gtrace12k-host: per-round {name} differs from the JAX package's")
+    check(totals == REF_HOST["totals"], "gtrace12k-host: totals differ from the JAX package's")
+    sha = placements_sha256(driver.cluster)
+    say(f"gtrace12k-host: final task_pu sha256 {sha}")
+    check(sha == REF_HOST["task_pu_sha256"], "gtrace12k-host: placements differ")
+    return transport_loop.launches
+
+
+def phase_multiblock(dev):
+    """quincy10k-multiblock: the fill, 3 chunks of 32 steady rounds, each
+    after the table maintenance, then the quality probe; against the JAX
+    package's values. The transport solve of the widest ladder rung that
+    fired (in the fill or the chunks) re-solved by the plain version with
+    the same bits, and timed beside its bound."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers.device_bulk import stats_sha256
+    from ksched_tpu_torch.drivers.multiblock import CHUNK_ROUNDS, FIRST_SEED, Multiblock
+    from ksched_tpu_torch.ops.transport import transport_loop
+    from ksched_tpu_torch.solver.layered import read_branch, read_flag
+
+    ref = REF_MULTIBLOCK
+    transport_loop.launches = read_flag.count = read_branch.count = 0
+    with Recorder(ops, "transport_solve") as rec:
+        t0 = time.perf_counter()
+        mb = Multiblock(device=dev)
+        set_up = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fill = {k: int(v) for k, v in mb.cluster.fetch_stats(mb.fill()).items()}
+        say(f"quincy10k-multiblock fill: {fill} set-up_s={set_up:.3f} "
+            f"wall_ms={1e3 * (time.perf_counter() - t0):.3f} rows={mb.cluster.last_grouped_path} "
+            f"kernel_ms={rec.kernel_ms():.3f} launches={transport_loop.launches}")
+        check(fill == ref["fill"], "quincy10k-multiblock fill differs from the JAX package's")
+        launches = transport_loop.launches
+        for c, want in enumerate(ref["chunks"]):
+            first = len(rec.calls)
+            transport_loop.launches = read_flag.count = read_branch.count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = mb.chunk(CHUNK_ROUNDS, FIRST_SEED + c)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            got = mb.cluster.fetch_stats(stats)
+            calls = rec.calls[first:]
+            summary = {"stats_sha256": stats_sha256(got),
+                       "converged": bool(got["converged"].all()),
+                       "placed": int(got["placed"].sum()),
+                       "supersteps_max": int(got["supersteps"].max()),
+                       "active_groups_max": int(got["active_groups"].max())}
+            rungs = sorted({int(x["args"][0].shape[0]) for x in calls})
+            say(f"quincy10k-multiblock chunk {c} ({CHUNK_ROUNDS} rounds, seed {FIRST_SEED + c}, "
+                f"table maintenance included): wall_ms={wall:.3f} "
+                f"per_round_ms={wall / CHUNK_ROUNDS:.3f} supersteps "
+                f"p50={int(np.median(got['supersteps']))} max={summary['supersteps_max']} "
+                f"active_groups max={summary['active_groups_max']} solve rows {rungs} "
+                f"transport_launches={transport_loop.launches} kernel_ms={rec.kernel_ms(first):.3f} "
+                f"host_reads={read_flag.count + read_branch.count}")
+            check(summary == want, f"quincy10k-multiblock chunk {c}: {summary} differs from the "
+                  f"JAX package's {want}")
+            check(transport_loop.launches == len(calls), "multiblock: launches != attempts")
+            launches += transport_loop.launches
+        grouped_calls = list(rec.calls)  # the fill's and the chunks' solves
+        counters = mb.counters()
+        say(f"quincy10k-multiblock table: {counters}")
+        check(counters == ref["counters"], "quincy10k-multiblock: table counters differ")
+        sha = pu_sha256(mb.cluster)
+        check(sha == ref["pu_sha256"], "quincy10k-multiblock: placements differ")
+        first = len(rec.calls)
+        transport_loop.launches = 0
+        t0 = time.perf_counter()
+        probe = mb.quality_probe()
+        say(f"quincy10k-multiblock probe: {probe} wall_s={time.perf_counter() - t0:.3f} "
+            f"transport_launches={transport_loop.launches} "
+            f"kernel_ms={rec.kernel_ms(first):.3f} shapes "
+            f"{sorted({tuple(x['args'][0].shape) for x in rec.calls[first:]})}")
+        for k in ("realized_cost_gap_mean", "realized_cost_gap_max", "y_sha256"):
+            check(probe[k] == ref["probe"][k], f"quincy10k-multiblock probe: {k} differs")
+        launches += transport_loop.launches
+    widest = max(grouped_calls, key=lambda x: (x["args"][0].shape[0], int(x["out"][2])))
+    err, plain_ms = resolve_plain("quincy10k-multiblock widest-rung solve", widest, False)
+    phase_timing([widest], reps=5)
+    say(f"  (plain_ms of the multiblock solve above: {plain_ms:.3f})")
+    return launches, err
 
 
 def bindings_sha256(sched) -> str:
@@ -1516,6 +1905,12 @@ def main() -> int:
     (q_b1, _q_b2), q_err = phase_quincy(dev)
     say(f"launches on the coco50k-preempt steady path: transport {tier_b1}, "
         f"transport_tiered {tier_b2}; on the quincy10k steady path: transport {q_b1}")
+    w_b1 = phase_suite_bulk(dev)
+    g_b1, g_err, (g_k, g_p, g_b, _g_by) = phase_gtrace(dev)
+    h_b1 = phase_gtrace_host(dev)
+    mb_b1, mb_err = phase_multiblock(dev)
+    say(f"transport launches: whare-hetero steady {w_b1}, gtrace12k-coco {g_b1}, "
+        f"gtrace12k-host {h_b1}, quincy10k-multiblock {mb_b1}")
     m_err = phase_parity_mcmf(dev)
     m_launches, m_main_err, m_calls, m_picked, m_plain_ms = phase_mega_main(dev)
     p_launches = phase_ladder(dev)
@@ -1527,11 +1922,11 @@ def main() -> int:
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/transport.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:59",
-        "launches": launches,
-        "max_abs_err": max(parity_err, main_err, tier_err, q_err),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
+        "launches": launches + g_b1,
+        "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err),
+        "ms": k_ms + g_k,
+        "plain_ms": p_ms + g_p,
+        "bound_ms": b_ms + g_b,
         "bound_by": bound_by,
         "library_ms": None,
     }, {

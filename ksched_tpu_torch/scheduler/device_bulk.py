@@ -38,8 +38,10 @@ preference overrides; the exact two-stage decomposition and the
 compaction ladder). Steady churn rounds take their random draws as
 tensors: `run_steady_rounds(seed=...)` makes the JAX package's own
 draws (utils/threefry.py), `draw_steady` others from a
-`torch.Generator`. Replay rounds raise NotImplementedError naming their
-ROADMAP item.
+`torch.Generator`. Trace-replay rounds (`run_replay_rounds`) take a
+staged window schedule (drivers/trace_replay.py), copied to the device
+once per call, and chain its windows there: toggles with evictions,
+completions, admissions, then the round.
 
 Graph semantics are those of the host BulkCluster: the same aggregate
 topology, pin-on-place accounting with preemption off, keep-arcs
@@ -108,13 +110,6 @@ class GroupSpec(NamedTuple):
 PREF_NONE = 1 << 30
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to ksched_tpu_torch yet (ROADMAP queue A "
-        f"item {item})"
-    )
-
-
 def _count(idx, n: int):
     """int32[n] counts of the values in idx; entries equal to n (the
     sentinel) land in a spare bucket and are dropped."""
@@ -128,6 +123,11 @@ def _count(idx, n: int):
 #: Tcap 65,536 on an H100), more than an incremental round's solve; its
 #: int64 temporaries are [DRAW_ROUNDS, 5, Tcap] (42 MB each at 65,536).
 DRAW_ROUNDS = 16
+
+#: a staged replay schedule's per-window arrays, in replay_round's
+#: argument order
+REPLAY_ARRAYS = ("adm_job", "adm_cls", "adm_grp", "adm_n", "done_rows", "done_n",
+                 "tog_idx", "tog_on", "tog_n")
 
 
 def draw_steady(generator: torch.Generator, task_capacity: int,
@@ -1023,17 +1023,65 @@ class DeviceBulkCluster:
                 self.groups.job[new_grp.long()], new_grp)
         else:
             state, admitted = self._occupy(state, arrivals, draw_a, draw_b)
-        # steady rounds bound the decode to the configured window; the
-        # random offset rotates it over the backlog (or the movers) so
-        # no pending task starves
-        if self.hybrid_preempt:
-            self.state, stats = self.hybrid_round(state, window_offset)
-        else:
-            self.state, stats = self._round(
-                state, decode_width=self.decode_width, window_offset=window_offset
-            )
+        self.state, stats = self._bounded_round(state, window_offset)
         stats["completed"] = done.sum(dtype=_I32)
         stats["admitted"] = admitted
+        return stats
+
+    def _bounded_round(self, state: DeviceClusterState, window_offset):
+        """The round of a steady or replay round: the decode bounded to
+        the configured window, the random offset rotating it over the
+        backlog (or the movers) so no pending task starves; the hybrid
+        round in stability-aware preemption mode. Returns (state,
+        stats)."""
+        if self.hybrid_preempt:
+            return self.hybrid_round(state, window_offset)
+        return self._round(state, decode_width=self.decode_width,
+                           window_offset=window_offset)
+
+    def replay_round(self, adm_job, adm_cls, adm_grp, adm_n, done_rows, done_n,
+                     tog_idx, tog_on, tog_n, window_offset) -> dict:
+        """One trace-replay window on the device (the reference's
+        replay_round): its machine toggles, evicting the tasks of the
+        machines they disable; its completions; its admissions into the
+        first adm_n free rows in ascending order (the rule the stager's
+        host mirror predicts); then the bounded round. The arguments are
+        one window's row of a staged schedule (drivers/trace_replay.py
+        DeviceTraceReplayDriver.stage) as device tensors: the first
+        tog_n of tog_idx/tog_on (deduplicated), done_n of done_rows and
+        adm_n of adm_job/adm_cls/adm_grp hold; window_offset is an int32
+        scalar. Updates the cluster and returns the round's stats as
+        device tensors, with `evicted`, `completed` and `admitted`."""
+        M, P, Tcap, num_pus = self.M, self.P, self.Tcap, self.num_pus
+        dev = self.device
+        state = self.state
+        # toggles: invalid slots scatter into a pad slot, cut off after
+        valid_t = torch.arange(tog_idx.shape[0], dtype=_I32, device=dev) < tog_n
+        idx_t = torch.where(valid_t, tog_idx, M).long()
+        me = torch.cat([state.machine_enabled, state.machine_enabled[:1]]).scatter_(
+            0, idx_t, tog_on)[:M]
+        on = state.live & (state.pu >= 0)
+        evict = on & ~me[(state.pu.clamp(0, num_pus - 1) // P).long()]
+        pu = torch.where(evict, -1, state.pu)
+        on = state.live & (pu >= 0)
+        state = state._replace(machine_enabled=me, pu=pu,
+                               pu_running=_count(torch.where(on, pu, num_pus), num_pus))
+        # completions
+        valid_d = torch.arange(done_rows.shape[0], dtype=_I32, device=dev) < done_n
+        idx_d = torch.where(valid_d, done_rows, Tcap).long()
+        done = torch.zeros(Tcap + 1, dtype=torch.bool, device=dev).index_fill_(
+            0, idx_d, True)[:Tcap] & state.live
+        state = self._retire(state, done)
+        # admissions: row t takes source entry (its rank among the free
+        # rows), clipped to the [Amax] sources
+        free_rank = torch.cumsum(~state.live, 0, dtype=_I32) - 1
+        src = free_rank.clamp(0, adm_job.shape[0] - 1).long()
+        state, admitted = self._occupy(state, adm_n, adm_cls[src], adm_job[src],
+                                       adm_grp[src])
+        self.state, stats = self._bounded_round(state, window_offset)
+        stats["evicted"] = evict.sum(dtype=_I32)
+        stats["admitted"] = admitted
+        stats["completed"] = done.sum(dtype=_I32)
         return stats
 
     # ------------------------------------------------------------------
@@ -1212,7 +1260,25 @@ class DeviceBulkCluster:
         return stats
 
     def run_replay_rounds(self, schedule, seed: int = 0):
-        raise _not_ported("trace-replay rounds (run_replay_rounds)", "5c")
+        """Replay `schedule` (a staged window schedule, or a slice of
+        its windows: drivers/trace_replay.py DeviceTraceReplayDriver.
+        stage) on the device: each of its arrays goes to the device in
+        one copy, then its K windows chain there, one replay_round each,
+        with no host read beyond those the round kinds make. Window i's
+        decode offset is the JAX package's, randint(keys[i], (), 0,
+        1 << 30) with keys = split(PRNGKey(seed), K) (utils/threefry.py),
+        so a schedule replayed in chunks gets the same offsets only when
+        it is chunked alike. Returns stacked stats (device tensors,
+        un-fetched)."""
+        arrays = [torch.as_tensor(np.asarray(schedule[k]), device=self.device)
+                  for k in REPLAY_ARRAYS]
+        K = int(arrays[0].shape[0])
+        keys = threefry.split(threefry.prng_key(seed), K)
+        offsets = torch.as_tensor(threefry.randint(keys, 0, 0, 1 << 30), device=self.device)
+        rows = [self.replay_round(*(a[i] for a in arrays), offsets[i]) for i in range(K)]
+        stats = {k: torch.stack([r[k] for r in rows]) for k in rows[0]} if rows else {}
+        self.last_stats = stats
+        return stats
 
     def fetch_stats(self, stats=None) -> dict:
         got = stats if stats is not None else self.last_stats

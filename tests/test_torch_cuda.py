@@ -5,7 +5,8 @@ grid, across blocks) against their plain PyTorch versions, bit for bit,
 Scenario W(20, 200) through the default cuda backend and through
 "mega", Scenario P(20, 200) on the card against the CPU, and the
 device-resident round on the card against the same round on the CPU,
-three-tier preemption and group mode included.
+three-tier preemption, group mode and trace replay included, and the
+transport kernel at the trace replay's [4, 12,544].
 Marked `cuda`; every test skips where no CUDA device is present.
 Imports nothing of JAX, so it runs on a machine without it:
 
@@ -316,6 +317,73 @@ def test_device_bulk_on_card_matches_cpu(card):
         ran = (transport_loop.launches - launches[0],
                transport_loop_tiered.launches - launches[1])
         assert (ran[1] > 0 and ran[0] == 0) if preemption else (ran[0] > 0 and ran[1] == 0)
+
+
+@pytest.mark.parametrize("policy", ["closed-form", "coco"])
+def test_trace_replay_on_card_matches_cpu(card, policy):
+    """A staged trace (12 machines, 160 tasks, machine churn) replayed
+    on the card in two chunks with their own seeds equals the same
+    replay on the CPU, stats and state; the CoCo policy launches the
+    transport kernel on every window, the closed form never."""
+    from ksched_tpu_torch.costmodels import coco
+    from ksched_tpu_torch.costmodels.device_costs import coco_device_cost_fn
+    from ksched_tpu_torch.drivers.gtrace import window_slice
+    from ksched_tpu_torch.drivers.trace_replay import (
+        DeviceTraceReplayDriver,
+        synthesize_trace,
+    )
+
+    machines, events = synthesize_trace(num_machines=12, num_tasks=160, duration_s=120.0,
+                                        mean_runtime_s=60.0, seed=5, machine_churn=0.5)
+    kw = dict(slots_per_machine=2, num_jobs_hint=8, task_capacity=256, decode_width=16)
+    if policy == "coco":
+        pen = np.random.default_rng(7).integers(0, 40, (12, 4))
+        kw.update(class_cost_fn=coco_device_cost_fn(pen), unsched_cost=coco.UNSCHEDULED_COST,
+                  supersteps=1 << 14)
+    gpu = DeviceTraceReplayDriver(machines, device=card, **kw)
+    cpu = DeviceTraceReplayDriver(machines, device="cpu", **kw)
+    sch = gpu.stage(events, window_s=10.0)
+    launches = transport_loop.launches
+    k = sch["rounds"] // 2
+    for i0, n, seed in ((0, k, 1), (k, sch["rounds"] - k, 2)):
+        a = gpu.cluster.fetch_stats(gpu.replay(window_slice(sch, i0, n), seed=seed))
+        b = cpu.cluster.fetch_stats(cpu.replay(window_slice(sch, i0, n), seed=seed))
+        assert set(a) == set(b)
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    sa, sb = gpu.cluster.fetch_state(), cpu.cluster.fetch_state()
+    for key in sa:
+        np.testing.assert_array_equal(sa[key], sb[key])
+    ran = transport_loop.launches - launches
+    assert ran >= sch["rounds"] if policy == "coco" else ran == 0
+
+
+def test_kernel_matches_plain_at_gtrace_width(card):
+    """The transport kernel at gtrace12k-coco's [4, 12,544] (12,500
+    machines: every state array in the global scratch, a row's slices
+    spread over six warps), on a contended instance: bit for bit the
+    plain version, cold and from carried prices."""
+    rng = np.random.default_rng(12)
+    C, M = 4, 12_500
+    Mp, n_scale = pad_geometry(M, C)
+    assert Mp == 12_544
+    wS = np.zeros((C, Mp), np.int32)
+    wS[:, :M] = (rng.integers(0, 40, (C, M)) - 540) * n_scale
+    supply = rng.integers(4_000, 7_000, C).astype(np.int32)
+    col_cap = np.zeros(Mp, np.int32)
+    col_cap[:M] = rng.integers(0, 3, M)
+    col_cap[-1] = supply.sum()
+    args = [torch.as_tensor(a, device=card) for a in (wS, supply, col_cap)]
+    eps = int(np.abs(wS).max())
+    got = transport_loop(*args, eps, max_supersteps=50_000, refine_waves=8)
+    want = _solve_transport(*args, eps, max_supersteps=50_000, refine_waves=8)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    assert bool(got[3]) and int(got[2]) > 0
+    warm = transport_loop(*args, n_scale, got[1], max_supersteps=50_000)
+    warm_p = _solve_transport(*args, n_scale, got[1], max_supersteps=50_000)
+    for a, b in zip(warm, warm_p):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("grouped", [False, True])

@@ -322,10 +322,56 @@ def test_options_match_the_jax_package(option):
     _assert_same_state(jc, tc)
 
 
+def _schedule(seed, K=5, A=30, D=12, E=3):
+    """A hand-made replay schedule: per window up to A admissions, D
+    completions of random rows (dead rows are ignored by the round) and
+    E toggles of distinct machines."""
+    rng = np.random.default_rng(seed)
+    sch = {
+        "adm_job": rng.integers(0, 4, (K, A)).astype(np.int32),
+        "adm_cls": rng.integers(0, 4, (K, A)).astype(np.int32),
+        "adm_grp": rng.integers(0, 4, (K, A)).astype(np.int32),
+        "adm_n": rng.integers(0, A + 1, K).astype(np.int32),
+        "done_rows": rng.integers(0, TCAP, (K, D)).astype(np.int32),
+        "done_n": rng.integers(0, D + 1, K).astype(np.int32),
+        "tog_idx": np.stack([rng.choice(M, E, replace=False) for _ in range(K)]).astype(np.int32),
+        "tog_on": rng.random((K, E)) < 0.5,
+        "tog_n": rng.integers(0, E + 1, K).astype(np.int32),
+    }
+    sch["adm_cls"] = sch["adm_grp"]  # group g is class g below
+    return sch
+
+
+@pytest.mark.parametrize("option", [
+    dict(), dict(preemption=False), dict(preempt_every=2, preempt_global_every=3),
+    dict(num_groups=4, preemption=False),
+], ids=["preempt", "off", "three-tier", "grouped"])
+def test_replay_rounds_in_each_round_kind(option):
+    """run_replay_rounds after a fill, in each round kind, two calls with
+    their own seeds: stats and state equal the JAX package's."""
+    jc, tc = _pair(**option)
+    if tc.grouped:
+        for c in (jc, tc):
+            c.set_groups(cls=np.arange(4), job=np.zeros(4), e=np.zeros(4),
+                         u=60 + np.arange(4))
+    for (_r, a), (_r2, b) in zip(run_rounds(jc, 300, 0), run_rounds(tc, 300, 0)):
+        assert _ints(jc.fetch_stats(a)) == _ints(tc.fetch_stats(b))
+    for seed in (4, 9):
+        sch = _schedule(seed)
+        a = jc.fetch_stats(jc.run_replay_rounds(sch, seed=seed))
+        b = tc.fetch_stats(tc.run_replay_rounds(sch, seed=seed))
+        assert _ints(a) == _ints(b)
+        assert {"evicted", "admitted", "completed"} <= set(b)
+        _assert_same_state(jc, tc)
+
+
 def test_replay_rounds_and_no_card_raise(monkeypatch):
+    """A replay schedule runs on the CPU (no NotImplementedError left);
+    asking for the card where there is none raises."""
     tc = DeviceBulkCluster(**_kw(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5c"):
-        tc.run_replay_rounds({})
+    got = tc.fetch_stats(tc.run_replay_rounds(_schedule(1, K=2), seed=0))
+    assert got["admitted"].shape == (2,) and got["converged"].all()
+    assert tc.run_replay_rounds({k: v[:0] for k, v in _schedule(1).items()}) == {}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceBulkCluster(**_kw())
@@ -366,6 +412,37 @@ def test_driver_config_matches_at_full_width():
         assert _ints(jc.fetch_stats(a)) == _ints(tc.fetch_stats(b))
     _assert_same_state(jc, tc)
     assert tc.num_live_tasks == tasks == tc.num_placed_tasks
+
+
+@pytest.mark.parametrize("config", ["ref100", "whare-hetero"])
+def test_suite_configs_match(config):
+    """drivers/device_bulk.py's ref100 (its own size, 5% churn, the
+    closed form) and whare-hetero (Whare-Map with platform factors, cut
+    to 40 machines and 1,200 tasks): the fill, two host-driven rounds and
+    steady rounds on the JAX package's draws equal the JAX package's."""
+    from ksched_tpu.costmodels import device_costs as jax_costs
+    from ksched_tpu_torch.drivers.device_bulk import churn_of, cost_fn
+
+    tasks, kw, cost = cluster_args(config)
+    if config == "whare-hetero":
+        tasks, kw = 1_200, dict(kw, num_machines=M, task_capacity=TCAP * 4)
+        cost = ("whare", dict(cost[1], platform_factor=cost[1]["platform_factor"][:M]))
+    churn = churn_of(config)
+    jc = JaxCluster(class_cost_fn=cost_fn(cost, jax_costs), **kw)
+    tc = DeviceBulkCluster(class_cost_fn=cost_fn(cost), device="cpu", **kw)
+    for (_r, a), (_r2, b) in zip(run_rounds(jc, tasks, 2, churn=churn),
+                                 run_rounds(tc, tasks, 2, churn=churn)):
+        assert _ints(jc.fetch_stats(a)) == _ints(tc.fetch_stats(b))
+        _assert_same_state(jc, tc)
+    arrivals = max(1, int(tasks * churn))
+    a = jc.fetch_stats(jc.run_steady_rounds(8, churn, arrivals, seed=1))
+    b = tc.fetch_stats(tc.run_steady_rounds(8, churn, arrivals, seed=1))
+    assert _ints(a) == _ints(b)
+    _assert_same_state(jc, tc)
+    if config == "whare-hetero":
+        assert b["supersteps"].max() > 0  # the iterative solve
+    else:
+        assert tc.C == 1 and b["supersteps"].max() == 0
 
 
 def test_steady_rounds_on_a_generator_keep_occupancy():

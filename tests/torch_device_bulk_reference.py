@@ -17,8 +17,8 @@ chip_smoke.py checks, the sha256 of all the rounds' stats stacked as
 int32 (`stats_sha256`) and the `pu` sha256 after them. These are
 chip_smoke.py's REF_BULK constants. On the CPU: about 15 s for
 coco50k-preempt-full, coco50k and 10kx1k together, 35 s for
-coco50k-preempt with its 130 steady rounds, 31 s for quincy10k; up to
-1.4 GB.
+coco50k-preempt with its 130 steady rounds, 31 s for quincy10k, 13 s
+for whare-hetero and 8 s for ref100; up to 1.4 GB.
 """
 
 import hashlib
@@ -27,23 +27,25 @@ import sys
 
 import numpy as np
 
-from ksched_tpu.costmodels.device_costs import coco_device_cost_fn
+from ksched_tpu.costmodels import device_costs
 from ksched_tpu.costmodels.quincy import MB
 from ksched_tpu.costmodels.quincy_device import QuincyGroupTable
 from ksched_tpu.scheduler.device_bulk import DeviceBulkCluster
 from ksched_tpu_torch.drivers.device_bulk import (
-    CHURN,
     CONFIGS,
+    churn_of,
     cluster_args,
+    cost_fn,
     group_setup,
     run_rounds,
+    stats_sha256,
 )
 
 #: config -> host-driven rounds after the fill, as chip_smoke.py runs them
 ROUNDS = {"coco50k-preempt-full": 4, "coco50k": 2, "10kx1k": 2,
-          "coco50k-preempt": 4, "quincy10k": 2}
+          "coco50k-preempt": 4, "quincy10k": 2, "whare-hetero": 2, "ref100": 2}
 #: config -> steady rounds after the host-driven ones
-STEADY = {"coco50k-preempt": 130, "quincy10k": 32}
+STEADY = {"coco50k-preempt": 130, "quincy10k": 32, "whare-hetero": 32, "ref100": 64}
 STEADY_SEED = 1
 KEYS = ("placed", "migrated", "preempted", "unscheduled", "objective",
         "supersteps", "converged")
@@ -52,12 +54,6 @@ STEADY_KEYS = KEYS + ("census_drift", "active_groups")
 
 def sha256(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
-
-
-def stats_sha256(stats: dict) -> str:
-    """sha256 of the per-round stats, stacked as int32 in key order."""
-    return sha256(np.stack([np.asarray(stats[k]).astype(np.int32)
-                            for k in sorted(stats)]))
 
 
 def tiers(stats: dict) -> dict:
@@ -89,12 +85,12 @@ def jax_quincy_setup(cluster, rng, blocks: int = 480):
 
 
 def reference(config: str) -> dict:
-    tasks, kw, penalties = cluster_args(config)
-    cost_fn = None if penalties is None else coco_device_cost_fn(penalties)
-    cluster = DeviceBulkCluster(class_cost_fn=cost_fn, **kw)
+    tasks, kw, cost = cluster_args(config)
+    churn = churn_of(config)
+    cluster = DeviceBulkCluster(class_cost_fn=cost_fn(cost, device_costs), **kw)
     out = {}
     setup = None if group_setup(config) is None else jax_quincy_setup
-    for _r, stats in run_rounds(cluster, tasks, ROUNDS[config], setup=setup):
+    for _r, stats in run_rounds(cluster, tasks, ROUNDS[config], setup=setup, churn=churn):
         got = cluster.fetch_stats(stats)
         for k in KEYS:
             if k in got:
@@ -102,7 +98,7 @@ def reference(config: str) -> dict:
     out["pu_sha256"] = sha256(np.asarray(cluster.fetch_state()["pu"], np.int32))
     if config in STEADY:
         got = cluster.fetch_stats(cluster.run_steady_rounds(
-            STEADY[config], CHURN, max(1, int(tasks * CHURN)), seed=STEADY_SEED))
+            STEADY[config], churn, max(1, int(tasks * churn)), seed=STEADY_SEED))
         steady = {k: np.asarray(got[k]).astype(np.int64).tolist()
                   for k in STEADY_KEYS if k in got}
         if cluster.hybrid_preempt:
