@@ -105,13 +105,38 @@ no result line):
    package's does (50,000 supersteps in the cold attempt);
 12. timing of the mcmf kernel at the re-solved shapes (blocks, grid
    barriers per superstep, time per superstep) beside its plain version
-   and its bound, and of its grid barrier alone; then the `kernels` line
-   and the result line. The transport kernel's entry there covers two
-   paths, each counted from 0 just before it ran: Scenario W(1000,
-   10000) (phase 4) and gtrace12k-coco (phase 7e). Its `launches` is the
-   sum of their launches, and its `ms`, `plain_ms` and `bound_ms` sum
-   the solves timed on them: W's two and gtrace12k-coco's longest at
-   [4, 12,544]. The other paths' launches are printed before the line.
+   and its bound, and of its grid barrier alone;
+13. the device-resident general-graph path: Scenario W(1000, 10000)
+   through make_backend("mega") with the problem kept on the card
+   (PlacementSolver(device_resident=True)), rounds 0-2, each round's
+   values equal to phase 10's JAX values, every mcmf launch reading the
+   mirror's own cap, scaled-cost and supply tensors (data_ptr), cap never
+   re-uploaded, round 2's solve re-solved by the plain version with the
+   same bits and timed as in phase 12;
+14. bench.py's churn config (drivers/churn.py): 10k tasks on 1k
+   machines at 1% churn, the three export arms (full_rebuild,
+   delta_scatter, device_resident) round-robin for 6 warm-up and 24
+   measured rounds on the scan-CSR solve on cuda (plain PyTorch, no
+   hand-written kernel): each round's supersteps, warm scope, placements'
+   sha256 and the resident arm's plan sync kind and bytes equal to the
+   JAX package's, the arms equal to each other, the resident mirror and
+   plan parity checks every round; per arm the wall p50/p99 over the
+   measured rounds, the export/pack/upload/solve/decode span p50s and
+   the bytes per round copied to the card (the mirror's records on the
+   resident arm, the solver's uploads of the problem's arrays and the
+   plan's tensors on the host arms, both counted where they are made);
+15. the ELL line: make_backend("ell") on the churn config's resident
+   export, the fill and 3 rounds, equal to the JAX package's EllSolver;
+   then the `kernels` line and the result line. The transport kernel's
+   entry there covers two paths, each counted from 0 just before it ran:
+   Scenario W(1000, 10000) (phase 4) and gtrace12k-coco (phase 7e). Its
+   `launches` is the sum of their launches, and its `ms`, `plain_ms` and
+   `bound_ms` sum the solves timed on them: W's two and gtrace12k-coco's
+   longest at [4, 12,544]. The mcmf kernel's entry covers W-mega
+   (phase 10) and W-mega-resident (phase 13) the same way: `launches`
+   sums both, and `ms`, `plain_ms` and `bound_ms` sum W-mega's timed
+   solves and W-mega-resident's round 2 solve. The other paths'
+   launches are printed before the line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -362,6 +387,82 @@ REF_MULTIBLOCK = {
     "pu_sha256": "1889130ffbbfe4602f2de76541d0215df626060cf91329997bceaf0744ef3255",
     "probe": {"realized_cost_gap_mean": 4e-05, "realized_cost_gap_max": 0.00034,
               "y_sha256": "aa149b3bfa0e13865355e9b6f2a1117a263ad13757274ead135e954151ab0b67"},
+}
+
+# bench.py's `churn` config (drivers/churn.py: 10,000 tasks on 1,000 x 1
+# x 4 x 4, 1% churn, 6 warm-up + 24 measured rounds), per round, as
+# produced by the JAX package's device-resident arm on the CPU
+# (tests/torch_churn_reference.py, a twin of bench.py's
+# `_churn_pipeline_bench`): supersteps, warm scope, the placements'
+# sha256, the plan sync kind and the bytes shipped to the device; the
+# fill's supersteps; the plan's rebuild, overflow and relocation counts;
+# and its EllSolver run on the same export, the fill and 3 rounds.
+REF_CHURN = {
+    "fill_supersteps": 10,
+    "supersteps": [
+        10, 9, 9, 9, 10, 9, 9, 9, 9, 9, 9, 9, 10, 9, 9,
+        9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9,
+    ],
+    "warm_scope": [
+        "fresh", "fresh", "fresh", "fresh", "fresh", "fresh", "fresh", "fresh",
+        "fresh", "fresh", "fresh", "fresh", "fresh", "fresh", "fresh", "fresh",
+        "fresh", "fresh", "fresh", "fresh", "fresh", "fresh", "fresh", "fresh",
+        "fresh", "fresh", "fresh", "fresh", "fresh", "fresh",
+    ],
+    "sha256": [
+        "b2d0e40063f3a035f70e2878326c0f14040a19f2e650b7414468bc9482a9bc19",
+        "33669641ee65917bc2569655e8a2fd6e27fa8f6dfe467bd77c3da138fc4d41a0",
+        "da0381812d3db577272038cbca0be309b654dfa0fd9d0c5460e73e2334b0f10b",
+        "28e6c34f8e01af314dcf8ef24c3911980cde6f1a9d2c22b28a74b1efea81c71f",
+        "ba4d896a7ba9eafa2826ca061dbc30ef6b1c2adfc81c75e5e460b7112cb2e016",
+        "cc6f0d7a9d17e136d9a817c8f13dbc3e1994ba243a198c2b1d47834ef97fe27b",
+        "b9dd62132b92682974df503a7b3fab8e87f73a5d78a3e8d2479832f9231285d9",
+        "be9d6f803996b1e95d24bf43c0fff0a0b22de79d6c8728c69ceb66a032ca226d",
+        "76be0407a56d5b2fa9df8963a117537da0398997e1fa613ddab19868759f6ace",
+        "4024504efd520893953bbca6992afbc16943a4ca5bd3849f028e151096b5a1b2",
+        "4f75f1db45d73d6c86f7c1ecf7c81d8331841ea6e7ca5d50f746248a8c1a1afe",
+        "c9709569cb7944d58edaf54903f7b8ae20bfee4a89107fbd084affbb75f13e79",
+        "4d1cfb1e508457dac71a3eff1e15fb56a8aed7e0c87b489f5ec31d5c590372e8",
+        "e3a4580a719860be053eb9c9fddf45407cfe1971006884d7eccfe11cd10cb486",
+        "1f6511336654041115eb3fcd43e6806b641d2f5d0c613b7d1dadeabe645e6303",
+        "80d51fc1c95e0051e2d3a6ad1a8d2dcba36c1e3b5b41082e97852778d35db9a5",
+        "dc8b3ca29a2218e73f5127fa5e56e6712123f0d0711926af93af6dc3a4f354e5",
+        "c5fc46570906529c4170a1c599987df3afb12b9dff7e283533e03245b2a19ecf",
+        "4bb04b50bddb4f302cda41140b42ac89c4556c6aca7106e9728657767b2adc67",
+        "afe0003dc19ad6cee6d2f0493f0eeb3d46637efed8d56864993dc0f56a3c0719",
+        "76a9d95af82bd65155bcca590569b62597959eefabb5f86e68b0e82d168e5571",
+        "1fef7db45fe1745f044ca2c60baddb6fba76f20964157d5608572050a785d191",
+        "e563ab275e43ff201f8829dc29767fe32e64c2c98107fa348f2e4686a2a9833e",
+        "ced135e2cbc77d0ea6552395b641c537e86c8487679c6e0032af1151bca1bae3",
+        "e8a76ea3320f1da78b50d07833dbe216089e8b4dbc593dd079723ac22cb6bd26",
+        "12ec798256c95e72792087a41f1b15925f83b867f6ad6e5d5b67619190b49814",
+        "0db99d675803a09a26a6c499587e54e9eb51d74c145428842dd61d921304fac6",
+        "e960142be0e0e053fd56dd891562a806fe19edc86c19d462c29a17783439736d",
+        "aefe59ff7fb1bc5933c7bde02e021431f52e7fefd32fc458150ea1d16a5e9a13",
+        "d1965f740491992859467b51a7d8a3084c0f0e6cdc19372b98a645d97b0475bc",
+    ],
+    "plan_kind": [
+        "rebuild", "delta", "delta", "delta", "delta", "delta", "delta", "delta",
+        "delta", "delta", "delta", "delta", "delta", "delta", "delta", "delta",
+        "delta", "delta", "delta", "delta", "delta", "delta", "delta", "delta",
+        "delta", "delta", "delta", "delta", "delta", "delta",
+    ],
+    "upload_bytes": [
+        3948544, 356864, 278656, 184448, 94336, 184448, 94336, 147584,
+        94336, 184448, 147584, 209024, 94336, 184448, 94336, 184448,
+        94336, 168064, 94336, 168064, 94336, 168064, 94336, 168064,
+        94336, 184448, 106624, 192640, 94336, 147584,
+    ],
+    "plan_counters": [1, 0, 2849],
+    "ell": {
+        "fill_supersteps": 10,
+        "supersteps": [54, 627, 100],
+        "sha256": [
+            "b2d0e40063f3a035f70e2878326c0f14040a19f2e650b7414468bc9482a9bc19",
+            "c3b8a21a469334217f3f1df72caa8022030469f3d8bdf4b2a54efa5cc88e5d41",
+            "92c747b61b675ae9a3b7271a4cf7596f6aca2bd327da653d15c2a4d90f494615",
+        ],
+    },
 }
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
@@ -1814,6 +1915,194 @@ def phase_ladder(dev):
     return launches
 
 
+def pctl(xs, q):
+    """The q-th percentile of xs (numpy's linear interpolation)."""
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+#: the churn phase's spans; "solve" is RoundTiming.solve_s, which also
+#: holds the backend's dispatch (the CSR attempt runs there)
+CHURN_SPANS = ("graph_export", "delta_pack", "delta_upload", "plan_upload",
+               "backend_solve", "decode", "solve")
+
+
+def phase_churn(dev):
+    """bench.py's churn config at 10k x 1k on cuda: the three export arms
+    (drivers/churn.py), 6 warm-up + 24 measured rounds each, round-robin
+    (`drive_arms`: the arms' placements equal every round, the resident
+    mirror and plan parity checks every round); each arm's supersteps,
+    warm scope and placements' sha256 equal to the JAX package's
+    (REF_CHURN), the resident arm's plan sync kind and bytes too. No
+    hand-written kernel runs on this path (the scan-CSR solve is plain
+    PyTorch on the card, as the JAX package runs it as XLA)."""
+    from ksched_tpu_torch.drivers.churn import ARMS, CHURN, ChurnArm, drive_arms
+    from ksched_tpu_torch.obs import SpanTracer
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+
+    ref = REF_CHURN
+    warmup = CHURN["warmup"]
+    mcmf_loop.launches = transport_loop.launches = transport_loop_tiered.launches = 0
+    t0 = time.perf_counter()
+    arms = [ChurnArm(label, device=dev) for label in ARMS]
+    for a in arms:
+        check(a.solver.device.type == "cuda", f"churn {a.label}: solver on {a.solver.device}")
+        check(a.fill_supersteps == ref["fill_supersteps"],
+              f"churn {a.label} fill: supersteps {a.fill_supersteps}")
+        say(f"churn {a.label} fill: supersteps={a.fill_supersteps} fill_s={a.fill_s:.3f}")
+    res = arms[-1].sched.solver.resident
+    check(res is not None and res.device.type == "cuda" and res.d_cap.is_cuda,
+          "churn: the resident arm's mirror is not on the card")
+    spans = {a.label: [] for a in arms}
+    with SpanTracer() as tracer:
+        mark = [tracer.mark()]
+
+        def on_round(a, rec):
+            r = rec["round"]
+            per = {}
+            for ev in tracer.events_since(mark[0]):
+                per[ev["name"]] = per.get(ev["name"], 0.0) + ev["dur"] / 1e3
+            # the round's solve phase (export, the backend's dispatch,
+            # which runs the CSR attempt, completion and decode)
+            per["solve"] = a.sched.last_timing.solve_s * 1e3
+            spans[a.label].append(per)
+            got = {k: rec[k] for k in ("supersteps", "warm_scope", "sha256")}
+            if a.label == "device_resident":
+                got.update(plan_kind=rec["plan_kind"], upload_bytes=rec["upload_bytes"])
+            for k, v in got.items():
+                check(v == ref[k][r], f"churn {a.label} round {r}: {k}={v}, the "
+                      f"JAX package gives {ref[k][r]}")
+            say(f"churn {a.label} round {r}: wall_ms={rec['wall_ms']:.3f} "
+                f"supersteps={rec['supersteps']} scope={rec['warm_scope']} "
+                f"host_reads={rec['host_reads']} plan={rec['plan_kind']} "
+                f"upload_bytes={rec['upload_bytes']} "
+                f"solver_upload_bytes={rec['solver_upload_bytes']} " + " ".join(
+                    f"{k}_ms={per.get(k, 0.0):.3f}" for k in CHURN_SPANS))
+            mark[0] = tracer.mark()
+
+        recs = drive_arms(arms, on_round=on_round)
+    plan = arms[-1].sched.solver.state.plan
+    counters = [plan.layout_rebuilds, plan.region_overflows, plan.region_relocations]
+    check(counters == ref["plan_counters"], f"churn plan counters {counters}")
+    for a in arms:
+        m = recs[a.label][warmup:]
+        wall = [x["wall_ms"] for x in m]
+        sp = spans[a.label][warmup:]
+        # bytes copied to the card: the mirror's records (resident arm)
+        # plus what the solver uploaded itself (host arms)
+        up = sum((x["upload_bytes"] or 0) + x["solver_upload_bytes"] for x in m) / len(m)
+        say(f"churn {a.label}: {len(m)} measured rounds wall_ms p50={pctl(wall, 50):.3f} "
+            f"p99={pctl(wall, 99):.3f} mean={sum(wall) / len(wall):.3f} "
+            f"host_reads_p50={pctl([x['host_reads'] for x in m], 50):.0f} "
+            f"bytes_per_round={up:.0f} " + " ".join(
+                f"{k}_p50_ms={pctl([s.get(k, 0.0) for s in sp], 50):.3f}"
+                for k in CHURN_SPANS))
+    launches = mcmf_loop.launches + transport_loop.launches + transport_loop_tiered.launches
+    check(launches == 0, f"churn: {launches} kernel launches on a path with none")
+    say(f"churn: 3 arms x {warmup + CHURN['rounds']} rounds equal to the JAX package's, "
+        f"plan counters {counters}, {time.perf_counter() - t0:.1f} s")
+
+
+def phase_mega_resident(dev):
+    """W(1000, 10000) through make_backend("mega") on the device-resident
+    export, rounds 0-2: each round's values equal REF_MEGA["W"] (the JAX
+    package's resident and host mega rounds are the same values), every
+    B3 launch reading the mirror's own cap, scaled-cost and supply
+    tensors, and round 2's solve re-solved by the plain version with the
+    same bits and timed (`phase_timing_mcmf`). Returns B3's launches on
+    this path, the worst error and that solve's timing."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers import whare_mixed_rounds
+    from ksched_tpu_torch.obs import SpanTracer
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+    from ksched_tpu_torch.solver.select import make_backend
+
+    backend = make_backend("mega", device=dev)
+    mcmf_loop.launches = 0
+    cap_ptr = None
+    with Recorder(ops, "mcmf_solve") as rec, SpanTracer() as tracer:
+        seen = 0
+        mark = tracer.mark()
+        t0 = time.perf_counter()
+        for r, sched, placed in whare_mixed_rounds(1000, 10000, backend,
+                                                   device_resident=True):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res = sched.solver.resident
+            mega_round_line("W-mega-resident(1000,10000)", r, placed, backend, sched,
+                            rec, seen, wall)
+            say_spans(tracer, mark)
+            say(f"  resident: upload={res.last_upload_kind} "
+                f"upload_bytes={res.last_upload_bytes} arc_records={res.last_arc_records} "
+                f"node_records={res.last_node_records}")
+            check_mega_round("W", r, placed, backend, sched)
+            check(len(rec.calls) > seen, f"W-mega-resident round {r} launched no kernel")
+            check(res._scaled is not None and res._scaled[0] == res.version,
+                  f"W-mega-resident round {r}: no scaled cost of this refresh")
+            want = (res.d_cap.data_ptr(), res._scaled[1].data_ptr(),
+                    res.d_excess.data_ptr())
+            check(mcmf_loop.last_inputs == want,
+                  f"W-mega-resident round {r}: B3 did not read the mirror's tensors")
+            cap_ptr = cap_ptr or want[0]
+            check(want[0] == cap_ptr, f"W-mega-resident round {r}: cap re-uploaded")
+            res.parity_check()
+            seen = len(rec.calls)
+            if r == 2:
+                break
+            mark = tracer.mark()
+            t0 = time.perf_counter()
+    launches = mcmf_loop.launches
+    check(launches == len(rec.calls) >= 3, f"W-mega-resident: {launches} launches")
+    check(backend.fallback.last_supersteps == 0, "MegaSolver delegated to the CSR fallback")
+    check(backend._prev_dev is not None, "the warm flow did not stay on the card")
+    c = rec.calls[-1]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = mcmf_loop_plain(*c["args"], **c["kw"])
+    end.record()
+    torch.cuda.synchronize()
+    err = max_abs_diff(c["out"], plain)
+    say(f"W-mega-resident round 2 solve: steps={int(c['out'][1])} "
+        f"kernel_ms={c['events'][0].elapsed_time(c['events'][1]):.4f} "
+        f"plain_ms={start.elapsed_time(end):.1f} max_abs_err={err}")
+    check(int(c["out"][1]) == REF_MEGA["W"]["supersteps"][2],
+          "the re-solved resident solve is not round 2's")
+    check(same_bits(c["out"], plain), "W-mega-resident round 2: kernel != plain")
+    c["sweeps"] = mcmf_loop_plain.sweeps
+    timing = phase_timing_mcmf([c], [0], [start.elapsed_time(end)],
+                               tag="W-mega-resident round 2 mcmf", barrier=False)
+    say(f"W-mega-resident: {launches} mcmf kernel launches")
+    return launches, err, timing
+
+
+def phase_ell(dev):
+    """make_backend("ell") on the churn config's device-resident export:
+    the fill and 3 rounds, supersteps and placements equal to the JAX
+    package's EllSolver's (REF_CHURN["ell"]). No hand-written kernel:
+    the JAX package runs this solve as XLA."""
+    from ksched_tpu_torch.drivers.churn import ChurnArm
+    from ksched_tpu_torch.solver.ell_solver import EllSolver
+    from ksched_tpu_torch.solver.select import make_backend
+
+    ref = REF_CHURN["ell"]
+    backend = make_backend("ell", device=dev)
+    check(isinstance(backend, EllSolver) and backend.device.type == "cuda",
+          "make_backend('ell') on cuda")
+    arm = ChurnArm("device_resident", backend=backend)
+    check(arm.fill_supersteps == ref["fill_supersteps"],
+          f"ell fill: supersteps {arm.fill_supersteps}")
+    say(f"ell fill: supersteps={arm.fill_supersteps} fill_s={arm.fill_s:.3f}")
+    for r in range(len(ref["supersteps"])):
+        rec = arm.drive_round(r)
+        say(f"ell round {r}: wall_ms={rec['wall_ms']:.3f} supersteps={rec['supersteps']} "
+            f"upload_bytes={rec['upload_bytes']}")
+        check((rec["supersteps"], rec["sha256"]) == (ref["supersteps"][r], ref["sha256"][r]),
+              f"ell round {r}: differs from the JAX package's EllSolver")
+    check(backend._prev_dev is not None, "ell: the warm flow did not stay on the card")
+    arm.sched.solver.resident.parity_check()
+
+
 def mcmf_bound_ms(c, steps, sweeps):
     """(bytes bound, operations bound) of one captured mcmf solve."""
     (cap, cost, supply, flow0, eps, e_arc, e_sign, e_src, e_hs, e_he,
@@ -1828,11 +2117,11 @@ def mcmf_bound_ms(c, steps, sweeps):
     return bound_ms(nbytes, ops_n)
 
 
-def phase_timing_mcmf(calls, picked, plain_ms, reps=3):
+def phase_timing_mcmf(calls, picked, plain_ms, reps=3, tag="mcmf", barrier=True):
     """The mcmf kernel's time at the re-solved captured solves (CUDA
     events), beside its plain version's and its bound: its grid, the
     grid barriers it ran per superstep, its time per superstep; then
-    the grid barrier alone at that grid."""
+    (`barrier`) the grid barrier alone at that grid."""
     from ksched_tpu_torch.ops.mcmf import barrier_probe_ms, mcmf_loop
 
     tot_k = tot_p = tot_b = 0.0
@@ -1843,7 +2132,7 @@ def phase_timing_mcmf(calls, picked, plain_ms, reps=3):
         b_bytes, b_ops = mcmf_bound_ms(c, steps, c["sweeps"])
         k_ms = timed_ms(lambda: mcmf_loop(*c["args"], **c["kw"]), reps)
         blocks, barriers = mcmf_loop.last_blocks, int(mcmf_loop.last_barriers)
-        say(f"timing mcmf solve {i} R={c['args'][13]} steps={steps} "
+        say(f"timing {tag} solve {i} R={c['args'][13]} steps={steps} "
             f"sweeps={c['sweeps']} blocks={blocks} barriers={barriers} "
             f"barriers_per_step={barriers / max(steps, 1):.3f}: kernel_ms={k_ms:.4f} "
             f"plain_ms={plain_ms[i]:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
@@ -1855,12 +2144,12 @@ def phase_timing_mcmf(calls, picked, plain_ms, reps=3):
         by["bytes"] += b_bytes
         by["operations"] += b_ops
     n = 10_000
-    for blocks in sorted({1, mcmf_loop.last_blocks}):
+    for blocks in sorted({1, mcmf_loop.last_blocks}) if barrier else ():
         barrier_probe_ms(calls[0]["args"][0].device, blocks, n)  # warm-up
         ms = barrier_probe_ms(calls[0]["args"][0].device, blocks, n)
         say(f"timing mcmf grid barrier alone: blocks={blocks} "
             f"us_per_barrier={1e3 * ms / n:.4f} ({n} barriers in {ms:.3f} ms)")
-    return tot_k, tot_p, tot_b, max(by, key=by.get)
+    return tot_k, tot_p, tot_b, by
 
 
 def main() -> int:
@@ -1891,31 +2180,59 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
 
+    last = [time.perf_counter()]
+
+    def lap(what):
+        """Print the seconds since the previous lap: each phase's cost."""
+        now = time.perf_counter()
+        say(f"phase time: {what} {now - last[0]:.1f} s (total {now - t_start:.1f} s)")
+        last[0] = now
+
     parity_err = phase_parity(dev)
+    lap("transport parity")
     phase_reference(dev)
     launches, main_err, calls = phase_main(dev)
     k_ms, p_ms, b_ms, bound_by = phase_timing(calls)
+    lap("W(20,200), W(1000,10000) and its timing")
     t_err = phase_parity_tiered(dev)
     cluster, tasks, t_launches, b1_bulk, t_calls, picked, plain_ms, t_main_err = (
         phase_device_bulk(dev))
     phase_steady(dev, cluster, tasks)
     tk_ms, tp_ms, tb_ms, t_bound_by = phase_timing_tiered(t_calls, picked, plain_ms)
     say(f"transport launches on the coco50k path: {b1_bulk}")
+    lap("tiered parity, device bulk, steady and tiered timing")
     (tier_b1, tier_b2), tier_err = phase_tiers(dev)
+    lap("coco50k-preempt")
     (q_b1, _q_b2), q_err = phase_quincy(dev)
+    lap("quincy10k")
     say(f"launches on the coco50k-preempt steady path: transport {tier_b1}, "
         f"transport_tiered {tier_b2}; on the quincy10k steady path: transport {q_b1}")
     w_b1 = phase_suite_bulk(dev)
+    lap("whare-hetero, ref100")
     g_b1, g_err, (g_k, g_p, g_b, _g_by) = phase_gtrace(dev)
+    lap("gtrace cells")
     h_b1 = phase_gtrace_host(dev)
+    lap("gtrace12k-host")
     mb_b1, mb_err = phase_multiblock(dev)
+    lap("quincy10k-multiblock")
     say(f"transport launches: whare-hetero steady {w_b1}, gtrace12k-coco {g_b1}, "
         f"gtrace12k-host {h_b1}, quincy10k-multiblock {mb_b1}")
     m_err = phase_parity_mcmf(dev)
+    lap("mcmf parity")
     m_launches, m_main_err, m_calls, m_picked, m_plain_ms = phase_mega_main(dev)
+    lap("W-mega")
     p_launches = phase_ladder(dev)
-    mk_ms, mp_ms, mb_ms, m_bound_by = phase_timing_mcmf(m_calls, m_picked, m_plain_ms)
-    say(f"mcmf launches: W-mega {m_launches}, P {p_launches}")
+    lap("P")
+    mk_ms, mp_ms, mb_ms, m_by = phase_timing_mcmf(m_calls, m_picked, m_plain_ms)
+    lap("mcmf timing")
+    mr_launches, mr_err, (mr_k, mr_p, mr_b, mr_by) = phase_mega_resident(dev)
+    lap("W-mega-resident")
+    say(f"mcmf launches: W-mega {m_launches}, P {p_launches}, "
+        f"W-mega-resident {mr_launches}")
+    phase_churn(dev)
+    lap("churn")
+    phase_ell(dev)
+    lap("ell")
 
     kernels = [{
         "name": "transport",
@@ -1946,12 +2263,12 @@ def main() -> int:
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/mcmf.cu",
         "replaces": "ksched_tpu/ops/mcmf_pallas.py:108",
-        "launches": m_launches,
-        "max_abs_err": max(m_err, m_main_err),
-        "ms": mk_ms,
-        "plain_ms": mp_ms,
-        "bound_ms": mb_ms,
-        "bound_by": m_bound_by,
+        "launches": m_launches + mr_launches,
+        "max_abs_err": max(m_err, m_main_err, mr_err),
+        "ms": mk_ms + mr_k,
+        "plain_ms": mp_ms + mr_p,
+        "bound_ms": mb_ms + mr_b,
+        "bound_by": max(m_by, key=lambda k: m_by[k] + mr_by[k]),
         "library_ms": None,
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")

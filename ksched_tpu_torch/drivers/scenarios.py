@@ -32,15 +32,18 @@ def _waves(num_tasks: int):
     return (num_tasks // 10, num_tasks // 40, num_tasks // 40, num_tasks // 40)
 
 
-def whare_mixed_rounds(num_machines: int, num_tasks: int, backend, seed: int = 7):
+def whare_mixed_rounds(num_machines: int, num_tasks: int, backend, seed: int = 7,
+                       device_resident: bool = False):
     """Run Scenario W round by round: yields (round index, scheduler,
     placed count) after each of the four `schedule_all_jobs` rounds.
-    Seeds the id RNG with `seed` first, so ids are reproducible."""
+    Seeds the id RNG with `seed` first, so ids are reproducible.
+    ``device_resident`` keeps the problem on the backend's device
+    between rounds (PlacementSolver)."""
     seed_rng(seed)
     sched, _rmap, jmap, tmap, _root = build_cluster(
         num_machines=num_machines, num_cores=1, pus_per_core=4,
         max_tasks_per_pu=4, backend=backend,
-        cost_model_factory=WhareMapCostModel,
+        cost_model_factory=WhareMapCostModel, device_resident=device_resident,
     )
     seen = set()
     for r, per_job in enumerate(_waves(num_tasks)):

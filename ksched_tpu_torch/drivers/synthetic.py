@@ -159,9 +159,12 @@ def build_cluster(
     backend=None,
     cost_model_factory=None,
     preemption: bool = False,
+    device_resident: bool = False,
 ):
     """Assemble maps + root + scheduler + machines in one call. Returns
-    (scheduler, resource_map, job_map, task_map, root)."""
+    (scheduler, resource_map, job_map, task_map, root).
+    ``device_resident`` keeps the solver's problem on the backend's
+    device between rounds (PlacementSolver)."""
     resource_map = ResourceMap()
     job_map = JobMap()
     task_map = TaskMap()
@@ -179,6 +182,7 @@ def build_cluster(
         cost_model_factory=cost_model_factory,
         backend=backend,
         preemption=preemption,
+        device_resident=device_resident,
     )
     for i in range(num_machines):
         add_machine(

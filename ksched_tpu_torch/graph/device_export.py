@@ -13,9 +13,22 @@ mode.
 Arrays are padded to power-of-two extents so the cluster's growth
 changes shapes rarely.
 
-``problem()`` materializes the lower-bound-folded host FlowProblem,
-rebuilding only the array groups a journal entry actually touched since
-the last materialize (clean rounds return the cached object).
+Two consumers read the per-round mutations:
+
+- ``problem()`` materializes the lower-bound-folded host FlowProblem,
+  rebuilding only the array groups a journal entry actually touched
+  since the last materialize (clean rounds return the cached object);
+- ``DeviceResidentState`` mirrors the folded arrays as persistent
+  tensors on the card: the round's dirty slots/nodes are packed on the
+  host into flat int32 delta records and applied by one scatter per
+  array (`delta_apply`), so after the initial full upload only
+  delta-sized records cross the host/device boundary. The mirror is
+  rebuilt only when a pow2 bucket grows or `full_build` reassigns the
+  slot table.
+
+Port of ksched_tpu/graph/device_export.py. Not ported: the sharded plan
+mirror (`enable_sharded_plan`, ROADMAP item 12) and the auditor's
+`plan_fingerprints` (item 9).
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
+import torch
 
 from .changes import AddNodeChange, Change, ChangeArcChange, NewArcChange, RemoveNodeChange
 from .flowgraph import FlowGraph
@@ -50,9 +64,10 @@ class FlowProblem:
     cost: np.ndarray  # int32[M]
     flow_offset: np.ndarray  # int32[M] folded lower bounds
     num_arcs: int  # live arc slots (<= len(src))
-    #: slot-stable CSR plan handle; always None in this package (the
-    #: scan-CSR rung that consumes it is not ported yet) — kept so the
-    #: field set matches ksched_tpu's FlowProblem
+    #: slot-stable CSR plan handle (graph/slot_plan.SlotPlanState) when
+    #: the problem came from a DeviceGraphState; None for plain
+    #: array-built problems (bulk, tests) — consumers that don't know
+    #: about it (cpu_ref, ell, mega) just ignore it
     plan: object = None
     #: cheap endpoint-structure generation key
     #: (state uid, rebuild_count, n_cap, m_cap, endpoint_gen): two
@@ -156,10 +171,16 @@ class DeviceGraphState:
         #: keyed on plan_key() skip their endpoint scans on clean rounds
         self.endpoint_gen = 0
         self._uid = next(_STATE_UIDS)
+        #: slot-stable CSR plan (graph/slot_plan.py): an inert shell
+        #: until a slot-stable consumer calls plan.ensure_built(); after
+        #: that the _set_arc hooks keep it in sync per endpoint change
+        from .slot_plan import SlotPlanState
+
+        self.plan = SlotPlanState(self)
         # -- mutation tracking ------------------------------------------
         # The problem() cache needs only "did anything in this group
-        # change" booleans; the touched slot/node sets are kept for a
-        # device-resident mirror (drain_dirty), which is not ported yet.
+        # change" booleans; the device-resident mirror needs the exact
+        # touched slots/nodes to pack delta records from.
         self._dirty_slots: Set[int] = set()
         self._dirty_nodes: Set[int] = set()
         self._cache: Optional[FlowProblem] = None
@@ -188,7 +209,7 @@ class DeviceGraphState:
     def drain_dirty(self) -> Tuple[np.ndarray, np.ndarray]:
         """The slots/nodes touched since the last drain, sorted (set
         order is not deterministic; packed records must be), and clear
-        them (the hook a device-resident mirror packs its delta from)."""
+        them. Consumed by DeviceResidentState.refresh()."""
         slots = np.sort(np.fromiter(self._dirty_slots, np.int32, len(self._dirty_slots)))
         nodes = np.sort(np.fromiter(self._dirty_nodes, np.int32, len(self._dirty_nodes)))
         self._dirty_slots.clear()
@@ -209,6 +230,7 @@ class DeviceGraphState:
         self.cost = np.zeros(self.m_cap, dtype=np.int32)
         self.fold = np.zeros(self.n_cap, dtype=np.int64)
         self.generation += 1
+        self.plan.invalidate()
 
     def plan_key(self) -> Tuple:
         """Endpoint-structure generation key for this state's current
@@ -244,6 +266,7 @@ class DeviceGraphState:
         self.fold = np.concatenate([self.fold, np.zeros(new_cap - self.n_cap, np.int64)])
         self.n_cap = new_cap
         self.generation += 1
+        self.plan.invalidate()  # regions must cover the new rows
         # shapes changed: every cached materialization is stale
         self._cache = None
         self._cache_nodes_ok = False
@@ -259,6 +282,7 @@ class DeviceGraphState:
             setattr(self, name, np.concatenate([arr, np.zeros(pad, arr.dtype)]))
         self.m_cap = new_cap
         self.generation += 1
+        self.plan.invalidate()  # entry budget + inv_order extent stale
         self._cache = None
         self._cache_nodes_ok = False
         self._cache_arcs_ok = False
@@ -277,6 +301,7 @@ class DeviceGraphState:
         low0 = int(self.low[slot]) if slot is not None else 0
         if cap == 0 and low == 0:
             if slot is not None:
+                self.plan.slot_freed(slot, src, dst)
                 self.endpoint_gen += 1
                 self.cap[slot] = 0
                 self.low[slot] = 0
@@ -295,6 +320,7 @@ class DeviceGraphState:
         if slot is None:
             slot = self._take_slot()
             self._arc_slot[key] = slot
+            self.plan.slot_assigned(slot, src, dst)
             self.endpoint_gen += 1
         if low != low0:
             # fold delta: an arc (src, dst) with lower bound L
@@ -379,6 +405,7 @@ class DeviceGraphState:
             cost=cost,
             flow_offset=flow_offset,
             num_arcs=self._num_slots,
+            plan=self.plan,
             plan_key=self.plan_key(),
         )
         self._cache_nodes_ok = True
@@ -386,3 +413,411 @@ class DeviceGraphState:
         return self._cache
 
 
+
+
+# ---------------------------------------------------------------------------
+# Device-resident mirror: persistent tensors + packed-record delta scatter
+# ---------------------------------------------------------------------------
+
+#: int32 columns of one packed arc delta record:
+#: (slot, src, dst, folded cap, cost). flow_offset stays host-only: no
+#: solver reads it on the device (decode adds it back on the host).
+ARC_RECORD_COLS = 5
+#: int32 columns of one packed node delta record: (node, folded excess)
+NODE_RECORD_COLS = 2
+#: smallest padded record count: tiny deltas share one bucket
+MIN_RECORD_BUCKET = 8
+
+
+def pad_record_count(k: int) -> int:
+    """Pow2 bucket for a delta-record count (>= 1 so an empty delta
+    still has a well-formed, idempotent record to ship)."""
+    return max(next_pow2(max(k, 1)), MIN_RECORD_BUCKET)
+
+
+def delta_apply(excess, src, dst, cap, cost, arc_rec, node_rec):
+    """Apply a round's packed delta records (int32 tensors on the
+    mirror's device) to the persistent tensors; returns the new
+    (excess, src, dst, cap, cost).
+
+    excess, cap and cost are updated in place: the JAX package donates
+    them to its delta program. src and dst are not donated there: the
+    pre-delta endpoint tensors stay alive as the warm-flow masks
+    (`device_warm_flow`) and as the solvers' last-solve endpoints, so
+    here they get new tensors (clone, then scatter). Updating them in
+    place would rewrite the tensors a solver compares against and pass
+    every arc through its warm mask.
+
+    Records are pow2-padded by repeating a real record (or, for an empty
+    delta, re-writing slot/node 0 with its current values): duplicate
+    indices carry equal values, so the scatter order cannot matter."""
+    nid = node_rec[:, 0].long()
+    excess.index_copy_(0, nid, node_rec[:, 1].contiguous())
+    slot = arc_rec[:, 0].long()
+    src = src.clone().index_copy_(0, slot, arc_rec[:, 1].contiguous())
+    dst = dst.clone().index_copy_(0, slot, arc_rec[:, 2].contiguous())
+    cap.index_copy_(0, slot, arc_rec[:, 3].contiguous())
+    cost.index_copy_(0, slot, arc_rec[:, 4].contiguous())
+    return excess, src, dst, cap, cost
+
+
+def device_warm_flow(prev_flow, src_prev, dst_prev, src, dst, cap):
+    """The previous round's flow kept where the arc endpoints are
+    unchanged (compared with the endpoint tensors the solver captured at
+    its last successful solve) and clipped to the new capacities:
+    the host path's ``np.where(same, minimum(prev, cap), 0)``."""
+    same = (src_prev == src) & (dst_prev == dst)
+    return torch.where(same, torch.minimum(prev_flow, cap), 0).to(torch.int32)
+
+
+@dataclass
+class DeviceResidentProblem(FlowProblem):
+    """A FlowProblem whose folded arrays also live as persistent tensors
+    on the card. The host arrays stay populated (decode and the
+    objective read them); device-aware solvers read the ``d_*`` tensors
+    instead of uploading."""
+
+    d_excess: object = None  # int32[n_cap] folded supply
+    d_src: object = None  # int32[m_cap]
+    d_dst: object = None  # int32[m_cap]
+    d_cap: object = None  # int32[m_cap] folded residual bound
+    d_cost: object = None  # int32[m_cap] UNSCALED costs
+    #: scatter-maintained slot-stable plan tensors in _solve_mcmf order
+    #: (graph/slot_plan.py), or None while the plan is inactive
+    d_plan: object = None
+    resident: object = None  # owning DeviceResidentState
+    version: int = 0
+
+    def device_scaled_cost(self):
+        """Costs pre-scaled by the node count (the general-graph
+        solvers' exactness convention), computed on the card once per
+        refresh and cached on the owning resident state."""
+        return self.resident.scaled_cost(self)
+
+
+def resident_solver_inputs(problem, prev_flow, prev_src, prev_dst, warm_start,
+                           device):
+    """The shared device-resident solve prologue of the general-graph
+    backends (jax/ell/mega) on `device`: the solve's (cap, scaled cost,
+    supply) read straight from the persistent tensors, and the warm flow
+    derived on the card from the solver's previous flow, masked against
+    the endpoint tensors it captured at its last successful solve.
+    Returns ``(dev_args, flow0, warm)``; raises ValueError when the
+    mirror lives on another device than the solver."""
+    on = problem.d_cap.device
+    if on.type != device.type or device.index not in (None, on.index):
+        raise ValueError(f"a device-resident problem on {problem.d_cap.device} "
+                         f"handed to a solver on {device}")
+    m = problem.d_cap.shape[0]
+    dev_args = (problem.d_cap, problem.device_scaled_cost(), problem.d_excess)
+    warm = (
+        warm_start
+        and prev_flow is not None
+        and prev_flow.shape[0] == m
+        and prev_src is not None
+        and prev_src.shape[0] == m
+    )
+    if warm:
+        flow0 = device_warm_flow(prev_flow, prev_src, prev_dst,
+                                 problem.d_src, problem.d_dst, problem.d_cap)
+    else:
+        flow0 = torch.zeros(m, dtype=torch.int32, device=problem.d_cap.device)
+    return dev_args, flow0, warm
+
+
+def _upload(x: np.ndarray, device) -> torch.Tensor:
+    """A tensor on `device` that owns its memory (never a view of the
+    host array: the mirror is updated in place)."""
+    return torch.tensor(x, device=device)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _bounded_diff(what: str, got: np.ndarray, want: np.ndarray, k: int = 8):
+    """AssertionError naming the first `k` indices where `got` differs
+    from `want`."""
+    if got.shape != want.shape:
+        return AssertionError(f"{what}: shape {got.shape}, host {want.shape}")
+    idx = np.flatnonzero(got != want)[:k]
+    return AssertionError(
+        f"{what} differs from the host at {idx.tolist()}: device "
+        f"{got[idx].tolist()}, host {want[idx].tolist()}")
+
+
+class DeviceResidentState:
+    """Persistent mirror, on `device`, of a DeviceGraphState's folded
+    problem arrays.
+
+    ``refresh()`` (once per round, after the journal is applied on the
+    host) packs the touched slots/nodes into flat int32 records, ships
+    only those bytes and scatters them into the tensors. The mirror is
+    rebuilt wholesale only when ``full_build`` reassigned the slot table,
+    the arc pow2 bucket grew (m_cap), or the node bucket grew (n_cap;
+    node side only). ``last_upload_bytes`` / ``last_upload_kind`` give
+    the exact bytes that crossed to the card this refresh, plan records
+    included. Entry points default to the card and raise without one.
+    """
+
+    def __init__(self, state: DeviceGraphState, device="cuda") -> None:
+        from ..utils.device import resolve_device
+
+        self.state = state
+        self.device = resolve_device(device)
+        self.d_excess = None
+        self.d_src = None
+        self.d_dst = None
+        self.d_cap = None
+        self.d_cost = None
+        self._rebuild_count = -1
+        self._n_cap = -1
+        self._m_cap = -1
+        self.version = 0
+        self.last_upload_bytes = 0
+        self.last_upload_kind = "full_build"
+        self.last_arc_records = 0
+        self.last_node_records = 0
+        self._scaled = None  # (version, scaled-cost tensor)
+        # ---- slot-stable plan mirror (graph/slot_plan.py) ------------
+        self.d_p_arc = None
+        self.d_p_sign = None
+        self.d_p_src = None
+        self.d_p_dst = None
+        self.d_inv = None
+        #: boundary statics: mirror-owned copies (updated in place when a
+        #: relocation rewires them, so never the plan's upload cache)
+        self.d_seg = None
+        self.d_isstart = None
+        self.d_first = None
+        self.d_last = None
+        self.d_nonempty = None
+        self._plan_gen = -1  # layout_gen mirrored
+        self._plan_ver = -1  # value_version mirrored
+        self.last_plan_kind = "none"  # none | rebuild | delta | clean
+        self.last_plan_bytes = 0
+        self.last_plan_records = 0
+
+    # -- packing -----------------------------------------------------------
+
+    def _pack_arcs(self, slots: np.ndarray) -> np.ndarray:
+        st = self.state
+        ka = len(slots)
+        rec = np.zeros((pad_record_count(ka), ARC_RECORD_COLS), np.int32)
+        if ka:
+            low = st.low[slots]
+            rec[:ka, 0] = slots
+            rec[:ka, 1] = st.src[slots]
+            rec[:ka, 2] = st.dst[slots]
+            rec[:ka, 3] = st.cap[slots] - low
+            rec[:ka, 4] = st.cost[slots]
+            rec[ka:] = rec[0]  # idempotent pad: repeat a real record
+        else:
+            rec[:, 1] = st.src[0]
+            rec[:, 2] = st.dst[0]
+            rec[:, 3] = st.cap[0] - st.low[0]
+            rec[:, 4] = st.cost[0]
+        return rec
+
+    def _pack_nodes(self, nodes: np.ndarray) -> np.ndarray:
+        st = self.state
+        kn = len(nodes)
+        rec = np.zeros((pad_record_count(kn), NODE_RECORD_COLS), np.int32)
+        if kn:
+            rec[:kn, 0] = nodes
+            rec[:kn, 1] = (st.excess[nodes] + st.fold[nodes]).astype(np.int32)
+            rec[kn:] = rec[0]
+        else:
+            rec[:, 1] = np.int32(int(st.excess[0]) + int(st.fold[0]))
+        return rec
+
+    # -- refresh -----------------------------------------------------------
+
+    def _full_upload(self, problem: FlowProblem, arcs_too: bool) -> int:
+        dev = self.device
+        self.d_excess = _upload(problem.excess.astype(np.int32), dev)
+        nbytes = _nbytes(self.d_excess)
+        if arcs_too:
+            self.d_src = _upload(problem.src, dev)
+            self.d_dst = _upload(problem.dst, dev)
+            self.d_cap = _upload(problem.cap, dev)
+            self.d_cost = _upload(problem.cost.astype(np.int32), dev)
+            nbytes += sum(_nbytes(t) for t in
+                          (self.d_src, self.d_dst, self.d_cap, self.d_cost))
+        return nbytes
+
+    def _apply(self, arc_rec: np.ndarray, node_rec: np.ndarray) -> None:
+        dev = self.device
+        (self.d_excess, self.d_src, self.d_dst, self.d_cap, self.d_cost) = (
+            delta_apply(self.d_excess, self.d_src, self.d_dst, self.d_cap,
+                        self.d_cost, _upload(arc_rec, dev), _upload(node_rec, dev)))
+
+    def refresh(self) -> DeviceResidentProblem:
+        """Sync the mirror with the host state and return the
+        device-resident problem handle for this round's solve."""
+        from ..obs.spans import span
+
+        st = self.state
+        problem = st.problem()
+        slots, nodes = st.drain_dirty()
+        rebuilt = self._rebuild_count != st.rebuild_count
+        arcs_stale = rebuilt or self._m_cap != st.m_cap or self.d_src is None
+        nodes_stale = rebuilt or self._n_cap != st.n_cap or self.d_excess is None
+        if arcs_stale or nodes_stale:
+            with span("delta_upload",
+                      kind="full_build" if arcs_stale else "node_rebuild"):
+                nbytes = self._full_upload(problem, arcs_too=arcs_stale)
+                if not arcs_stale:
+                    # node bucket grew, arc side still delta-sized: the
+                    # endpoint geometry survives, so warm flow does too
+                    arc_rec = self._pack_arcs(slots)
+                    self._apply(arc_rec, self._pack_nodes(np.zeros(0, np.int32)))
+                    nbytes += arc_rec.nbytes
+            self.last_upload_kind = "full_build"
+            self.last_upload_bytes = nbytes
+        else:
+            with span("delta_pack", arcs=len(slots), nodes=len(nodes)):
+                arc_rec = self._pack_arcs(slots)
+                node_rec = self._pack_nodes(nodes)
+            with span("delta_upload", bytes=arc_rec.nbytes + node_rec.nbytes):
+                self._apply(arc_rec, node_rec)
+            self.last_upload_kind = "delta"
+            self.last_upload_bytes = arc_rec.nbytes + node_rec.nbytes
+        self.last_arc_records = len(slots)
+        self.last_node_records = len(nodes)
+        self._rebuild_count = st.rebuild_count
+        self._n_cap = st.n_cap
+        self._m_cap = st.m_cap
+        self.version += 1
+        d_plan = self._sync_plan()
+        return DeviceResidentProblem(
+            num_nodes=problem.num_nodes,
+            excess=problem.excess,
+            node_type=problem.node_type,
+            src=problem.src,
+            dst=problem.dst,
+            cap=problem.cap,
+            cost=problem.cost,
+            flow_offset=problem.flow_offset,
+            num_arcs=problem.num_arcs,
+            d_excess=self.d_excess,
+            d_src=self.d_src,
+            d_dst=self.d_dst,
+            d_cap=self.d_cap,
+            d_cost=self.d_cost,
+            d_plan=d_plan,
+            resident=self,
+            version=self.version,
+            plan=st.plan,
+            plan_key=st.plan_key(),
+        )
+
+    def enable_sharded_plan(self, mesh, axis: str = "x") -> None:
+        raise NotImplementedError(
+            "the sharded plan mirror is not ported yet (ROADMAP item 12)")
+
+    def _plan_tensors(self) -> Tuple:
+        """The mirrored plan tensors in `_solve_mcmf` order."""
+        return (
+            self.d_p_arc, self.d_p_sign, self.d_p_src, self.d_p_dst,
+            self.d_seg, self.d_isstart, self.d_inv,
+            self.d_first, self.d_last, self.d_nonempty,
+        )
+
+    def _upload_plan_full(self, plan) -> None:
+        """Fresh plan tensors from the host truth (the rebuild path)."""
+        (
+            self.d_p_arc, self.d_p_sign, self.d_p_src, self.d_p_dst,
+            self.d_seg, self.d_isstart, self.d_inv,
+            self.d_first, self.d_last, self.d_nonempty,
+        ) = (_upload(x, self.device) for x in plan.host_args())
+
+    def _scatter_plan_delta(self, plan) -> Tuple[int, int]:
+        """Apply a round's dirty plan records; (bytes, records)."""
+        from ..obs.spans import span
+        from .slot_plan import plan_apply
+
+        recs = plan.drain_records()
+        rec_bytes = sum(r.nbytes for r in recs)
+        with span("plan_upload", kind="delta", bytes=rec_bytes):
+            plan_apply(self._plan_tensors(),
+                       *(_upload(r, self.device) for r in recs))
+        return rec_bytes, sum(len(r) for r in recs)
+
+    def _sync_plan(self):
+        """Mirror the slot-stable plan as persistent tensors. Inactive
+        until a slot-stable consumer enables the plan (so other backends
+        pay nothing); afterwards each round ships only the dirty plan
+        rows / inv entries through `plan_apply`, and the full re-upload
+        survives only on layout rebuilds. Returns the plan tensors in
+        `_solve_mcmf` order, or None while inactive."""
+        from ..obs.spans import span
+
+        plan = self.state.plan
+        self.last_plan_kind = "none"
+        self.last_plan_bytes = 0
+        self.last_plan_records = 0
+        if plan is None or not plan.enabled:
+            return None
+        plan.ensure_built()
+        if self._plan_gen != plan.layout_gen:
+            with span("plan_upload", kind="rebuild"):
+                self._upload_plan_full(plan)
+            plan.clear_pending()
+            self._plan_gen = plan.layout_gen
+            self._plan_ver = plan.value_version
+            self.last_plan_kind = "rebuild"
+            self.last_plan_bytes = plan.values_nbytes() + plan.static_nbytes()
+            self.last_upload_bytes += self.last_plan_bytes
+        elif plan.value_version != self._plan_ver or plan.has_pending:
+            rec_bytes, records = self._scatter_plan_delta(plan)
+            self._plan_ver = plan.value_version
+            self.last_plan_kind = "delta"
+            self.last_plan_bytes = rec_bytes
+            self.last_plan_records = records
+            self.last_upload_bytes += self.last_plan_bytes
+        else:
+            self.last_plan_kind = "clean"
+        return self._plan_tensors()
+
+    def scaled_cost(self, problem: DeviceResidentProblem):
+        """d_cost * num_nodes (int32), computed on the card, cached per
+        refresh."""
+        if self._scaled is None or self._scaled[0] != problem.version:
+            self._scaled = (problem.version,
+                            problem.d_cost * int(problem.num_nodes))
+        return self._scaled[1]
+
+    def parity_check(self) -> None:
+        """Verify the mirror equals the host folded view bit for bit
+        (fetches the tensors; audit/debug). Raises AssertionError naming
+        the first differing indices."""
+        problem = self.state.problem()
+        pairs = (
+            ("excess", self.d_excess, problem.excess.astype(np.int32)),
+            ("src", self.d_src, problem.src),
+            ("dst", self.d_dst, problem.dst),
+            ("cap", self.d_cap, problem.cap),
+            ("cost", self.d_cost, problem.cost.astype(np.int32)),
+        )
+        for name, dev, host in pairs:
+            got = dev.cpu().numpy()
+            if got.dtype != host.dtype or not np.array_equal(got, host):
+                raise _bounded_diff(f"device mirror {name}", got, host)
+
+    def plan_parity_check(self) -> None:
+        """Verify the scatter-maintained plan tensors equal the host plan
+        arrays bit for bit (test/debug)."""
+        plan = self.state.plan
+        if plan is None or not plan.enabled or self._plan_gen < 0:
+            return
+        if plan.needs_rebuild or self._plan_gen != plan.layout_gen or (
+            self._plan_ver != plan.value_version
+        ):
+            return  # mirror legitimately behind (mutations since refresh)
+        names = ("p_arc", "p_sign", "p_src", "p_dst", "seg_start", "is_start",
+                 "inv_order", "node_first", "node_last", "node_nonempty")
+        for name, dev, host in zip(names, self._plan_tensors(), plan.host_args()):
+            got = dev.cpu().numpy()
+            if got.dtype != host.dtype or not np.array_equal(got, host):
+                raise _bounded_diff(f"device plan mirror {name}", got, host)

@@ -226,7 +226,8 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
     count), supply int32[N], eps_init an int; e_* are a MegaPlan's
     int32[R * L] entry tables and fwd_pos each arc's forward entry. A
     CUDA tensor launches the kernel (one cooperative launch, counted in
-    `mcmf_loop.launches`; its grid in `mcmf_loop.last_blocks`, the grid
+    `mcmf_loop.launches`; the data_ptr() of its cap, cost and supply in
+    `mcmf_loop.last_inputs`, its grid in `mcmf_loop.last_blocks`, the grid
     barriers it ran in the int32 device scalar `mcmf_loop.last_barriers`)
     or raises, also when the card refuses the cooperative launch; a CPU
     tensor runs `mcmf_loop_plain`."""
@@ -278,6 +279,7 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
         )
     raise_on(lib, rc, "mcmf")
     mcmf_loop.launches += 1
+    mcmf_loop.last_inputs = (cap.data_ptr(), cost.data_ptr(), supply.data_ptr())
     mcmf_loop.last_blocks = blocks
     mcmf_loop.last_barriers = result[3]
     return f[fwd_pos.long()], result[0], result[1] != 0, result[2] != 0
@@ -285,6 +287,8 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
 
 #: kernel launches since the count was last set to 0
 mcmf_loop.launches = 0
+#: data_ptr() of the last launch's cap, cost and supply arguments
+mcmf_loop.last_inputs = None
 #: blocks of the last launch's grid
 mcmf_loop.last_blocks = 0
 #: grid barriers the last launch ran (an int32 scalar on its card)

@@ -68,6 +68,7 @@ class FlowScheduler:
         cost_model_factory=None,
         backend: Optional[FlowSolver] = None,
         preemption: bool = False,
+        device_resident: bool = False,
     ) -> None:
         self.resource_map = resource_map
         self.job_map = job_map
@@ -98,6 +99,7 @@ class FlowScheduler:
         self.solver = PlacementSolver(
             self.gm,
             backend if backend is not None else make_backend("auto"),
+            device_resident=device_resident,
         )
 
         self.resource_roots: Set[int] = set()  # ids of registered topology roots

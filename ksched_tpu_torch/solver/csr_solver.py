@@ -14,13 +14,18 @@ bit-identical to `_solve_mcmf`'s.
 There is no kernel here: the JAX package runs this solve as XLA, and
 the port runs it as plain PyTorch on the tensors' device, one Python
 iteration (and one host read of the "any node active" flag) per
-superstep. It is the mega backend's fallback and AutoSolver's CSR rung;
-the fused solve is ops/mcmf.py (kernel B3).
+superstep, one read per tightening sweep and a few per solve
+(`_solve_mcmf.reads` counts them). It is the mega backend's fallback
+and AutoSolver's CSR rung; the fused solve is ops/mcmf.py (kernel B3).
 
-Not ported yet: the slot-stable plan consumer (`slot_stable=True`) and
-the device-resident problem branch (ROADMAP item 8), warm-state
-checkpointing (item 9), and the soltel telemetry ring with its
-`warm_price_war` event (item 10).
+Problems from a DeviceGraphState carry a slot-stable plan
+(graph/slot_plan.py), which CsrSolver consumes by default, as the JAX
+package's JaxSolver does; a device-resident problem
+(graph/device_export.py DeviceResidentProblem) is solved on its
+persistent tensors with the warm flow carried on the card.
+
+Not ported yet: warm-state checkpointing (ROADMAP item 9) and the soltel
+telemetry ring with its `warm_price_war` event (item 10).
 """
 
 from __future__ import annotations
@@ -157,12 +162,13 @@ def _solve_mcmf(
 
     cap/cost/flow0 are int32[M] per arc (cost pre-scaled by the node
     count), supply int32[N], eps_init an int or int32 scalar; the plan
-    tensors are a CsrPlan's. use_warm_p=True refits the carried
+    tensors are a CsrPlan's, or with slot_stable=True a SlotPlanState's
+    (graph/slot_plan.py): entry rows in fixed per-node regions with
+    slack, a dead row marked by sign 0 and given residual 0, so it is
+    inert in every reduction. use_warm_p=True refits the carried
     potentials `warm_p` (the Bellman sweeps seeded with d0 = -warm_p)
-    instead of tightening from scratch."""
-    if slot_stable:
-        raise NotImplementedError(
-            "slot-stable CSR plans are not ported yet (ROADMAP item 8)")
+    instead of tightening from scratch. Each host read of a flag or a
+    scalar adds one to `_solve_mcmf.reads`."""
     if telemetry_cap:
         raise NotImplementedError(
             "the soltel telemetry ring is not ported yet (ROADMAP item 10)")
@@ -180,6 +186,9 @@ def _solve_mcmf(
     cap_dst = s_dst[fwd_pos]
 
     def residual(a_flow):
+        if slot_stable:
+            return torch.where(s_sign > 0, s_cap - a_flow,
+                               torch.where(s_sign < 0, a_flow, 0))
         return torch.where(s_sign > 0, s_cap - a_flow, a_flow)
 
     def excess_of(flow):
@@ -205,6 +214,7 @@ def _solve_mcmf(
             best = _seg_min(cand, s_isstart, node_last, node_nonempty, _BIG_D)
             d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
             changed = bool((d2 != d).any())
+            _solve_mcmf.reads += 1
             d, it = d2, it + 1
         return -torch.clamp(d, max=_BIG_D)
 
@@ -237,6 +247,7 @@ def _solve_mcmf(
     eps, steps, done = int(eps_init), 0, False
     while not done and steps < max_supersteps:
         excess = excess_of(flow)
+        _solve_mcmf.reads += 1
         if bool((excess > 0).any()):
             flow, p = superstep(flow, p, eps, excess)
             steps += 1
@@ -248,15 +259,20 @@ def _solve_mcmf(
     dev = cap.device
     converged = done and int(excess_of(flow).abs().max()) == 0
     p_overflow = int(p.abs().max()) >= _P_GUARD
+    _solve_mcmf.reads += 1 + done
     return (
         flow, p, torch.tensor(steps, dtype=_I32, device=dev),
         torch.tensor(converged, device=dev), torch.tensor(p_overflow, device=dev),
     )
 
 
+#: host reads (flags and scalars) of every solve since it was set to 0
+_solve_mcmf.reads = 0
+
+
 class CsrSolver(FlowSolver):
     """Cost-scaling push-relabel over the scan-CSR layout, warm-started
-    across rounds: ksched_tpu's JaxSolver on plain host problems.
+    across rounds: ksched_tpu's JaxSolver.
 
     The warm policy is JaxSolver's. The previous round's flow is carried
     on arcs whose endpoints are unchanged since the last successful
@@ -268,8 +284,16 @@ class CsrSolver(FlowSolver):
     eps 1 within min(4096, max_supersteps) supersteps
     (``restart_budget`` caps a kept-flow attempt and escapes to a fresh
     restart); the last resort is a cold cost-scaling solve from
-    max|cost|·n. Tensors live on ``device`` ("cuda" by default; it
-    raises where there is no card)."""
+    max|cost|·n.
+
+    A problem that carries a maintained slot-stable plan (every
+    DeviceGraphState problem) is solved on it: the device-resident
+    mirror's plan tensors when present, else the plan's own cached
+    upload. Plain array problems keep the host-built CsrPlan. A device-resident problem is solved on its
+    persistent tensors, and the flow, its potentials and the endpoint
+    tensors of the last successful solve stay on the card between
+    rounds. Tensors live on ``device`` ("cuda" by default; it raises
+    where there is no card)."""
 
     def __init__(self, alpha: int = 8, max_supersteps: int = 50_000,
                  warm_start: bool = True, warm_potentials: bool = True,
@@ -286,8 +310,12 @@ class CsrSolver(FlowSolver):
         self.restart_budget = restart_budget
         self.device = resolve_device(device)
         self._prev: Optional[np.ndarray] = None  # previous round's flow
+        self._prev_dev: Optional[torch.Tensor] = None  # same, resident rounds
         self._prev_p: Optional[torch.Tensor] = None  # and its potentials
-        #: endpoints at the LAST SUCCESSFUL SOLVE (the warm mask)
+        #: endpoints at the LAST SUCCESSFUL SOLVE (the warm mask): the
+        #: mirror's tensors on resident rounds, host arrays otherwise
+        self._prev_src_dev: Optional[torch.Tensor] = None
+        self._prev_dst_dev: Optional[torch.Tensor] = None
         self._prev_src_host: Optional[np.ndarray] = None
         self._prev_dst_host: Optional[np.ndarray] = None
         self._plan: Optional[CsrPlan] = None
@@ -297,10 +325,19 @@ class CsrSolver(FlowSolver):
         self._key_solved = None
         self.last_supersteps = 0
         self.last_warm_scope = "cold"  # warm | fresh | cold
+        #: host reads of the last solve's attempts (`_solve_mcmf.reads`)
+        self.last_host_reads = 0
+        #: bytes the last solve copied host -> device: the problem's
+        #: arrays and warm flow, and the plan tensors it (re)uploaded
+        #: (0 on a device-resident problem, whose mirror counts its own)
+        self.last_upload_bytes = 0
 
     def reset(self) -> None:
         self._prev = None
+        self._prev_dev = None
         self._prev_p = None
+        self._prev_src_dev = None
+        self._prev_dst_dev = None
         self._prev_src_host = None
         self._prev_dst_host = None
         self._key_solved = None
@@ -315,28 +352,26 @@ class CsrSolver(FlowSolver):
             plan = build_csr_plan(src, dst, n)
             self._plan = plan
             self._plan_dev = plan.tensors(self.device)
+            self.last_upload_bytes += sum(t.nbytes for t in self._plan_dev)
         self._plan_key = plan_key
         return self._plan_dev
 
-    def _attempt(self, args, flow0, eps, budget, warm_p=None):
+    def _attempt(self, args, flow0, eps, budget, slot_stable, warm_p=None):
         return _solve_mcmf(
             *args[:3], flow0, eps, *args[3:], warm_p=warm_p,
             use_warm_p=warm_p is not None, alpha=self.alpha,
-            max_supersteps=budget,
+            max_supersteps=budget, slot_stable=slot_stable,
         )
 
     def solve_async(self, problem: FlowProblem):
         """Run the warm attempt; complete() escalates if it failed."""
+        self.last_upload_bytes = 0
         n = problem.num_nodes
         m = len(problem.src)
         if m == 0 or problem.num_arcs == 0:
             if (problem.excess > 0).any():
                 raise RuntimeError("infeasible flow problem: supply but no arcs")
             return (problem, None, None)
-        if getattr(problem, "plan", None) is not None or getattr(problem, "d_cap", None) is not None:
-            raise NotImplementedError(
-                "slot-stable plans and device-resident problems are not "
-                "ported yet (ROADMAP item 8)")
         check_finite_costs(problem)
         src = np.asarray(problem.src, np.int32)
         dst = np.asarray(problem.dst, np.int32)
@@ -346,33 +381,60 @@ class CsrSolver(FlowSolver):
                 f"scaled costs overflow int32: max|cost|={max_cost} at {n} nodes; "
                 "rescale cost-model outputs or shrink the graph padding"
             )
+        resident = getattr(problem, "d_cap", None) is not None
+        plan_state = getattr(problem, "plan", None)
+        slot_stable = plan_state is not None
+        if slot_stable:
+            # endpoint churn is already folded into the maintained
+            # layout: the resident mirror's tensors, else the plan's own
+            # upload (re-shipped only when its value_version moved)
+            d_plan = getattr(problem, "d_plan", None)
+            if d_plan is not None:
+                plan_dev = d_plan
+            else:
+                before = plan_state.uploaded_bytes
+                plan_dev = plan_state.device_args(self.device)
+                self.last_upload_bytes += plan_state.uploaded_bytes - before
+        else:
+            plan_dev = self._plan_for(src, dst, n,
+                                      plan_key=getattr(problem, "plan_key", None))
         plan_key = getattr(problem, "plan_key", None)
-        plan_dev = self._plan_for(src, dst, n, plan_key=plan_key)
         keep_flow = True
         if self.journal_scoped_warm and plan_key is not None:
             keep_flow = self._key_solved is not None and plan_key == self._key_solved
-        cap = problem.cap.astype(np.int32)
-        supply = problem.excess.astype(np.int32)
-        cost = problem.cost.astype(np.int32) * np.int32(n)
-        warm = (
-            self.warm_start
-            and keep_flow
-            and self._prev is not None
-            and len(self._prev) == m
-            and self._prev_src_host is not None
-            and len(self._prev_src_host) == m
-        )
-        flow0 = np.zeros(m, dtype=np.int32)
-        if warm:
-            same = (self._prev_src_host == src) & (self._prev_dst_host == dst)
-            if self.journal_scoped_warm and plan_key is None and not same.all():
-                warm = False
-            else:
-                flow0 = np.where(same, np.minimum(self._prev, cap), 0).astype(np.int32)
-        had_state = self._prev is not None
-        self.last_warm_scope = "warm" if warm else ("fresh" if had_state else "cold")
         dev = self.device
-        args = tuple(torch.as_tensor(x, device=dev) for x in (cap, cost, supply)) + plan_dev
+        if resident:
+            from ..graph.device_export import resident_solver_inputs
+
+            dev_args, flow0_dev, warm = resident_solver_inputs(
+                problem, self._prev_dev, self._prev_src_dev,
+                self._prev_dst_dev, self.warm_start and keep_flow, self.device,
+            )
+        else:
+            cap = problem.cap.astype(np.int32)
+            supply = problem.excess.astype(np.int32)
+            cost = problem.cost.astype(np.int32) * np.int32(n)
+            dev_args = tuple(torch.as_tensor(x, device=dev) for x in (cap, cost, supply))
+            warm = (
+                self.warm_start
+                and keep_flow
+                and self._prev is not None
+                and len(self._prev) == m
+                and self._prev_src_host is not None
+                and len(self._prev_src_host) == m
+            )
+            flow0 = np.zeros(m, dtype=np.int32)
+            if warm:
+                same = (self._prev_src_host == src) & (self._prev_dst_host == dst)
+                if self.journal_scoped_warm and plan_key is None and not same.all():
+                    warm = False
+                else:
+                    flow0 = np.where(same, np.minimum(self._prev, cap), 0).astype(np.int32)
+            flow0_dev = torch.as_tensor(flow0, device=dev)
+            self.last_upload_bytes += sum(x.nbytes for x in (cap, cost, supply, flow0))
+        had_state = self._prev is not None or self._prev_dev is not None
+        self.last_warm_scope = "warm" if warm else ("fresh" if had_state else "cold")
+        args = tuple(dev_args) + tuple(plan_dev)
         warm_p_ok = (
             self.warm_potentials
             and warm
@@ -382,19 +444,20 @@ class CsrSolver(FlowSolver):
         budget = min(4096, self.max_supersteps)
         if warm and self.restart_budget is not None:
             budget = min(budget, self.restart_budget)
-        out = self._attempt(args, torch.as_tensor(flow0, device=dev), 1, budget,
+        reads0 = _solve_mcmf.reads
+        out = self._attempt(args, flow0_dev, 1, budget, slot_stable,
                             self._prev_p if warm_p_ok else None)
         cold = max(1, max_cost * n)
-        return (problem, out, (args, cold, warm))
+        return (problem, out, (args, cold, warm, slot_stable, resident, reads0))
 
     def complete(self, pending) -> FlowResult:
         problem, out, rest = pending
         if out is None:
             return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),
                               objective=0, iterations=0)
-        args, eps_cold, warm = rest
+        args, eps_cold, warm, slot_stable, resident, reads0 = rest
         m = len(problem.src)
-        zeros = torch.zeros(m, dtype=_I32, device=self.device)
+        zeros = torch.zeros(m, dtype=_I32, device=args[0].device)
         flow, p, steps, converged, p_overflow = out
         spent = int(steps)
         ok = bool(converged) and not bool(p_overflow)
@@ -402,15 +465,16 @@ class CsrSolver(FlowSolver):
             # restart escape: a warm attempt that blew its budget
             # re-solves fresh (zero flow, tightened prices, eps 1)
             flow, p, steps, converged, p_overflow = self._attempt(
-                args, zeros, 1, min(4096, self.max_supersteps))
+                args, zeros, 1, min(4096, self.max_supersteps), slot_stable)
             spent += int(steps)
             ok = bool(converged) and not bool(p_overflow)
         if not ok:
             flow, p, steps, converged, p_overflow = self._attempt(
-                args, zeros, eps_cold, self.max_supersteps)
+                args, zeros, eps_cold, self.max_supersteps, slot_stable)
             spent += int(steps)
         # every attempt's supersteps: the work this round, not the winner's
         self.last_supersteps = spent
+        self.last_host_reads = _solve_mcmf.reads - reads0
         if bool(p_overflow) or not bool(converged):
             self.reset()  # never reuse the state that failed
         if bool(p_overflow):
@@ -423,6 +487,11 @@ class CsrSolver(FlowSolver):
         flow_np = flow.cpu().numpy()
         if self.warm_start:
             self._prev = flow_np.astype(np.int32)
+            # on resident rounds the flow and the endpoint tensors of
+            # this solve stay on the card for the next warm mask
+            self._prev_dev = flow if resident else None
+            self._prev_src_dev = problem.d_src if resident else None
+            self._prev_dst_dev = problem.d_dst if resident else None
             self._prev_src_host = np.asarray(problem.src, np.int32)
             self._prev_dst_host = np.asarray(problem.dst, np.int32)
             self._key_solved = getattr(problem, "plan_key", None)

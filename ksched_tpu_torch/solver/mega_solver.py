@@ -20,8 +20,11 @@ partner permutation (each entry's reverse twin), segment start and end
 flags, and padding to the [R, MEGA_LANES] tiling, the pad entries one
 inert trailing segment (sign 0, supply 0, partner self).
 
-Not ported yet: the device-resident problem branch (ROADMAP item 8) and
-the soltel telemetry ring (item 10).
+A device-resident problem (graph/device_export.py DeviceResidentProblem)
+whose pow2 extents already meet the kernel's 256 floor is launched on
+the mirror's own tensors (cap, scaled cost, supply) with the warm flow
+derived on the card; smaller ones take the host path. Not ported yet:
+the soltel telemetry ring (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -157,11 +160,18 @@ class MegaSolver(FlowSolver):
         #: plan_key): equal keys skip the O(M) endpoint scans entirely
         self._plan_key = None
         self._fits_ok_for: Optional[FlowProblem] = None
+        self._prev_dev = None  # warm flow on the card (resident rounds)
+        #: endpoint tensors at the LAST SUCCESSFUL SOLVE (resident rounds)
+        self._prev_src_dev = None
+        self._prev_dst_dev = None
         self.last_supersteps = 0
         self.last_refusal = ""
 
     def reset(self) -> None:
         self._prev = None
+        self._prev_dev = None
+        self._prev_src_dev = None
+        self._prev_dst_dev = None
         if self.fallback is not None:
             self.fallback.reset()
 
@@ -239,9 +249,6 @@ class MegaSolver(FlowSolver):
             if (problem.excess > 0).any():
                 raise RuntimeError("infeasible flow problem: supply but no arcs")
             return (problem, None, None, None)
-        if getattr(problem, "d_cap", None) is not None:
-            raise NotImplementedError(
-                "device-resident problems are not ported yet (ROADMAP item 8)")
         check_finite_costs(problem)
         vetted = self._fits_ok_for is problem
         self._fits_ok_for = None
@@ -261,24 +268,41 @@ class MegaSolver(FlowSolver):
         plan_dev = self._plan_for(
             src, dst, n, plan_key=getattr(problem, "plan_key", None)
         )
-        cap = problem.cap.astype(np.int32)
-        supply = problem.excess.astype(np.int32)
-        cost = problem.cost.astype(np.int32) * np.int32(n)
-        args = tuple(
-            torch.as_tensor(_pad_pow2(x), device=self.device)
-            for x in (cap, cost, supply)
+        # a resident handle is consumable as it is only when its pow2
+        # extents already meet _pad_pow2's 256 floor: then the padded
+        # shapes ARE the resident shapes and nothing is re-uploaded
+        resident = (
+            getattr(problem, "d_cap", None) is not None
+            and m >= 256
+            and n >= 256
         )
-        flow0 = np.zeros(m, dtype=np.int32)
-        if self.warm_start and self._prev is not None:
-            f_prev = self._prev
-            if len(f_prev) == m and prev_plan is not None and len(prev_plan.src) == m:
-                same = (prev_plan.src == src) & (prev_plan.dst == dst)
-                flow0 = np.where(same, np.minimum(f_prev, cap), 0).astype(np.int32)
+        if resident:
+            from ..graph.device_export import resident_solver_inputs
+
+            args, flow0, _warm = resident_solver_inputs(
+                problem, self._prev_dev, self._prev_src_dev,
+                self._prev_dst_dev, self.warm_start, self.device,
+            )
+        else:
+            cap = problem.cap.astype(np.int32)
+            supply = problem.excess.astype(np.int32)
+            cost = problem.cost.astype(np.int32) * np.int32(n)
+            args = tuple(
+                torch.as_tensor(_pad_pow2(x), device=self.device)
+                for x in (cap, cost, supply)
+            )
+            flow0 = np.zeros(m, dtype=np.int32)
+            if self.warm_start and self._prev is not None:
+                f_prev = self._prev
+                if len(f_prev) == m and prev_plan is not None and len(prev_plan.src) == m:
+                    same = (prev_plan.src == src) & (prev_plan.dst == dst)
+                    flow0 = np.where(same, np.minimum(f_prev, cap), 0).astype(np.int32)
+            flow0 = _pad_pow2(flow0)
         RL = (self._plan.R, self._plan.L)
-        out = self._launch(args, _pad_pow2(flow0), 1, plan_dev, RL,
+        out = self._launch(args, flow0, 1, plan_dev, RL,
                            min(4096, self.max_supersteps))
         cold = (_pad_pow2(np.zeros(m, dtype=np.int32)), max(1, max_cost * n))
-        return (problem, out, (args, plan_dev, RL, cold), None)
+        return (problem, out, (args, plan_dev, RL, cold, resident), None)
 
     def complete(self, pending) -> FlowResult:
         problem, out, rest, delegated = pending
@@ -293,7 +317,7 @@ class MegaSolver(FlowSolver):
                 flow=np.zeros(len(problem.src), dtype=np.int64),
                 objective=0, iterations=0,
             )
-        args, plan_dev, RL, (f0_cold, eps_cold) = rest
+        args, plan_dev, RL, (f0_cold, eps_cold), resident = rest
         flow, steps, converged, p_overflow = out
         if not (bool(converged) and not bool(p_overflow)):
             flow, steps, converged, p_overflow = self._launch(
@@ -301,6 +325,7 @@ class MegaSolver(FlowSolver):
         self.last_supersteps = int(steps)
         if bool(p_overflow) or not bool(converged):
             self._prev = None
+            self._prev_dev = None
         if bool(p_overflow):
             raise OverflowError("push-relabel potentials approached int32 range")
         if not bool(converged):
@@ -311,6 +336,12 @@ class MegaSolver(FlowSolver):
         flow_np = flow[: len(problem.src)].cpu().numpy()
         if self.warm_start:
             self._prev = flow_np.astype(np.int32)
+            # the kernel's flow lines up with the resident extent only
+            # when no _pad_pow2 padding was applied
+            keep = resident and flow.shape[0] == len(problem.src)
+            self._prev_dev = flow if keep else None
+            self._prev_src_dev = problem.d_src if keep else None
+            self._prev_dst_dev = problem.d_dst if keep else None
         objective = int(
             (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()
         ) + lower_bound_cost(problem)

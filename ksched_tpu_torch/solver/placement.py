@@ -10,7 +10,7 @@ subprocess; here it is a scatter into the flat host arrays
 
 from __future__ import annotations
 
-from ..graph.device_export import DeviceGraphState
+from ..graph.device_export import DeviceGraphState, DeviceResidentState
 from ..graph.graph_manager import GraphManager, TaskMapping
 from ..obs.spans import span
 from .base import FlowSolver
@@ -18,16 +18,29 @@ from .decode import flow_to_mapping
 
 
 class PlacementSolver:
+    """``device_resident=True`` keeps the folded problem arrays live on
+    the card between rounds (graph/device_export.DeviceResidentState, on
+    the backend's device): after the first full upload each round ships
+    only the packed delta records, and device-aware backends consume the
+    handle without uploading anything. Host consumers (decode, the
+    objective) are unaffected: the handle still carries the host
+    arrays."""
+
     def __init__(
         self,
         gm: GraphManager,
         backend: FlowSolver,
         incremental: bool = True,
+        device_resident: bool = False,
     ) -> None:
         self.gm = gm
         self.backend = backend
         self.incremental = incremental
         self.state = DeviceGraphState()
+        self.resident = (
+            DeviceResidentState(self.state, getattr(backend, "device", "cuda"))
+            if device_resident else None
+        )
         self._started = False
         self.last_result = None
 
@@ -54,7 +67,15 @@ class PlacementSolver:
             # Sink excess is maintained outside the journal (reference:
             # graph_manager.go:636-640); sync it before each solve.
             self.state.set_excess(gm.sink_node.id, gm.sink_node.excess)
-            problem = self.state.problem()
+            if self.resident is not None:
+                # pack + scatter this round's delta into the persistent
+                # tensors (delta_pack / delta_upload child spans); the
+                # JAX package's integrity gate runs here (ROADMAP item 9)
+                problem = self.resident.refresh()
+            else:
+                problem = self.state.problem()
+        # the JAX package notes the export's bytes to its device
+        # profiler here (ROADMAP item 10)
         # Task nodes captured NOW: the decode must map the snapshot's
         # tasks, not tasks added while the solve is in flight.
         task_node_ids = [node.id for node in gm.task_to_node.values()]
@@ -72,6 +93,8 @@ class PlacementSolver:
         else:
             result = pending
         self.last_result = result
+        # the JAX package notes the solve to its device profiler here
+        # (ROADMAP item 10)
         gm = self.gm
         with span("decode", tasks=len(task_node_ids)):
             return flow_to_mapping(

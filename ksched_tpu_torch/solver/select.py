@@ -13,13 +13,14 @@ from .base import FlowSolver
 
 
 def make_backend(name: str, device="cuda") -> FlowSolver:
-    """name: "auto" | "jax" | "mega" | "layered" | "ref".
+    """name: "auto" | "jax" | "ell" | "mega" | "layered" | "ref".
 
     - "auto": AutoSolver — the dense transport whenever the graph
       audits as collapsible, else the mcmf kernel (MegaSolver) when the
       graph fits it, else the scan-CSR solve (CsrSolver);
     - "jax": CsrSolver, the scan-CSR solve (the JAX package's
       JaxSolver under the same name);
+    - "ell": EllSolver, the bucketed-ELL layout of the same solve;
     - "mega": MegaSolver on every solve, delegating a graph it refuses
       to a CsrSolver;
     - "layered": LayeredTransportSolver (solve_layered only);
@@ -38,6 +39,10 @@ def make_backend(name: str, device="cuda") -> FlowSolver:
         from .csr_solver import CsrSolver
 
         return CsrSolver(device=dev)
+    if name == "ell":
+        from .ell_solver import EllSolver
+
+        return EllSolver(device=dev)
     if name == "mega":
         from .csr_solver import CsrSolver
         from .mega_solver import MegaSolver
@@ -52,4 +57,4 @@ def make_backend(name: str, device="cuda") -> FlowSolver:
 
         return ReferenceSolver()
     raise ValueError(
-        f"unknown backend {name!r}; want auto | jax | mega | layered | ref")
+        f"unknown backend {name!r}; want auto | jax | ell | mega | layered | ref")

@@ -5,8 +5,11 @@ grid, across blocks) against their plain PyTorch versions, bit for bit,
 Scenario W(20, 200) through the default cuda backend and through
 "mega", Scenario P(20, 200) on the card against the CPU, and the
 device-resident round on the card against the same round on the CPU,
-three-tier preemption, group mode and trace replay included, and the
-transport kernel at the trace replay's [4, 12,544].
+three-tier preemption, group mode and trace replay included, the
+transport kernel at the trace replay's [4, 12,544], and the
+device-resident event rounds (bench.py's churn config at 400 x 40, and
+"mega" with the mcmf kernel reading the mirror's tensors) against the
+CPU.
 Marked `cuda`; every test skips where no CUDA device is present.
 Imports nothing of JAX, so it runs on a machine without it:
 
@@ -640,3 +643,49 @@ def test_general_graph_scenarios_on_card_match_cpu(card, name):
     on_card = run(card)
     assert mcmf_loop.launches - before >= 3
     assert on_card == run("cpu")
+
+
+def _churn_records(dev):
+    from ksched_tpu_torch.drivers.churn import run_churn
+
+    out = run_churn(rounds=6, tasks=400, machines=40, churn=0.05, device=dev)
+    keys = ("supersteps", "warm_scope", "sha256", "plan_kind", "upload_bytes",
+            "solver_upload_bytes")
+    return out, {arm: [{k: r[k] for k in keys} for r in out[arm]]
+                 for arm in ("full_rebuild", "delta_scatter", "device_resident")}
+
+
+def test_churn_arms_on_the_card_match_cpu(card):
+    """bench.py's churn config at 400 x 40: the three export arms on the
+    card equal the same run on the CPU round by round, the resident
+    mirror and plan on the card."""
+    out, got = _churn_records(card)
+    res = out["objects"]["device_resident"].sched.solver.resident
+    assert res.d_cap.is_cuda and res.d_p_arc.is_cuda and res.d_p_sign.is_cuda
+    _, want = _churn_records("cpu")
+    assert got == want
+
+
+def test_resident_mega_on_the_card_matches_cpu(card):
+    """W(20, 200) through "mega" on the device-resident export: the
+    kernel reads the mirror's tensors, and the rounds equal the CPU's."""
+    from ksched_tpu_torch.drivers import whare_mixed_rounds
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop
+    from ksched_tpu_torch.solver.select import make_backend
+
+    def rounds(dev):
+        backend = make_backend("mega", device=dev)
+        out = []
+        for r, sched, placed in whare_mixed_rounds(20, 200, backend, device_resident=True):
+            res = sched.solver.resident
+            if res.device.type == "cuda":
+                assert mcmf_loop.last_inputs == (
+                    res.d_cap.data_ptr(), res._scaled[1].data_ptr(),
+                    res.d_excess.data_ptr())
+            out.append((placed, backend.last_supersteps,
+                        sched.solver.last_result.objective,
+                        sorted(sched.get_task_bindings().items())))
+            if r == 2:
+                return out
+
+    assert rounds(card) == rounds("cpu")
