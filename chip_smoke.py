@@ -84,28 +84,35 @@ no result line):
 8. timing of the tiered kernel at its captured shapes beside its plain
    version and its bound, with the phase split (round 2's solve too);
 9. mcmf kernel parity: the general-graph kernel (one cooperative grid)
-   against its plain PyTorch version on the card, bit for bit, on seeded
+   against its plain PyTorch version on the card, bit for bit, its
+   64-row soltel ring included (a cold solve wraps it), on seeded
    scheduling graphs at 512 and 8 lanes, at eps 1 and cold, with a pad
    segment; on grids of 1 to 128 blocks: a segment over four blocks with
    headless middle blocks, heads on blocks' first entries, ragged and
    full last blocks, a cold solve that converges across blocks, the 10k
    x 1k shape (R = 256, 128 blocks on 132 SMs) and R = 300 (two steps
-   per warp), the long ones cut short; the wrapper's scratch count
-   against the kernel's;
+   per warp), the long ones cut short; each case also run with the ring
+   off: the same flow and the same grid barriers; the wrapper's scratch
+   count against the kernel's;
 10. the general-graph path: Scenario W(1000, 10000) through
    FlowScheduler.schedule_all_jobs with make_backend("mega") on cuda,
-   rounds 0-2, every round on the mcmf kernel and never on the CSR
-   fallback, each round's values and bindings equal to the JAX
-   package's, the kernel's launch count, and two captured solves (round
-   2's 3,376 supersteps among them) re-solved by the plain version with
-   the same bits;
+   rounds 0-2, soltel on (its default), every round on the mcmf kernel
+   and never on the CSR fallback, each round's values, bindings and the
+   sha256 of its soltel ring equal to the JAX package's (round 2's
+   3,376 supersteps wrap the 512-row ring), the kernel's launch count,
+   every captured solve re-solved by the plain version with the same
+   bits (its ring too), and round 2's solve captured by the device
+   profiler (obs/devprof.py, torch.profiler): the kernel's device time
+   and the device's busy share from the trace;
 11. the ladder: Scenario P(1000, 10000) (trivial model, preemption on)
    with make_backend("auto") on cuda: round 0 dense, round 1 on the mega
-   rung with the JAX package's values, round 2 stalling as the JAX
-   package's does (50,000 supersteps in the cold attempt);
+   rung with the JAX package's values and ring, round 2 stalling as the
+   JAX package's does (50,000 supersteps in the cold attempt), with the
+   JAX package's SolverStallError.reason;
 12. timing of the mcmf kernel at the re-solved shapes (blocks, grid
-   barriers per superstep, time per superstep) beside its plain version
-   and its bound, and of its grid barrier alone;
+   barriers per superstep, time per superstep with the soltel ring on
+   and off, the same barriers either way) beside its plain version and
+   its bound, and of its grid barrier alone;
 13. the device-resident general-graph path: Scenario W(1000, 10000)
    through make_backend("mega") with the problem kept on the card
    (PlacementSolver(device_resident=True)), rounds 0-2, each round's
@@ -125,6 +132,11 @@ no result line):
    the bytes per round copied to the card (the mirror's records on the
    resident arm, the solver's uploads of the problem's arrays and the
    plan's tensors on the host arms, both counted where they are made);
+   with soltel on, each round's CSR ring (sha256) equal to the JAX
+   package's in every arm, no warm price war, and the resident arm's
+   host->device bytes by kind (its device profiler's counter) equal to
+   the JAX package's; then two more resident arms round-robin in turns,
+   the CSR ring on and off, their wall p50 and p99 side by side;
 15. the ELL line: make_backend("ell") on the churn config's resident
    export, the fill and 3 rounds, equal to the JAX package's EllSolver;
    then the `kernels` line and the result line. The transport kernel's
@@ -284,7 +296,10 @@ REF_STEADY = {
 # stall, per round, as produced by the JAX package
 # (tests/torch_event_mega_reference.py: MegaSolver(fallback=JaxSolver())
 # and AutoSolver(JaxSolver(), mega=MegaSolver()), on the CPU): placed
-# tasks, path, supersteps, objective, sha256 of the sorted bindings.
+# tasks, path, supersteps, objective, sha256 of the sorted bindings;
+# with soltel on, the sha256 of each mega round's soltel ring
+# (drivers/churn.py telemetry_sha256) and the stall's
+# SolverStallError.reason.
 REF_MEGA = {
     "W": {
         "placed": [10000, 2500, 2500],
@@ -296,6 +311,11 @@ REF_MEGA = {
             "54ae55ac59f54275e04de9a53ac023b0e31d096177568df6cdf5a74696de6fc5",
             "37250afb748eccf84e6151dc49c0480f226540f1e7f8c57fbdf1c7681023a358",
         ],
+        "telemetry_sha256": [
+            "11aa4ea7c483a3ff9c7658b5b046732e87cb2ca85363b2f6ce18cf99c8001615",
+            "e133fd51b6e07f70bcdc849a054f3cb2a5b30ae9d3400cc66a861e492b2573fa",
+            "9527352a9685626b13bc253a50c8d69f52a7d34c218d902388ddb2a30becd982",
+        ],
     },
     "P": {
         "placed": [10000, 2500],
@@ -306,7 +326,16 @@ REF_MEGA = {
             "46119ab9c2289c3341a526de32789cb95a566b30f9601de0869cb73bc44a5a52",
             "f360ae7496b92e52cbf3a8652d93e092b617e0217ecabcfcc05bcc23d49a1262",
         ],
-        "stall": {"round": 2, "path": "mega", "last_supersteps": 50000},
+        "telemetry_sha256": [
+            None,
+            "518d9e28a58c8beef24173b4a01fe1b58a72a2db02df1546d9eef51843ce7b9b",
+        ],
+        "stall": {"round": 2, "path": "mega", "last_supersteps": 50000,
+                  "reason": {"kind": "excess_plateau", "window": 64,
+                             "detail": "64 supersteps without excess decrease (1 -> 1 units at eps 40)",
+                             "backend": "mega", "supersteps": 50000, "budget": 50000,
+                             "converged": False, "eps": 40, "excess": 1,
+                             "active": 1}},
     },
 }
 
@@ -454,6 +483,43 @@ REF_CHURN = {
         94336, 184448, 106624, 192640, 94336, 147584,
     ],
     "plan_counters": [1, 0, 2849],
+    # soltel on: the sha256 of each round's CSR ring
+    # (drivers/churn.py telemetry_sha256), the warm price wars and the
+    # host->device bytes by kind of the arm's own registry
+    "telemetry_sha256": [
+        "2cce565271ed07246557d84270380e2a81e5751298ad4f7038289be667ae3e40",
+        "0d7f36635591584ce272273046e0a8f0a1ef4479ed2c1cef93e932cdbf67188c",
+        "feabe920e22c731fc9bc10bfdf929c4c99fbf4aa35c43f3c3b4b442a18e09bd6",
+        "0eed0e633fead728be74cc250d6eba0bb55f9d85aecd7e8d366e05e40752c1a7",
+        "b86618e49abf72bdf3e42ef3213a0e83760427eddb47634c5fb9dce5dccf1109",
+        "b81951bf3db25699f9e4a5bfbd0bec3a41d6a51309cd5729e6872470006a1328",
+        "e7b034a86db85e1cc1e7dbe528124d85cfc251a55d1e454fd7f90c921679316d",
+        "bcc15069d16edde5bbdb9153d8e0878795bf7fc155819736153e9697005192f5",
+        "3daa46fbd77ebaac21506c528919edc279aac4e534d274fd202f79b0f9362283",
+        "55b05a77cd0689d63055596b8d767505782eb477b9b892863f05eff164ef6303",
+        "a566d8f0fecaa8e03da38efe476b95a0deec806f98611a1fdbf7590313058acb",
+        "0478a2da2ddf1e13d5a87e29fc5e1b2e241005e417d43a1a0d273604b22e77c1",
+        "7ddbee65973ea385d0ea8b45061fd4474c017eec63662dc7a14b153031341e1e",
+        "7394d44306ba19bab6296af8089afd2df355880f742a710d91407aab98bdabb7",
+        "9c1d118e03efe9691419af70a763b1d2842e150ccc62f34810620e9cd6c4a756",
+        "e2ed64be92c92283d23e25944a577e7c2840ecb847127c32dd003c43187b9738",
+        "a51ac44135948013438602a034bab67e95678db238d889247fba8e588be423e3",
+        "d9a211bbe4d3ca3785c0c1cda41ac6bc5d3a9eef3d2c8d46e9c016e5aad70054",
+        "99962708d47cc7b121ea772acf05846ea7049543792c1bf6ce746a3f84f42480",
+        "f7cd7e6ca7ff71f373092add444c4d46ff075409d574bd4b2271995201cc163a",
+        "ebad6cb95c333d2ac3b2998eaa8fca9bc07ede47f992b7c708002a7e3d346297",
+        "3a8c2d28d04ccf991a92fe7f47de2dc740235cd88b594a4ff84abaa2bc3bd598",
+        "d47e4fa01d4c063c0242d260cc9a0fcbd8a19fe555e34c00bcf902630341db7b",
+        "6fdc22969628299604e8c3aee1e7cc826fc1cba16cfa51297f75ac7f647652b2",
+        "9948f783368ea209c095c89e95b95f56aef971e632559b3b7c96c79192b817c5",
+        "9a1fccc7efdcad3d9cba2558639bf2b60938f2848acd75fca7a7fc4bda468e5a",
+        "6f68e1663cad4386ffab7fb206ab35b3cf4207665f062ae56778b6f61777c7db",
+        "f68e4147dd40a99d9f9e6ba28ca1f5b707c522795cceeb6b3d885aa08d6acc1d",
+        "dcc740715d2587ea67fa0b5bef8dd4ca3694abba109f048b4dc35b937f46e88d",
+        "ea30614468bac1b33a2f626f7ee60a0ab288f226012587a03645b2bd93cfe9e0",
+    ],
+    "price_wars": 0,
+    "h2d_bytes": {"full_build": 589824, "delta": 8351744},
     "ell": {
         "fill_supersteps": 10,
         "supersteps": [54, 627, 100],
@@ -504,6 +570,14 @@ OPS_MCMF_STEP = (33, 28)
 OPS_MCMF_PHASE = (11, 8)
 OPS_MCMF_SWEEP = (5, 4)
 OPS_MCMF_ONCE = (26, 12)
+# the soltel ring's counters a superstep (ops/mcmf.py mcmf_loop_plain):
+# saturated entries 3 E, admissible entries 1 E, units pushed 1 E; the
+# active and excess sums 4 S, the relabels 1 S
+OPS_MCMF_RING = (5, 5)
+
+
+#: the soltel ring's rows in the mcmf parity cases (a cold solve wraps it)
+PARITY_RING = 64
 
 
 class Failed(Exception):
@@ -1741,28 +1815,39 @@ def phase_parity_mcmf(dev):
              (2, None, 800, 30, 4, None, 3000),
              # R = 300: two 32-entry steps per warp
              (5, None, 15_000, 1000, 8, 76_800, 300)]
+    wraps = 0
     for seed, lanes, tasks, machines, slots, arc_slots, budget in cases:
         (a, t), R, L, eps_cold, pad = mcmf_case(seed, dev, lanes, tasks, machines,
                                                 slots, arc_slots)
         pads += pad
         for eps in (1, eps_cold):
             args = (*a, eps, *t, R, L)
-            k = mcmf_loop(*args, max_supersteps=budget)
+            # the ring off, then on: the same flow and the same barriers
+            off = mcmf_loop(*args, max_supersteps=budget)
+            barriers_off = int(mcmf_loop.last_barriers)
+            k = mcmf_loop(*args, max_supersteps=budget, telemetry_cap=PARITY_RING)
             blocks = mcmf_loop.last_blocks
-            p = mcmf_loop_plain(*args, max_supersteps=budget)
+            p = mcmf_loop_plain(*args, max_supersteps=budget, telemetry_cap=PARITY_RING)
             torch.cuda.synchronize()
             err = max_abs_diff(k, p)
             worst = max(worst, err)
             ok = same_bits(k, p)
             grids.add(blocks)
+            rows = k[4].shape[0]
+            wraps += int(k[1]) > rows
             say(f"mcmf parity R={R} L={L} blocks={blocks} pad={pad} eps={eps} "
                 f"budget={budget}: steps={int(k[1])} converged={bool(k[2])} "
-                f"barriers={int(mcmf_loop.last_barriers)} max_abs_err={err} "
+                f"barriers={int(mcmf_loop.last_barriers)} (ring off {barriers_off}) "
+                f"ring_rows={rows} max_abs_err={err} "
                 f"{'bit-identical' if ok else 'MISMATCH'}")
             check(ok, f"mcmf kernel != plain at R={R} L={L} eps={eps}")
+            check(same_bits(k[:4], off), f"R={R} L={L} eps={eps}: the ring moved the flow")
+            check(int(mcmf_loop.last_barriers) == barriers_off,
+                  f"R={R} L={L} eps={eps}: the ring changed the barrier count")
             check(bool(k[2]) or budget < 50_000, f"R={R} L={L} eps={eps}: no convergence")
             check(blocks > 1 or R * L <= 1024, f"R={R} L={L} ran on one block")
     check(pads > 0, "no parity case had a pad segment")
+    check(wraps > 0, "no parity case wrapped its ring")
     check(1 in grids and max(grids) >= 128, f"parity grids {sorted(grids)}")
     return worst
 
@@ -1780,11 +1865,17 @@ def mega_round_line(tag, r, placed, backend, sched, rec, seen, wall):
 
 
 def check_mega_round(name, r, placed, backend, sched):
+    from ksched_tpu_torch.drivers.churn import telemetry_sha256
+
     ref = REF_MEGA[name]
-    got = {"placed": placed, "path": getattr(backend, "last_path", "mega"),
+    path = getattr(backend, "last_path", "mega")
+    got = {"placed": placed, "path": path,
            "supersteps": backend.last_supersteps,
            "objective": sched.solver.last_result.objective,
-           "bindings_sha256": bindings_sha256(sched)}
+           "bindings_sha256": bindings_sha256(sched),
+           # the soltel ring of a mega round's solve (kernel B3's)
+           "telemetry_sha256": telemetry_sha256(backend.last_telemetry)
+           if path == "mega" else None}
     for k, v in got.items():
         check(v == ref[k][r], f"{name}(1000,10000) round {r}: {k}={v}, the JAX "
               f"package gives {ref[k][r]}")
@@ -1792,13 +1883,39 @@ def check_mega_round(name, r, placed, backend, sched):
           f"{name} round {r}: supply invariant broken")
 
 
+def trace_device_ms(path, kernel="mcmf_kernel"):
+    """From a torch.profiler Chrome trace: (the device ms of the kernels
+    named `kernel`, the device's busy ms (the union of its kernel,
+    memcpy and memset intervals), the capture's window ms (its first
+    event's start to its last event's end)), or None without device
+    events."""
+    with open(path) as f:
+        evs = [e for e in json.load(f).get("traceEvents", [])
+               if e.get("ph") == "X" and "dur" in e]
+    gpu = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
+                 for e in evs if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not gpu:
+        return None
+    busy, end = 0.0, -1e300
+    for t0, t1, _name in gpu:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in evs)
+              - min(float(e["ts"]) for e in evs))
+    k_us = sum(t1 - t0 for t0, t1, name in gpu if kernel in name)
+    return k_us / 1e3, busy / 1e3, window / 1e3
+
+
 def phase_mega_main(dev):
-    """W(1000, 10000) through make_backend("mega") on cuda, rounds 0-2;
-    two captured solves re-solved by the plain version."""
+    """W(1000, 10000) through make_backend("mega") on cuda, rounds 0-2,
+    soltel on (its default): each round's ring equal to the JAX
+    package's, every captured solve re-solved by the plain version (its
+    ring too), round 2's solve captured by the device profiler's
+    torch.profiler hook; round 0's and round 2's solves are timed."""
     import ksched_tpu_torch.ops as ops
     from ksched_tpu_torch.drivers import whare_mixed_rounds
     from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
-    from ksched_tpu_torch.obs import SpanTracer
+    from ksched_tpu_torch.obs import Registry, SpanTracer, devprof, soltel
     from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
     from ksched_tpu_torch.solver.csr_solver import CsrSolver
     from ksched_tpu_torch.solver.mega_solver import MegaSolver
@@ -1807,6 +1924,12 @@ def phase_mega_main(dev):
     backend = make_backend("mega", device=dev)
     check(isinstance(backend, MegaSolver) and isinstance(backend.fallback, CsrSolver)
           and backend.device.type == "cuda", "make_backend('mega') on cuda")
+    check(soltel.resolve_cap(backend.telemetry) == soltel.SOLTEL_DEFAULT_CAP,
+          "soltel is not on by default")
+    # a torch.profiler capture of the third solve: round 2's
+    prof = devprof.DeviceProfiler(registry=Registry(), capture_solve=3)
+    devprof.set_profiler(prof)
+    walls = []
     mcmf_loop.launches = transport_loop.launches = transport_loop_tiered.launches = 0
     with Recorder(ops, "mcmf_solve") as rec, SpanTracer() as tracer:
         seen = 0
@@ -1815,9 +1938,14 @@ def phase_mega_main(dev):
         for r, sched, placed in whare_mixed_rounds(1000, 10000, backend):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            walls.append(wall)
             mega_round_line("W-mega(1000,10000)", r, placed, backend, sched, rec,
                             seen, wall)
             say_spans(tracer, mark)
+            tel = backend.last_telemetry
+            say(f"  soltel: steps={tel.steps} rows={len(tel.rows)} cap={tel.cap} "
+                f"truncated={tel.truncated} start_step={tel.start_step} "
+                f"last_row={tel.tail(1)[0]}")
             check_mega_round("W", r, placed, backend, sched)
             check(len(rec.calls) > seen, f"W-mega round {r} did not launch the kernel")
             seen = len(rec.calls)
@@ -1825,16 +1953,32 @@ def phase_mega_main(dev):
                 break
             mark = tracer.mark()
             t0 = time.perf_counter()
+    devprof.set_profiler(None)
     launches = mcmf_loop.launches
     say(f"W-mega: {len(rec.calls)} mcmf solves, {launches} kernel launches; "
         f"transport launches {transport_loop.launches + transport_loop_tiered.launches}")
     check(launches == len(rec.calls) and launches >= 3,
           f"mcmf launches {launches} != solves {len(rec.calls)}")
     check(backend.fallback.last_supersteps == 0, "MegaSolver delegated to the CSR fallback")
-    # round 0's and round 2's solves re-solved by the plain version on the card
+    got = prof.last_capture_path and trace_device_ms(prof.last_capture_path)
+    if not got:
+        say(f"W-mega round 2 devprof capture ({prof.last_capture_path}): no device "
+            f"events in the trace; device time and busy share not measured")
+    else:
+        # the round's wall less the profiler's own start, stop and export
+        k_ms, busy_ms, window_ms = got
+        round_ms = 1e3 * (walls[2] - prof.last_capture_cost_s)
+        say(f"W-mega round 2 devprof capture ({prof.last_capture_path}): "
+            f"mcmf_kernel device_ms={k_ms:.4f} device_busy_ms={busy_ms:.4f} "
+            f"capture_window_ms={window_ms:.4f} busy_share_of_window="
+            f"{busy_ms / window_ms:.4f} capture_cost_ms="
+            f"{1e3 * prof.last_capture_cost_s:.1f} round_ms_less_capture={round_ms:.4f} "
+            f"busy_share_of_round={busy_ms / round_ms:.4f}")
+    # every solve re-solved by the plain version on the card (its ring
+    # too); round 0's and round 2's are the ones timed
     picked = [0, len(rec.calls) - 1]
     worst, plain_ms = 0, {}
-    for i in picked:
+    for i in range(len(rec.calls)):
         c = rec.calls[i]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1846,9 +1990,11 @@ def phase_mega_main(dev):
         err = max_abs_diff(c["out"], plain)
         worst = max(worst, err)
         say(f"W-mega solve {i}: R={c['args'][13]} eps={c['args'][4]} "
-            f"steps={int(c['out'][1])} max_abs_err={err} vs plain "
+            f"steps={int(c['out'][1])} ring_rows={c['out'][4].shape[0]} "
+            f"max_abs_err={err} vs plain "
             f"(plain_ms={plain_ms[i]:.1f}, sweeps={mcmf_loop_plain.sweeps})")
         c["sweeps"] = mcmf_loop_plain.sweeps
+        check(len(c["out"]) == 5, f"W-mega solve {i}: the kernel made no ring")
         check(same_bits(c["out"], plain), f"W-mega solve {i}: kernel != plain")
     check(int(rec.calls[picked[-1]]["out"][1]) == REF_MEGA["W"]["supersteps"][2],
           "the re-solved last solve is not round 2's")
@@ -1884,6 +2030,7 @@ def phase_ladder(dev):
             except SolverStallError as e:
                 torch.cuda.synchronize()
                 stalled = (r, time.perf_counter() - t0, str(e))
+                reason = e.reason
                 break
             torch.cuda.synchronize()
             mega_round_line("P(1000,10000)", r, placed, backend, sched, rec, seen,
@@ -1909,6 +2056,9 @@ def phase_ladder(dev):
           f"P round {r}: stall differs from the JAX package's")
     check(steps == [4096, ref["stall"]["last_supersteps"]],
           f"P round {r}: attempts {steps}, want [4096, 50000]")
+    say(f"P round {r} stall reason: {json.dumps(reason, sort_keys=True)}")
+    check(reason == ref["stall"]["reason"],
+          f"P round {r}: the stall reason differs from the JAX package's")
     launches = mcmf_loop.launches
     check(launches == len(rec.calls) >= 3, f"P: mcmf launches {launches}")
     say(f"P: {launches} mcmf kernel launches")
@@ -1938,6 +2088,7 @@ def phase_churn(dev):
     from ksched_tpu_torch.drivers.churn import ARMS, CHURN, ChurnArm, drive_arms
     from ksched_tpu_torch.obs import SpanTracer
     from ksched_tpu_torch.ops.mcmf import mcmf_loop
+    from ksched_tpu_torch.solver.csr_solver import CsrSolver
     from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
 
     ref = REF_CHURN
@@ -1966,7 +2117,8 @@ def phase_churn(dev):
             # which runs the CSR attempt, completion and decode)
             per["solve"] = a.sched.last_timing.solve_s * 1e3
             spans[a.label].append(per)
-            got = {k: rec[k] for k in ("supersteps", "warm_scope", "sha256")}
+            got = {k: rec[k] for k in ("supersteps", "warm_scope", "sha256",
+                                       "telemetry_sha256")}
             if a.label == "device_resident":
                 got.update(plan_kind=rec["plan_kind"], upload_bytes=rec["upload_bytes"])
             for k, v in got.items():
@@ -1985,6 +2137,16 @@ def phase_churn(dev):
     counters = [plan.layout_rebuilds, plan.region_overflows, plan.region_relocations]
     check(counters == ref["plan_counters"], f"churn plan counters {counters}")
     for a in arms:
+        got = a.counters()
+        say(f"churn {a.label} counters: h2d_bytes={got['h2d_bytes']} "
+            f"warm_price_wars={got['price_wars']}")
+        check(got["price_wars"] == ref["price_wars"],
+              f"churn {a.label}: {got['price_wars']} warm price wars, the JAX "
+              f"package's {ref['price_wars']}")
+    got = arms[-1].counters()["h2d_bytes"]
+    check(got == ref["h2d_bytes"], f"churn device_resident h2d bytes {got}, the JAX "
+          f"package's {ref['h2d_bytes']}")
+    for a in arms:
         m = recs[a.label][warmup:]
         wall = [x["wall_ms"] for x in m]
         sp = spans[a.label][warmup:]
@@ -1997,6 +2159,27 @@ def phase_churn(dev):
             f"bytes_per_round={up:.0f} " + " ".join(
                 f"{k}_p50_ms={pctl([s.get(k, 0.0) for s in sp], 50):.3f}"
                 for k in CHURN_SPANS))
+    # the resident arm twice more, round-robin in turns (on, off, off,
+    # on, ...): the solver's ring on (the default) and off, for the
+    # ring's cost on the round's wall
+    pair = [ChurnArm("device_resident", device=dev,
+                     backend=CsrSolver(restart_budget=CHURN["restart_budget"],
+                                       telemetry=cap, device=dev))
+            for cap in (None, 0)]
+    walls = ([], [])
+    for r in range(warmup + CHURN["rounds"]):
+        order = (0, 1) if r % 2 == 0 else (1, 0)
+        recs = {i: pair[i].drive_round(r) for i in order}
+        check(recs[0]["sha256"] == recs[1]["sha256"] == ref["sha256"][r],
+              f"churn ring on/off round {r}: placements differ")
+        if r >= warmup:
+            for i, w in enumerate(walls):
+                w.append(recs[i]["wall_ms"])
+    check(pair[1].solver.last_telemetry is None
+          and pair[0].solver.last_telemetry is not None, "churn: ring on/off arms")
+    say(f"churn device_resident soltel on/off (round-robin): wall_ms p50 "
+        f"{pctl(walls[0], 50):.3f} / {pctl(walls[1], 50):.3f} p99 "
+        f"{pctl(walls[0], 99):.3f} / {pctl(walls[1], 99):.3f}")
     launches = mcmf_loop.launches + transport_loop.launches + transport_loop_tiered.launches
     check(launches == 0, f"churn: {launches} kernel launches on a path with none")
     say(f"churn: 3 arms x {warmup + CHURN['rounds']} rounds equal to the JAX package's, "
@@ -2109,19 +2292,24 @@ def mcmf_bound_ms(c, steps, sweeps):
      e_prow, e_pcol, fwd_pos, R, L) = c["args"]
     E = R * L
     S = int((e_hs != 0).sum()) + int(e_hs[0] == 0)
-    nbytes = 4 * (3 * cap.numel() + supply.numel() + 7 * E + 2 * fwd_pos.numel() + 4)
+    ring = c["out"][4].numel() if len(c["out"]) == 5 else 0  # the soltel ring's words
+    nbytes = 4 * (3 * cap.numel() + supply.numel() + 7 * E + 2 * fwd_pos.numel() + 4
+                  + ring)
     phases = eps_phases(eps, c["kw"].get("alpha", 8))
     ops_n = sum(k * (e * E + s * S) for (e, s), k in (
         (OPS_MCMF_STEP, steps), (OPS_MCMF_PHASE, phases),
-        (OPS_MCMF_SWEEP, sweeps), (OPS_MCMF_ONCE, 1)))
+        (OPS_MCMF_SWEEP, sweeps), (OPS_MCMF_ONCE, 1),
+        (OPS_MCMF_RING, steps if ring else 0)))
     return bound_ms(nbytes, ops_n)
 
 
 def phase_timing_mcmf(calls, picked, plain_ms, reps=3, tag="mcmf", barrier=True):
     """The mcmf kernel's time at the re-solved captured solves (CUDA
     events), beside its plain version's and its bound: its grid, the
-    grid barriers it ran per superstep, its time per superstep; then
-    (`barrier`) the grid barrier alone at that grid."""
+    grid barriers it ran per superstep, its time per superstep with the
+    soltel ring as the main path ran it and with the ring off (the
+    barriers must be the same); then (`barrier`) the grid barrier alone
+    at that grid."""
     from ksched_tpu_torch.ops.mcmf import barrier_probe_ms, mcmf_loop
 
     tot_k = tot_p = tot_b = 0.0
@@ -2130,14 +2318,23 @@ def phase_timing_mcmf(calls, picked, plain_ms, reps=3, tag="mcmf", barrier=True)
         c = calls[i]
         steps = int(c["out"][1])
         b_bytes, b_ops = mcmf_bound_ms(c, steps, c["sweeps"])
+        kw_off = dict(c["kw"], telemetry_cap=0)
+        off_ms = timed_ms(lambda: mcmf_loop(*c["args"], **kw_off), reps)
+        barriers_off = int(mcmf_loop.last_barriers)
         k_ms = timed_ms(lambda: mcmf_loop(*c["args"], **c["kw"]), reps)
         blocks, barriers = mcmf_loop.last_blocks, int(mcmf_loop.last_barriers)
+        ring = c["kw"].get("telemetry_cap", 0)
         say(f"timing {tag} solve {i} R={c['args'][13]} steps={steps} "
             f"sweeps={c['sweeps']} blocks={blocks} barriers={barriers} "
             f"barriers_per_step={barriers / max(steps, 1):.3f}: kernel_ms={k_ms:.4f} "
             f"plain_ms={plain_ms[i]:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
             f"(bytes {b_bytes:.6f}, operations {b_ops:.6f}) "
-            f"kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+            f"kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f} (ring {ring}); "
+            f"ring off: kernel_ms={off_ms:.4f} "
+            f"kernel_us_per_step={1e3 * off_ms / max(steps, 1):.3f} "
+            f"barriers={barriers_off}; ring overhead {100 * (k_ms / off_ms - 1):.2f}%")
+        check(barriers == barriers_off,
+              f"{tag} solve {i}: {barriers} grid barriers with the ring, {barriers_off} without")
         tot_k += k_ms
         tot_p += plain_ms[i]
         tot_b += max(b_bytes, b_ops)

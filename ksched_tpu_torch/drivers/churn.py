@@ -20,7 +20,9 @@ arms differ only in how the folded problem reaches the solver:
 
 Task and job ids come from the seeded global id RNG (utils/ids.py), so
 the arms run round-robin and each swaps its own stream state in around
-its round, as bench.py does. bench.py's `reference` and `r11_policy`
+its round, as bench.py does. Each arm also swaps in its own metrics
+registry and device profiler (obs/), so its counters (host→device bytes
+by kind, stall events) are its own. bench.py's `reference` and `r11_policy`
 arms (the historical baselines) are not ported.
 """
 
@@ -29,6 +31,7 @@ from __future__ import annotations
 import hashlib
 import json
 import time
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 import numpy as np
@@ -47,6 +50,14 @@ def placement_sha256(sched, tmap) -> str:
     return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
 
 
+def telemetry_sha256(tel) -> Optional[str]:
+    """sha256 of a decoded soltel ring (obs/soltel.SolveTelemetry, all
+    its fields and rows), None without one."""
+    if tel is None:
+        return None
+    return hashlib.sha256(json.dumps(tel.to_dict(), sort_keys=True).encode()).hexdigest()
+
+
 class ChurnArm:
     """One arm of the churn config: its cluster filled by one job of
     `tasks` tasks (the fill round runs here), then `drive_round(r)` per
@@ -62,8 +73,12 @@ class ChurnArm:
 
         if label not in ARMS:
             raise ValueError(f"unknown churn arm {label!r}; want one of {ARMS}")
+        from ..obs import DeviceProfiler, Registry
+
         self.label = label
         self.k = max(1, int(tasks * churn))
+        self.registry = Registry()
+        self.profiler = DeviceProfiler(registry=self.registry)
         seed_rng(7)
         self.solver = (backend if backend is not None
                        else CsrSolver(restart_budget=CHURN["restart_budget"], device=device))
@@ -74,7 +89,8 @@ class ChurnArm:
         )
         self.job_id = add_job(self.sched, self.jmap, self.tmap, num_tasks=tasks)
         t0 = time.perf_counter()
-        self.sched.schedule_all_jobs()
+        with self.observed():
+            self.sched.schedule_all_jobs()
         self.fill_s = time.perf_counter() - t0
         self.fill_supersteps = self.solver.last_supersteps
         self.rng = np.random.default_rng(123)
@@ -82,13 +98,38 @@ class ChurnArm:
         self._global_rng = global_rng
         self._rng_state = global_rng().getstate()
 
+    @contextmanager
+    def observed(self):
+        """This arm's registry and device profiler, for the block."""
+        from ..obs import devprof, scoped_registry
+
+        prev = devprof._profiler
+        devprof.set_profiler(self.profiler)
+        try:
+            with scoped_registry(self.registry):
+                yield
+        finally:
+            devprof.set_profiler(prev)
+
+    def counters(self) -> Dict:
+        """The arm's host→device bytes by kind and its warm price wars,
+        from its own registry."""
+        reg = self.registry
+        return {
+            "h2d_bytes": {k: int(reg.value("ksched_h2d_bytes_total", kind=k))
+                          for k in ("full_build", "delta")},
+            "price_wars": int(reg.value("ksched_solver_stalls_total",
+                                        kind="warm_price_war")),
+        }
+
     def drive_round(self, r: int) -> Dict:
         """Complete k bound tasks, add k, schedule; the round's record:
         wall ms (host clock around `schedule_all_jobs`), supersteps,
         warm scope, the placements' sha256, the solver's host reads, the
         bytes it copied to the card (`solver_upload_bytes`) and, on the
         resident arm, the mirror's plan sync kind and the bytes it
-        shipped (`upload_bytes`)."""
+        shipped (`upload_bytes`), and the sha256 of the solve's soltel
+        ring (`telemetry_sha256`, None with telemetry off)."""
         from .synthetic import add_task_to_job
 
         self._global_rng().setstate(self._rng_state)
@@ -106,7 +147,8 @@ class ChurnArm:
             st = sched.solver.state
             st._cache_nodes_ok = st._cache_arcs_ok = False
         t0 = time.perf_counter()
-        sched.schedule_all_jobs()
+        with self.observed():
+            sched.schedule_all_jobs()
         wall_ms = (time.perf_counter() - t0) * 1e3
         res = sched.solver.resident
         return {
@@ -119,6 +161,7 @@ class ChurnArm:
             "plan_kind": res.last_plan_kind if res is not None else None,
             "upload_bytes": int(res.last_upload_bytes) if res is not None else None,
             "solver_upload_bytes": getattr(self.solver, "last_upload_bytes", None),
+            "telemetry_sha256": telemetry_sha256(getattr(self.solver, "last_telemetry", None)),
         }
 
 

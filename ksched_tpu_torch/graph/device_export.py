@@ -557,7 +557,9 @@ class DeviceResidentState:
     the arc pow2 bucket grew (m_cap), or the node bucket grew (n_cap;
     node side only). ``last_upload_bytes`` / ``last_upload_kind`` give
     the exact bytes that crossed to the card this refresh, plan records
-    included. Entry points default to the card and raise without one.
+    included; the device profiler's h2d byte counter reads them
+    (solver/placement.py). Entry points default to the card and raise
+    without one.
     """
 
     def __init__(self, state: DeviceGraphState, device="cuda") -> None:

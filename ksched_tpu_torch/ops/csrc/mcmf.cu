@@ -54,6 +54,25 @@
 // live tables take 11 MB, inside the 50 MB L2) nor arithmetic: 13.6 us a
 // superstep on an H100, 4.8 of them in barriers (PERF.md).
 //
+// The soltel ring (ksched_tpu/ops/mcmf_pallas.py's fifth output): with
+// tel_cap > 0 (the kTel instantiation) every active superstep writes one
+// int32 row of 8 at ring row steps % tel_cap: eps, the segments with
+// positive excess and their excess sum (read at the superstep's start,
+// in pass B), the units pushed (pass C), the segments relabelled (pass
+// D), the forward entries with zero residual before the push and the
+// admissible entries (pass B), and a 0. A phase change writes no row.
+// Each thread counts in registers; a warp sums its counts and adds them
+// to the block's words in shared memory; each block adds those, once per
+// grid barrier the superstep already has (Grid::sync flushes them before
+// it arrives), into six header words. The six words are double-buffered
+// by step parity: block 0's thread 0 reads and clears the last
+// superstep's buffer at the top of the next iteration (or, for the last
+// superstep, after the loop) and writes its row, and clears the current
+// buffer when the iteration turns out to be a phase change. No barrier is
+// added (result[3] is the same with the ring on and off), and integer
+// atomics give the same bits in any order. With tel_cap = 0 the kernel
+// counts nothing.
+//
 // Arithmetic is int32 with two's-complement wrap (transport_common.cuh's
 // helpers), as in the JAX package. Sentinels: BIG = 1 << 30,
 // BIG_D = 1 << 28, the potential guard 1 << 30.
@@ -147,8 +166,11 @@ __device__ int block_carry(const int* btail, const int* bflag, int b) {
 }
 
 // header words in front of the per-block slots: the barrier counter, the
-// decision flag, the end flags (zeroed before each launch)
-constexpr int kBarWord = 0, kFlagWord = 1, kEndWord = 2, kHeadWords = 3;
+// decision flag, the end flags, then the soltel counters of cols 1..6 in
+// two buffers (all zeroed before each launch)
+constexpr int kTelCounters = 6;
+constexpr int kBarWord = 0, kFlagWord = 1, kEndWord = 2, kTelWord = 3,
+              kHeadWords = kTelWord + 2 * kTelCounters;
 
 __device__ __forceinline__ unsigned ld_acquire(const int* p) {
   unsigned v;
@@ -158,9 +180,13 @@ __device__ __forceinline__ unsigned ld_acquire(const int* p) {
 
 // The grid's barriers and grid-wide decisions. Every block takes the same
 // branches, so every block meets every barrier and counts the same
-// decisions.
+// decisions. With kTel, a barrier also adds the block's soltel counts
+// (s_tel, in shared memory) to the header buffer `tel_add`.
+template <bool kTel = false>
 struct Grid {
   int* hdr;
+  int* s_tel = nullptr;    // kTelCounters words of shared memory
+  int* tel_add = nullptr;  // the header buffer they are added to
   int barriers = 0;   // barriers met so far
   int decisions = 0;  // decisions taken so far
 
@@ -173,6 +199,12 @@ struct Grid {
     __shared__ int s_word;
     __syncthreads();
     if (threadIdx.x == 0) {
+      if constexpr (kTel) {
+        for (int k = 0; k < kTelCounters; ++k) {
+          if (s_tel[k]) atomicAdd(tel_add + k, s_tel[k]);
+          s_tel[k] = 0;
+        }
+      }
       const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
       unsigned* bar = reinterpret_cast<unsigned*>(hdr + kBarWord);
       __threadfence();
@@ -211,17 +243,41 @@ struct Args {
   int* f;              // [E] out: flow per entry
   int* result;         // [4] out: steps, converged, p_overflow, barriers
   int* scratch;        // ksched_mcmf_scratch_words(E, blocks) words
-  int E, eps0, alpha, max_supersteps, tighten_sweeps, chunk;
+  int* tel;            // [tel_cap, 8] out: the soltel ring (zeroed)
+  int E, eps0, alpha, max_supersteps, tighten_sweeps, chunk, tel_cap;
 };
+
+// soltel counter slots (cols 1..6 of a row) in s_tel and the buffers
+enum { kTActive, kTExcess, kTPushed, kTRelabels, kTSaturated, kTWork };
+
+// add a warp's sum of v to the block's counter k (kTel only)
+template <bool kTel>
+__device__ __forceinline__ void tel_count(int* s_tel, int k, int v) {
+  if constexpr (kTel) {
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(s_tel + k, v);
+  }
+}
+
+// one ring row at `step`: eps, then cols 1..6 from `buf`, read and cleared
+__device__ void tel_row(int* ring, int cap, int step, int eps, int* buf) {
+  int* row = ring + 8 * (step % cap);
+  row[0] = eps;
+  for (int k = 0; k < kTelCounters; ++k) row[1 + k] = atomicExch(buf + k, 0);
+  row[7] = 0;
+}
 
 // scratch tables of E words: delta, radm (per entry); sup, p, d, acc0, acc1,
 // sumr, best, pushed, mins (per segment; E bounds their count); then the
 // header words and two slots per block (its tail and head flag)
 constexpr int kScratchTables = 11;
 
+template <bool kTel>
 __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
   __shared__ int s_tail[kWarps];
   __shared__ int s_flag[kWarps];
+  __shared__ int s_tel[kTelCounters];
+  if (threadIdx.x < kTelCounters) s_tel[threadIdx.x] = 0;
   const int E = a.E;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nseg = a.seg[E - 1] + 1;
@@ -246,7 +302,9 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
   int* btail = mins + E + kHeadWords;
   int* bflag = btail + gridDim.x;
   int* f = a.f;
-  Grid grid{mins + E};
+  Grid<kTel> grid{mins + E, s_tel};
+  int* const tel_buf = grid.hdr + kTelWord;  // two buffers of kTelCounters
+  const bool tel_writer = kTel && blockIdx.x == 0 && tid == 0;
 
   // the excess of segment s under the flow sums acc
   auto excess = [&](const int* acc_c, int s) { return wsub(sup_s[s], acc_c[s]); };
@@ -325,15 +383,29 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
 
   // ---- the phase loop ----
   int eps = a.eps0, steps = 0, cur = 0;
-  bool done = false;
+  bool done = false, pending = false;  // pending: a superstep's row unwritten
   while (steps < a.max_supersteps) {
     const int* acc_c = cur ? acc1 : acc0;
     int* acc_n = cur ? acc0 : acc1;
+    if constexpr (kTel) {
+      // the last superstep's counts are complete (its barriers are met)
+      if (tel_writer && pending)
+        tel_row(a.tel, a.tel_cap, steps - 1, eps,
+                tel_buf + kTelCounters * ((steps - 1) & 1));
+      pending = false;
+      grid.tel_add = tel_buf + kTelCounters * (steps & 1);
+    }
     // pass B: the active test, residuals, admissibility, the relabel
     // bounds, chunk tails (acc_n was last read before the last barrier)
     bool act = false;
+    int t_act = 0, t_exc = 0, t_sat = 0, t_work = 0;
     for (int s = g0; s < nseg; s += gstride) {
-      act |= excess(acc_c, s) > 0;
+      const int e = excess(acc_c, s);
+      act |= e > 0;
+      if (kTel && e > 0) {
+        ++t_act;
+        t_exc = wadd(t_exc, e);
+      }
       acc_n[s] = 0;
     }
     {
@@ -354,6 +426,10 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
           if (r > 0 && rc < 0 && excess(acc_c, s) > 0) ra = r;
           if (r > 0) cand = wsub(pq, sc);
           radm[i] = ra;
+          if (kTel) {
+            t_sat += a.sign[i] > 0 && r == 0;
+            t_work += ra > 0;
+          }
         }
         run_reduce(s, r, sumr, Add());
         run_reduce(s, cand, best, Max());
@@ -365,6 +441,10 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
         s_flag[warp] = any_head;
       }
     }
+    tel_count<kTel>(s_tel, kTActive, t_act);
+    tel_count<kTel>(s_tel, kTExcess, t_exc);
+    tel_count<kTel>(s_tel, kTSaturated, t_sat);
+    tel_count<kTel>(s_tel, kTWork, t_work);
     const bool block_act = __syncthreads_or(act) != 0;
     if (warp == 0) {
       // this block's tail: its warps' tails back to its last warp with a head
@@ -381,6 +461,10 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
         done = true;
         break;
       }
+      // a phase change writes no row: drop pass B's counts (all added
+      // before the barrier just met)
+      if (tel_writer)
+        for (int k = 0; k < kTelCounters; ++k) atomicExch(grid.tel_add + k, 0);
       // a phase change: pass B's relabel bounds are void
       for (int s = g0; s < nseg; s += gstride) {
         sumr[s] = 0;
@@ -400,6 +484,7 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
       const int j0 = fl ? 31 - __clz(fl) : 0;
       int carry = warp_sum(lane >= j0 && lane < warp ? s_tail[lane] : 0);
       if (!fl) carry = wadd(carry, block_carry(btail, bflag, blockIdx.x));
+      int t_push = 0;
       for (int b = wbeg; b < wend; b += 32) {
         const int i = b + lane;
         const bool ok = i < wend;
@@ -414,8 +499,10 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
         const int excl = wsub(head_scan(ra, head, carry), ra);
         const int dl = ok ? clip0(wsub(ex, excl), ra) : 0;
         if (ok) delta[i] = dl;
+        if (kTel) t_push = wadd(t_push, dl);
         run_reduce(s, dl, pushed, Add());
       }
+      tel_count<kTel>(s_tel, kTPushed, t_push);
     }
     grid.sync();
     // pass D: flows from every push and its partner's (all deltas are
@@ -434,17 +521,25 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
       }
       run_reduce(s, v, acc_n, Add());
     }
+    int t_rel = 0;
     for (int s = g0; s < nseg; s += gstride) {
-      if (excess(acc_c, s) > 0 && pushed[s] == 0 && sumr[s] > 0)
+      if (excess(acc_c, s) > 0 && pushed[s] == 0 && sumr[s] > 0) {
         p_s[s] = wsub(best[s], eps);
+        if (kTel) ++t_rel;
+      }
       sumr[s] = 0;
       best[s] = INT_MIN;
       pushed[s] = 0;
     }
+    tel_count<kTel>(s_tel, kTRelabels, t_rel);
     ++steps;
+    pending = true;
     cur ^= 1;
     grid.sync();
   }
+  // the budget ran out after a superstep: its row (its barriers are met)
+  if (tel_writer && pending)
+    tel_row(a.tel, a.tel_cap, steps - 1, eps, tel_buf + kTelCounters * ((steps - 1) & 1));
 
   // ---- converged = done & max|excess| == 0; p_overflow = max|p| >= 2^30 ----
   bool pos = false, zero = false, ovf = false;
@@ -468,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, 1) mcmf_kernel(Args a) {
 
 // `n` grid barriers and nothing else: the barrier's own cost, for timing
 __global__ void __launch_bounds__(kThreads, 1) barrier_kernel(int* hdr, int n) {
-  Grid grid{hdr};
+  Grid<> grid{hdr};
   for (int k = 0; k < n; ++k) grid.sync();
 }
 
@@ -490,29 +585,35 @@ extern "C" long long ksched_mcmf_scratch_words(int E, int blocks) {
   return static_cast<long long>(kScratchTables) * E + kHeadWords + 2LL * blocks;
 }
 
-// Blocks of the kernel one SM holds at once (cudaOccupancy...), or minus
-// the CUDA error code.
+// Blocks of the kernel one SM holds at once, with or without the ring
+// (cudaOccupancy..., the fewer of the two), or minus the CUDA error code.
 extern "C" int ksched_mcmf_blocks_per_sm() {
-  int n = 0;
-  const cudaError_t rc =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mcmf_kernel, kThreads, 0);
-  return rc == cudaSuccess ? n : -static_cast<int>(rc);
+  int n0 = 0, n1 = 0;
+  cudaError_t rc =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n0, mcmf_kernel<false>, kThreads, 0);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n1, mcmf_kernel<true>, kThreads, 0);
+  return rc == cudaSuccess ? min(n0, n1) : -static_cast<int>(rc);
 }
 
 extern "C" int ksched_mcmf_solve(const int* sign, const int* cap, const int* sc,
                                  const int* sup, const int* seg, const int* pseg,
                                  const int* partner, const int* hs, const int* f0,
-                                 int* f, int* result, int* scratch, int E, int eps0,
-                                 int alpha, int max_supersteps, int tighten_sweeps,
-                                 int blocks, int chunk, void* stream) {
-  if (blocks < 1 || chunk < 32 || chunk % 32 != 0 ||
+                                 int* f, int* result, int* scratch, int* tel, int E,
+                                 int eps0, int alpha, int max_supersteps,
+                                 int tighten_sweeps, int blocks, int chunk, int tel_cap,
+                                 void* stream) {
+  if (blocks < 1 || chunk < 32 || chunk % 32 != 0 || tel_cap < 0 ||
+      (tel_cap > 0 && tel == nullptr) ||
       static_cast<long long>(blocks) * kWarps * chunk < E)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{sign, cap, sc, sup, seg, pseg, partner, hs, f0, f, result, scratch,
-         E, eps0, alpha, max_supersteps, tighten_sweeps, chunk};
+  Args a{sign, cap, sc, sup, seg, pseg, partner, hs, f0, f, result, scratch, tel,
+         E, eps0, alpha, max_supersteps, tighten_sweeps, chunk, tel_cap};
   void* params[] = {&a};
-  return static_cast<int>(launch(reinterpret_cast<const void*>(mcmf_kernel), blocks,
-                                 params, scratch + static_cast<long long>(kScratchTables) * E,
+  const void* kernel = tel_cap > 0 ? reinterpret_cast<const void*>(mcmf_kernel<true>)
+                                   : reinterpret_cast<const void*>(mcmf_kernel<false>);
+  return static_cast<int>(launch(kernel, blocks, params,
+                                 scratch + static_cast<long long>(kScratchTables) * E,
                                  static_cast<cudaStream_t>(stream)));
 }
 

@@ -9,7 +9,10 @@ tables of a MegaPlan (solver/mega_solver.py). It returns what the
 Pallas kernel returns, bit for bit: the flow at each arc's forward
 entry, the superstep count, converged and p_overflow. `mcmf_loop_plain`
 is the same solve in plain PyTorch over the same tables; a CPU tensor
-runs it, a CUDA tensor launches the kernel or raises.
+runs it, a CUDA tensor launches the kernel or raises. With
+`telemetry_cap` > 0 both also return the Pallas kernel's fifth output,
+the int32 [cap, 8] soltel ring (obs/soltel.py), the cap clamped as the
+JAX package clamps it (`mega_telemetry_cap`).
 
 The gathers of cap, cost, supply and flow0 into entry order and the
 final flow[fwd_pos] are torch ops around the launch, as the JAX wrapper
@@ -45,9 +48,10 @@ _P_GUARD = 1 << 30
 MEGA_LANES = 512
 #: the kernel's scratch tables of R * L words (csrc/mcmf.cu kScratchTables)
 MCMF_SCRATCH_TABLES = 11
-#: its scratch header words and per-block slots (kHeadWords; a tail and
-#: a head flag per block)
-MCMF_HEAD_WORDS = 3
+#: its scratch header words (kHeadWords: the barrier counter, the
+#: decision flag, the end flags and two buffers of the ring's six
+#: counters) and per-block slots (a tail and a head flag per block)
+MCMF_HEAD_WORDS = 15
 MCMF_BLOCK_WORDS = 2
 #: int32 [R * L] tables the kernel keeps in global memory during a
 #: solve: its 9 inputs, the flow it writes and its scratch tables
@@ -60,7 +64,7 @@ MEGA_BUDGET_BYTES = 40 << 20
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ksched_mcmf_solve": ([_VP] * 12 + [_CI] * 7 + [_VP], _CI),
+    "ksched_mcmf_solve": ([_VP] * 13 + [_CI] * 8 + [_VP], _CI),
     "ksched_mcmf_scratch_words": ([_CI, _CI], ctypes.c_longlong),
     "ksched_mcmf_blocks_per_sm": ([], _CI),
     "ksched_mcmf_barrier_probe": ([_VP, _CI, _CI, _VP], _CI),
@@ -70,6 +74,16 @@ _SIGNATURES = {
 def mega_entry_rows(num_entries: int, lanes: int = MEGA_LANES) -> int:
     """Block rows R for a 2M-entry table tiled [R, lanes]."""
     return max(1, -(-num_entries // lanes))
+
+
+def mega_telemetry_cap(R: int, L: int, cap: int) -> int:
+    """The ring length for a requested capacity `cap` on an [R, L] entry
+    tiling: at most one [R, L] tile of int32, as the JAX package clamps
+    it to one VMEM tile (mcmf_pallas.py mega_telemetry_cap), so the two
+    packages' rings have the same length."""
+    from ..obs.soltel import SOLTEL_WIDTH
+
+    return max(1, min(int(cap), (R * L) // SOLTEL_WIDTH))
 
 
 def mcmf_grid(num_entries: int, sm_count: int, blocks_per_sm: int) -> tuple:
@@ -96,13 +110,15 @@ def mcmf_scratch_words(num_entries: int, blocks: int) -> int:
 
 
 def mega_fits(num_entries: int, lanes: int = MEGA_LANES,
-              budget_bytes: int = MEGA_BUDGET_BYTES) -> bool:
+              budget_bytes: int = MEGA_BUDGET_BYTES,
+              telemetry: bool = False) -> bool:
     """Whether the kernel's live set for `num_entries` residual entries
-    (its inputs, flow and scratch at the most blocks its grid can take)
-    stays within `budget_bytes`."""
+    (its inputs, flow and scratch at the most blocks its grid can take,
+    and with `telemetry` the soltel ring, at most one more table: see
+    `mega_telemetry_cap`) stays within `budget_bytes`."""
     padded = mega_entry_rows(num_entries, lanes) * lanes
     most_blocks = -(-padded // (MCMF_WARPS * 32))
-    words = ((MEGA_LIVE_TABLES - MCMF_SCRATCH_TABLES) * padded
+    words = ((MEGA_LIVE_TABLES - MCMF_SCRATCH_TABLES + telemetry) * padded
              + mcmf_scratch_words(padded, most_blocks))
     return 4 * words <= budget_bytes
 
@@ -131,12 +147,15 @@ def _entry_tables(cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs,
 def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
                     e_arc, e_sign, e_src, e_hs, e_he, e_prow, e_pcol, fwd_pos,
                     R: int, L: int, *, alpha: int = 8,
-                    max_supersteps: int = 50_000, tighten_sweeps: int = 32):
+                    max_supersteps: int = 50_000, tighten_sweeps: int = 32,
+                    telemetry_cap: int = 0):
     """The kernel's solve in plain PyTorch on the tensors' device: flow
     per entry, price and excess per segment (each segment is one source
     node's entries, and the pad), one host read of "any excess
     positive" per superstep. Same arguments and results as
     `mcmf_loop`."""
+    from ..obs import soltel
+
     sign, cap_e, sc, sup, f, seg, partner, head = _entry_tables(
         cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs, e_prow, e_pcol, L)
     E = R * L
@@ -178,6 +197,10 @@ def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
     p = -torch.clamp(d, max=_BIG_D)
     f = saturate(f, p)
 
+    dev = f.device
+    if telemetry_cap:
+        telemetry_cap = mega_telemetry_cap(R, L, telemetry_cap)
+        tel = soltel.device_ring(telemetry_cap, dev)
     eps, steps, done = int(eps_init), 0, False
     while not done and steps < max_supersteps:
         exc = excess(f)
@@ -196,18 +219,28 @@ def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
             best = seg_reduce(torch.where(r > 0, pp - sc, -_BIG), "amax")
             relabel = (exc > 0) & (seg_sum(delta) == 0) & (seg_sum(r) > 0)
             p = torch.where(relabel, best - eps, p)
+            if telemetry_cap:
+                # segments with excess and their excess at the step's
+                # start, units pushed, relabels, forward entries at zero
+                # residual before the push, admissible entries
+                soltel.device_ring_write(tel, steps, soltel.device_row(
+                    eps, torch.sum(exc > 0, dtype=_I32),
+                    torch.sum(exc.clamp(min=0), dtype=_I32),
+                    torch.sum(delta, dtype=_I32), torch.sum(relabel, dtype=_I32),
+                    torch.sum(fwd & (r == 0), dtype=_I32),
+                    torch.sum(r_adm > 0, dtype=_I32), device=dev))
             steps += 1
         elif eps <= 1:
             done = True
         else:
             f = saturate(f, p)
             eps = max(1, eps // alpha)
-    dev = f.device
     converged = done and int(excess(f).abs().max()) == 0
     p_overflow = int(p.abs().max()) >= _P_GUARD
-    return (f[fwd_pos.long()], torch.tensor(steps, dtype=_I32, device=dev),
-            torch.tensor(converged, device=dev),
-            torch.tensor(p_overflow, device=dev))
+    out = (f[fwd_pos.long()], torch.tensor(steps, dtype=_I32, device=dev),
+           torch.tensor(converged, device=dev),
+           torch.tensor(p_overflow, device=dev))
+    return out + (tel,) if telemetry_cap else out
 
 
 #: tightening sweeps of the last call (the kernel runs the same number)
@@ -217,10 +250,11 @@ mcmf_loop_plain.sweeps = 0
 def mcmf_loop(cap, cost, supply, flow0, eps_init,
               e_arc, e_sign, e_src, e_hs, e_he, e_prow, e_pcol, fwd_pos,
               R: int, L: int, *, alpha: int = 8, max_supersteps: int = 50_000,
-              tighten_sweeps: int = 32):
+              tighten_sweeps: int = 32, telemetry_cap: int = 0):
     """One general-graph MCMF solve: (flow int32[len(fwd_pos)], steps
     int32 scalar, converged bool scalar, p_overflow bool scalar) on
-    cap's device.
+    cap's device, and with telemetry_cap > 0 the int32
+    [mega_telemetry_cap(R, L, telemetry_cap), 8] soltel ring.
 
     cap/cost/flow0 are int32[M] per arc (cost pre-scaled by the node
     count), supply int32[N], eps_init an int; e_* are a MegaPlan's
@@ -232,7 +266,7 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
     or raises, also when the card refuses the cooperative launch; a CPU
     tensor runs `mcmf_loop_plain`."""
     kw = dict(alpha=alpha, max_supersteps=max_supersteps,
-              tighten_sweeps=tighten_sweeps)
+              tighten_sweeps=tighten_sweeps, telemetry_cap=telemetry_cap)
     args = (cap, cost, supply, flow0, eps_init, e_arc, e_sign, e_src, e_hs,
             e_he, e_prow, e_pcol, fwd_pos, R, L)
     if cap.device.type == "cpu":
@@ -252,8 +286,10 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
         raise ValueError("mcmf_loop needs at least one arc, node and entry")
     if alpha < 2:
         raise ValueError(f"alpha must be >= 2, got {alpha}")
-    if not all(0 <= v < 1 << 31 for v in (max_supersteps, tighten_sweeps)):
-        raise ValueError("max_supersteps and tighten_sweeps must fit int32")
+    if not all(0 <= v < 1 << 31 for v in (max_supersteps, tighten_sweeps,
+                                         telemetry_cap)):
+        raise ValueError("max_supersteps, tighten_sweeps and telemetry_cap "
+                         "must fit int32")
     eps = int(eps_init)
     if not -(1 << 31) <= eps < 1 << 31:
         raise ValueError(f"eps_init {eps} does not fit int32")
@@ -270,19 +306,24 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
     result = torch.empty(4, dtype=_I32, device=dev)
     scratch = torch.empty(int(lib.ksched_mcmf_scratch_words(E, blocks)),
                           dtype=_I32, device=dev)
+    if telemetry_cap:
+        telemetry_cap = mega_telemetry_cap(R, L, telemetry_cap)
+        tel = torch.zeros((telemetry_cap, 8), dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ksched_mcmf_solve(
             *(t.data_ptr() for t in tables), f.data_ptr(), result.data_ptr(),
-            scratch.data_ptr(), E, eps, alpha, max_supersteps, tighten_sweeps,
-            blocks, chunk, stream,
+            scratch.data_ptr(), tel.data_ptr() if telemetry_cap else None, E, eps,
+            alpha, max_supersteps, tighten_sweeps, blocks, chunk, telemetry_cap,
+            stream,
         )
     raise_on(lib, rc, "mcmf")
     mcmf_loop.launches += 1
     mcmf_loop.last_inputs = (cap.data_ptr(), cost.data_ptr(), supply.data_ptr())
     mcmf_loop.last_blocks = blocks
     mcmf_loop.last_barriers = result[3]
-    return f[fwd_pos.long()], result[0], result[1] != 0, result[2] != 0
+    out = (f[fwd_pos.long()], result[0], result[1] != 0, result[2] != 0)
+    return out + (tel,) if telemetry_cap else out
 
 
 #: kernel launches since the count was last set to 0

@@ -482,10 +482,16 @@ class BulkCluster:
             row_of_task = cls
         timing["stats_s"] = sp.finish()
 
-        # (ksched_tpu also publishes the backend's solver-interior
-        # telemetry here; that is ROADMAP item 10)
         with span("solve", path="layered") as sp:
             res = self.backend.solve_layered(lp)
+            # solver-interior telemetry (obs/soltel.py): the layered
+            # backend is dispatched here, not through solve_traced, so
+            # this is its publication seam
+            tel = getattr(self.backend, "last_telemetry", None)
+            if tel is not None:
+                from ..obs import soltel
+
+                soltel.publish(tel, sp)
         timing["solve_s"] = sp.dur_s
 
         sp = span("decode").__enter__()

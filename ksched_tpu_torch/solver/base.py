@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..graph.device_export import FlowProblem
+from ..obs.soltel import SolverStallError  # noqa: F401 — re-exported
 
 
 @dataclass
@@ -42,13 +43,6 @@ class FlowResult:
 
     def total_flow(self, problem: FlowProblem) -> np.ndarray:
         return self.flow + problem.flow_offset
-
-
-class SolverStallError(RuntimeError):
-    """A push-relabel solve that did not converge within its superstep
-    budget (ksched_tpu's obs/soltel.SolverStallError without the
-    telemetry evidence, which waits for the soltel port). A
-    RuntimeError, so callers that catch the bare error still do."""
 
 
 def check_finite_costs(problem: FlowProblem) -> None:
@@ -84,7 +78,14 @@ class FlowSolver(abc.ABC):
         instrumentation seam shared by every backend — the placement
         driver calls it, so each solve is a nested span in a captured
         trace. Costs two ``perf_counter`` reads when no tracer is
-        installed."""
+        installed.
+
+        Backends that emit solver-interior telemetry (``last_telemetry``
+        after a solve — the csr, ell and mega solves and the layered
+        transport's plain loop) additionally get their ring decoded here:
+        superstep histograms onto the registry, per-superstep child spans
+        under this span, and the stall detector (obs/soltel.py)."""
+        from ..obs import soltel
         from ..obs.spans import span
 
         with span(
@@ -101,6 +102,9 @@ class FlowSolver(abc.ABC):
             )
             if work:
                 sp.set("supersteps", work)
+            tel = getattr(self, "last_telemetry", None)
+            if tel is not None:
+                soltel.publish(tel, sp)
         return result
 
     def reset(self) -> None:

@@ -24,8 +24,12 @@ package's JaxSolver does; a device-resident problem
 (graph/device_export.py DeviceResidentProblem) is solved on its
 persistent tensors with the warm flow carried on the card.
 
-Not ported yet: warm-state checkpointing (ROADMAP item 9) and the soltel
-telemetry ring with its `warm_price_war` event (item 10).
+Every solve writes the soltel telemetry ring by default (obs/soltel.py;
+`telemetry=0` or KSCHED_SOLTEL=0 turns it off): `last_telemetry` holds
+the last attempt's decoded ring, a stall raises SolverStallError with
+the stall detector's reason and the ring, and a warm attempt that burns
+its budget is reported as a `warm_price_war` event. Not ported yet:
+warm-state checkpointing (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -168,10 +172,15 @@ def _solve_mcmf(
     inert in every reduction. use_warm_p=True refits the carried
     potentials `warm_p` (the Bellman sweeps seeded with d0 = -warm_p)
     instead of tightening from scratch. Each host read of a flag or a
-    scalar adds one to `_solve_mcmf.reads`."""
-    if telemetry_cap:
-        raise NotImplementedError(
-            "the soltel telemetry ring is not ported yet (ROADMAP item 10)")
+    scalar adds one to `_solve_mcmf.reads`.
+
+    telemetry_cap > 0 appends the int32 [telemetry_cap, SOLTEL_WIDTH]
+    soltel ring (obs/soltel.py) to the returned tuple, a row written on
+    the device at `step % cap` for every superstep; its counters read
+    values each superstep already computes, so flows are bit-identical
+    with the ring on or off."""
+    from ..obs import soltel
+
     m = cap.shape[0]
     s_arc, s_src, s_dst, s_segstart, inv_order, node_first, node_last = (
         t.long() for t in (s_arc, s_src, s_dst, s_segstart, inv_order,
@@ -237,8 +246,21 @@ def _solve_mcmf(
         cand = torch.where(r > 0, p[s_dst] - s_cost, -_BIG)
         best = _seg_max(cand, s_isstart, node_last, node_nonempty, -_BIG)
         relabel = (excess > 0) & (pushed == 0) & (sum_r > 0)
-        return new_flow, torch.where(relabel, best - eps, p)
+        new_p = torch.where(relabel, best - eps, p)
+        if not telemetry_cap:
+            return new_flow, new_p, ()
+        # soltel cols 3..6: pushed units, relabels, saturated forward
+        # entries (before the push) and admissible entries
+        aux = (
+            torch.sum(pushed, dtype=_I32),
+            torch.sum(relabel, dtype=_I32),
+            torch.sum((s_sign > 0) & (r == 0), dtype=_I32),
+            torch.sum(r_adm > 0, dtype=_I32),
+        )
+        return new_flow, new_p, aux
 
+    dev = cap.device
+    tel = soltel.device_ring(telemetry_cap, dev) if telemetry_cap else None
     if use_warm_p:
         p = tighten(flow0, d0=torch.clamp(-warm_p, -_BIG_D, _BIG_D))
     else:
@@ -249,21 +271,25 @@ def _solve_mcmf(
         excess = excess_of(flow)
         _solve_mcmf.reads += 1
         if bool((excess > 0).any()):
-            flow, p = superstep(flow, p, eps, excess)
+            flow, p, aux = superstep(flow, p, eps, excess)
+            if telemetry_cap:
+                soltel.device_ring_write(tel, steps, soltel.device_row(
+                    eps, torch.sum(excess > 0, dtype=_I32),
+                    torch.sum(excess.clamp(min=0), dtype=_I32), *aux, device=dev))
             steps += 1
         elif eps <= 1:
             done = True
         else:
             flow = saturate(flow, p)
             eps = max(1, eps // alpha)
-    dev = cap.device
     converged = done and int(excess_of(flow).abs().max()) == 0
     p_overflow = int(p.abs().max()) >= _P_GUARD
     _solve_mcmf.reads += 1 + done
-    return (
+    out = (
         flow, p, torch.tensor(steps, dtype=_I32, device=dev),
         torch.tensor(converged, device=dev), torch.tensor(p_overflow, device=dev),
     )
+    return out + (tel,) if telemetry_cap else out
 
 
 #: host reads (flags and scalars) of every solve since it was set to 0
@@ -298,7 +324,8 @@ class CsrSolver(FlowSolver):
     def __init__(self, alpha: int = 8, max_supersteps: int = 50_000,
                  warm_start: bool = True, warm_potentials: bool = True,
                  restart_budget: Optional[int] = None,
-                 journal_scoped_warm: bool = True, device="cuda"):
+                 journal_scoped_warm: bool = True, telemetry: Optional[int] = None,
+                 device="cuda"):
         from ..utils.device import resolve_device
         from .layered import validate_alpha
 
@@ -308,6 +335,8 @@ class CsrSolver(FlowSolver):
         self.warm_potentials = warm_potentials
         self.journal_scoped_warm = journal_scoped_warm
         self.restart_budget = restart_budget
+        #: soltel ring capacity; None = obs/soltel.resolve_cap's default
+        self.telemetry = telemetry
         self.device = resolve_device(device)
         self._prev: Optional[np.ndarray] = None  # previous round's flow
         self._prev_dev: Optional[torch.Tensor] = None  # same, resident rounds
@@ -324,6 +353,8 @@ class CsrSolver(FlowSolver):
         #: endpoint key at the last successful solve
         self._key_solved = None
         self.last_supersteps = 0
+        #: SolveTelemetry of the last solve's final attempt (or None)
+        self.last_telemetry = None
         self.last_warm_scope = "cold"  # warm | fresh | cold
         #: host reads of the last solve's attempts (`_solve_mcmf.reads`)
         self.last_host_reads = 0
@@ -356,12 +387,15 @@ class CsrSolver(FlowSolver):
         self._plan_key = plan_key
         return self._plan_dev
 
-    def _attempt(self, args, flow0, eps, budget, slot_stable, warm_p=None):
-        return _solve_mcmf(
+    def _attempt(self, args, flow0, eps, budget, slot_stable, tel_cap, warm_p=None):
+        """One `_solve_mcmf` attempt: (flow, p, steps, converged,
+        p_overflow, ring or None)."""
+        out = _solve_mcmf(
             *args[:3], flow0, eps, *args[3:], warm_p=warm_p,
             use_warm_p=warm_p is not None, alpha=self.alpha,
-            max_supersteps=budget, slot_stable=slot_stable,
+            max_supersteps=budget, telemetry_cap=tel_cap, slot_stable=slot_stable,
         )
+        return out if tel_cap else out + (None,)
 
     def solve_async(self, problem: FlowProblem):
         """Run the warm attempt; complete() escalates if it failed."""
@@ -444,45 +478,76 @@ class CsrSolver(FlowSolver):
         budget = min(4096, self.max_supersteps)
         if warm and self.restart_budget is not None:
             budget = min(budget, self.restart_budget)
+        from ..obs import soltel
+
+        tel_cap = soltel.resolve_cap(self.telemetry)
         reads0 = _solve_mcmf.reads
-        out = self._attempt(args, flow0_dev, 1, budget, slot_stable,
+        out = self._attempt(args, flow0_dev, 1, budget, slot_stable, tel_cap,
                             self._prev_p if warm_p_ok else None)
         cold = max(1, max_cost * n)
-        return (problem, out, (args, cold, warm, slot_stable, resident, reads0))
+        return (problem, out, (args, cold, warm, slot_stable, resident, reads0,
+                               tel_cap, budget))
 
     def complete(self, pending) -> FlowResult:
+        from ..obs import soltel
+
         problem, out, rest = pending
         if out is None:
+            self.last_telemetry = None
             return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),
                               objective=0, iterations=0)
-        args, eps_cold, warm, slot_stable, resident, reads0 = rest
+        args, eps_cold, warm, slot_stable, resident, reads0, tel_cap, budget1 = rest
         m = len(problem.src)
         zeros = torch.zeros(m, dtype=_I32, device=args[0].device)
-        flow, p, steps, converged, p_overflow = out
+
+        def decode(tel_buf, steps, budget, converged):
+            if tel_buf is None:
+                return None
+            return soltel.decode(tel_buf, steps, tel_cap, "jax", budget,
+                                 converged=converged, nodes=problem.num_nodes,
+                                 arcs=m)
+
+        flow, p, steps, converged, p_overflow, tel_buf = out
         spent = int(steps)
         ok = bool(converged) and not bool(p_overflow)
+        if warm and not ok and not bool(converged):
+            # a warm attempt that burned its budget is a price war, not a
+            # hard instance: a structured event for the flight recorder
+            # (a converged attempt that tripped the overflow guard is not)
+            soltel.warm_price_war(
+                "jax", supersteps=int(steps), budget=budget1,
+                escaped_to=("fresh_restart" if self.restart_budget is not None
+                            else "cost_scaling"),
+                tel=decode(tel_buf, int(steps), budget1, False),
+            )
         if warm and not ok and self.restart_budget is not None:
             # restart escape: a warm attempt that blew its budget
             # re-solves fresh (zero flow, tightened prices, eps 1)
-            flow, p, steps, converged, p_overflow = self._attempt(
-                args, zeros, 1, min(4096, self.max_supersteps), slot_stable)
+            flow, p, steps, converged, p_overflow, tel_buf = self._attempt(
+                args, zeros, 1, min(4096, self.max_supersteps), slot_stable, tel_cap)
             spent += int(steps)
             ok = bool(converged) and not bool(p_overflow)
         if not ok:
-            flow, p, steps, converged, p_overflow = self._attempt(
-                args, zeros, eps_cold, self.max_supersteps, slot_stable)
+            flow, p, steps, converged, p_overflow, tel_buf = self._attempt(
+                args, zeros, eps_cold, self.max_supersteps, slot_stable, tel_cap)
             spent += int(steps)
         # every attempt's supersteps: the work this round, not the winner's
         self.last_supersteps = spent
         self.last_host_reads = _solve_mcmf.reads - reads0
+        # the ring is the final attempt's; its budget is the solver's
+        self.last_telemetry = decode(tel_buf, int(steps), self.max_supersteps,
+                                     bool(converged) and not bool(p_overflow))
         if bool(p_overflow) or not bool(converged):
             self.reset()  # never reuse the state that failed
         if bool(p_overflow):
             raise OverflowError("push-relabel potentials approached int32 range")
         if not bool(converged):
+            tel = self.last_telemetry
             raise SolverStallError(
                 f"push-relabel did not converge within {self.max_supersteps} supersteps; "
-                "the flow problem may be infeasible (missing unscheduled-aggregator arcs?)"
+                "the flow problem may be infeasible (missing unscheduled-aggregator arcs?)",
+                reason=soltel.detect_stall(tel) if tel is not None else None,
+                telemetry=tel,
             )
         flow_np = flow.cpu().numpy()
         if self.warm_start:

@@ -25,8 +25,9 @@ There is no kernel here: the JAX package runs this solve as XLA, and
 the port runs it as plain PyTorch on the tensors' device, one Python
 iteration (one host read) per superstep. A device-resident problem
 (graph/device_export.py) is solved on its persistent tensors with the
-warm flow carried on the card. Not ported: the soltel telemetry ring
-(ROADMAP item 10).
+warm flow carried on the card. Every solve writes the soltel telemetry
+ring by default (obs/soltel.py), as `_solve_mcmf_ell` does in the JAX
+package: `last_telemetry`, and the stall reason on a SolverStallError.
 """
 
 from __future__ import annotations
@@ -199,12 +200,15 @@ def _solve_mcmf_ell(
     alpha: int = 8,
     max_supersteps: int = 50_000,
     tighten_sweeps: int = 32,
+    telemetry_cap: int = 0,
 ):
     """One bucketed-ELL solve: (flow int32[M], p int32[N], steps int32,
     converged bool, p_overflow bool) tensors on cap's device, equal to
     ksched_tpu's `_solve_mcmf_ell` bit for bit. Arguments as there:
     cap/cost/flow0 int32[M] (cost pre-scaled by the node count), supply
-    int32[N], an EllPlan's tables (`plan_tensors`)."""
+    int32[N], an EllPlan's tables (`plan_tensors`). telemetry_cap > 0
+    appends the int32 [telemetry_cap, SOLTEL_WIDTH] soltel ring."""
+    from ..obs import soltel
     kmax = hub_rows.shape[1]
     hub_rows_valid = hub_rows_valid.to(torch.bool)
     a_src, a_dst = a_src.long(), a_dst.long()
@@ -291,28 +295,45 @@ def _solve_mcmf_ell(
         cand_h = torch.where(r_h > 0, pp_h - sc_h, -_BIG)
         best = per_node(i32max(cand_s, 1), i32max(cand_h, 1), i32max, -_BIG)
         relabel = (excess > 0) & (pushed == 0) & (sum_r > 0)
-        return new_flow, torch.where(relabel, best - eps, p)
+        new_p = torch.where(relabel, best - eps, p)
+        if not telemetry_cap:
+            return new_flow, new_p, ()
+        # soltel cols 3..6; flow == cap <=> forward residual 0 (a
+        # zero-cap arc counts), as in the CSR and mega counters
+        aux = (
+            torch.sum(pushed, dtype=_I32),
+            torch.sum(relabel, dtype=_I32),
+            torch.sum(flow >= cap, dtype=_I32),
+            torch.sum(ra_s > 0, dtype=_I32) + torch.sum(ra_h > 0, dtype=_I32),
+        )
+        return new_flow, new_p, aux
 
+    dev = cap.device
+    tel = soltel.device_ring(telemetry_cap, dev) if telemetry_cap else None
     p = tighten(flow0)
     flow = saturate(flow0, p)
     eps, steps, done = int(eps_init), 0, False
     while not done and steps < max_supersteps:
         excess = excess_of(flow)
         if bool((excess > 0).any()):
-            flow, p = superstep(flow, p, eps, excess)
+            flow, p, aux = superstep(flow, p, eps, excess)
+            if telemetry_cap:
+                soltel.device_ring_write(tel, steps, soltel.device_row(
+                    eps, torch.sum(excess > 0, dtype=_I32),
+                    torch.sum(excess.clamp(min=0), dtype=_I32), *aux, device=dev))
             steps += 1
         elif eps <= 1:
             done = True
         else:
             flow = saturate(flow, p)
             eps = max(1, eps // alpha)
-    dev = cap.device
     converged = done and int(excess_of(flow).abs().max()) == 0
     p_overflow = int(p.abs().max()) >= _P_GUARD
-    return (
+    out = (
         flow, p, torch.tensor(steps, dtype=_I32, device=dev),
         torch.tensor(converged, device=dev), torch.tensor(p_overflow, device=dev),
     )
+    return out + (tel,) if telemetry_cap else out
 
 
 def plan_tensors(plan: EllPlan, device) -> tuple:
@@ -344,7 +365,7 @@ class EllSolver(FlowSolver):
 
     def __init__(self, alpha: int = 8, max_supersteps: int = 50_000,
                  warm_start: bool = True, w_small: int = 8, w_hub: int = 512,
-                 device="cuda"):
+                 telemetry: Optional[int] = None, device="cuda"):
         from ..utils.device import resolve_device
         from .layered import validate_alpha
 
@@ -353,6 +374,8 @@ class EllSolver(FlowSolver):
         self.warm_start = warm_start
         self.w_small = w_small
         self.w_hub = w_hub
+        #: soltel ring capacity; None = obs/soltel.resolve_cap's default
+        self.telemetry = telemetry
         self.device = resolve_device(device)
         self._prev: Optional[np.ndarray] = None
         self._prev_dev: Optional[torch.Tensor] = None  # resident rounds
@@ -364,6 +387,7 @@ class EllSolver(FlowSolver):
         #: endpoint-generation key of the cached plan (FlowProblem.plan_key)
         self._plan_key = None
         self.last_supersteps = 0
+        self.last_telemetry = None
 
     def reset(self) -> None:
         self._prev = None
@@ -423,35 +447,51 @@ class EllSolver(FlowSolver):
                     same = (prev_plan.src == src) & (prev_plan.dst == dst)
                     flow0 = np.where(same, np.minimum(f_prev, cap), 0).astype(np.int32)
             flow0_dev = torch.as_tensor(flow0, device=self.device)
+        from ..obs import soltel
+
+        tel_cap = soltel.resolve_cap(self.telemetry)
         out = _solve_mcmf_ell(
             *dev_args, flow0_dev, 1, *plan_dev, alpha=self.alpha,
-            max_supersteps=min(4096, self.max_supersteps),
+            max_supersteps=min(4096, self.max_supersteps), telemetry_cap=tel_cap,
         )
         cold = max(1, max_cost * n)
-        return (problem, out, (dev_args, plan_dev, cold), resident)
+        return (problem, out, (dev_args, plan_dev, cold, tel_cap), resident)
 
     def complete(self, pending) -> FlowResult:
+        from ..obs import soltel
+
         problem, out, rest, resident = pending
         if out is None:
+            self.last_telemetry = None
             return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),
                               objective=0, iterations=0)
-        dev_args, plan_dev, eps_cold = rest
-        flow, p, steps, converged, p_overflow = out
+        dev_args, plan_dev, eps_cold, tel_cap = rest
+        flow, p, steps, converged, p_overflow, *ring = out
         if not (bool(converged) and not bool(p_overflow)):
             zeros = torch.zeros(len(problem.src), dtype=_I32, device=dev_args[0].device)
-            flow, p, steps, converged, p_overflow = _solve_mcmf_ell(
+            flow, p, steps, converged, p_overflow, *ring = _solve_mcmf_ell(
                 *dev_args, zeros, eps_cold, *plan_dev, alpha=self.alpha,
-                max_supersteps=self.max_supersteps,
+                max_supersteps=self.max_supersteps, telemetry_cap=tel_cap,
             )
         self.last_supersteps = int(steps)
+        # the final attempt's ring; its budget is the solver's
+        self.last_telemetry = soltel.decode(
+            ring[0], int(steps), tel_cap, "ell", self.max_supersteps,
+            converged=bool(converged) and not bool(p_overflow),
+            nodes=problem.num_nodes, arcs=len(problem.src),
+        ) if ring else None
         if bool(p_overflow) or not bool(converged):
             self.reset()
         if bool(p_overflow):
             raise OverflowError("push-relabel potentials approached int32 range")
         if not bool(converged):
+            tel = self.last_telemetry
             raise SolverStallError(
                 f"push-relabel did not converge within {self.max_supersteps} "
-                "supersteps; the flow problem may be infeasible")
+                "supersteps; the flow problem may be infeasible",
+                reason=soltel.detect_stall(tel) if tel is not None else None,
+                telemetry=tel,
+            )
         flow_np = flow.cpu().numpy()
         if self.warm_start:
             self._prev = flow_np.astype(np.int32)

@@ -681,6 +681,9 @@ class AutoSolver(FlowSolver):
         self.last_refusal = ""
         self.last_mega_refusal = ""
         self.last_supersteps = 0
+        #: solver-interior telemetry of the rung that produced the last
+        #: solve (obs/soltel.py); solve_traced publishes it
+        self.last_telemetry = None
 
     def reset(self) -> None:
         self.csr.reset()
@@ -698,6 +701,7 @@ class AutoSolver(FlowSolver):
                 self.last_supersteps = getattr(
                     mega, "last_supersteps", res.iterations
                 )
+                self.last_telemetry = getattr(mega, "last_telemetry", None)
                 return res
             self.last_mega_refusal = (
                 getattr(mega, "last_refusal", "") if mega is not None
@@ -710,6 +714,7 @@ class AutoSolver(FlowSolver):
                 ss if ss is not None
                 else getattr(self.csr, "last_iterations", 0)
             )
+            self.last_telemetry = getattr(self.csr, "last_telemetry", None)
             return res
         self.last_path, self.last_refusal = "dense", ""
         self.last_mega_refusal = ""
@@ -724,6 +729,7 @@ class AutoSolver(FlowSolver):
             for a, units in gc.pre_flows:
                 flow[a] += units
             self.last_supersteps = 0
+            self.last_telemetry = None
             return FlowResult(
                 flow=flow,
                 objective=int(
@@ -744,6 +750,7 @@ class AutoSolver(FlowSolver):
             row_unsched_cost=gc.row_unsched,
         ))
         self.last_supersteps = res.supersteps
+        self.last_telemetry = solver.last_telemetry
         y = np.asarray(res.y, np.int64)
 
         # ---- exact per-arc flow reconstruction ----

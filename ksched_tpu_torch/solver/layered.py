@@ -368,9 +368,15 @@ def _price_refine(wS, U, col_cap, y, z, pr, pm, psink, eps: int, waves: int):
     return pr, pm, psink
 
 
-def transport_superstep(wS, U, supply, col_cap, y, z, pr, pm, psink, eps: int):
+def transport_superstep(wS, U, supply, col_cap, y, z, pr, pm, psink, eps: int,
+                        with_stats: bool = False):
     """One synchronous push/relabel wave over the dense bipartite
-    residual graph. Every update is computed from the old state."""
+    residual graph. Every update is computed from the old state.
+
+    with_stats=True also returns the soltel counters (pushed, relabels,
+    saturated, work) as int32 scalar tensors, from this wave's own
+    intermediates (obs/soltel.py cols 3..6) — observational only, so
+    flows are bit-identical either way."""
     e_row, e_col, e_sink = _excesses(supply, y, z)
     rcf = wS + pr[:, None] - pm[None, :]
 
@@ -403,33 +409,51 @@ def transport_superstep(wS, U, supply, col_cap, y, z, pr, pm, psink, eps: int):
     # --- jump relabels for active nodes that pushed nothing ---
     pushed_row = delta_f.sum(dim=1, dtype=_I32)
     best_row = torch.where(r_fwd > 0, pm[None, :] - wS, -BIG).amax(dim=1)
-    pr2 = torch.where((e_row > 0) & (pushed_row == 0), best_row - eps, pr)
+    relabel_row = (e_row > 0) & (pushed_row == 0)
+    pr2 = torch.where(relabel_row, best_row - eps, pr)
 
     pushed_col = delta_s + delta_b.sum(dim=0, dtype=_I32)
     cand_col = torch.maximum(
         torch.where(y > 0, pr[:, None] + wS, -BIG).amax(dim=0),
         torch.where(r_s > 0, psink, -BIG),
     )
-    pm2 = torch.where((e_col > 0) & (pushed_col == 0), cand_col - eps, pm)
+    relabel_col = (e_col > 0) & (pushed_col == 0)
+    pm2 = torch.where(relabel_col, cand_col - eps, pm)
 
     pushed_sink = delta_zb.sum(dtype=_I32)
     cand_sink = torch.where(z > 0, pm, -BIG).amax()
-    psink2 = torch.where(
-        (e_sink > 0) & (pushed_sink == 0), cand_sink - eps, psink
+    relabel_sink = (e_sink > 0) & (pushed_sink == 0)
+    psink2 = torch.where(relabel_sink, cand_sink - eps, psink)
+    if not with_stats:
+        return y2, z2, pr2, pm2, psink2
+
+    def total(*xs):
+        return sum(torch.sum(x, dtype=_I32) for x in xs)
+
+    stats = (
+        total(delta_f, delta_s, delta_b, delta_zb),
+        total(relabel_row, relabel_col, relabel_sink),
+        total((U > 0) & (y >= U), (col_cap > 0) & (z >= col_cap)),
+        total(r_adm > 0, adm_s > 0, adm_b > 0, zb_adm > 0),
     )
-    return y2, z2, pr2, pm2, psink2
+    return y2, z2, pr2, pm2, psink2, stats
 
 
 def _transport_loop(wS, U, supply, col_cap, eps_init, alpha: int,
-                    max_supersteps: int, pm_init=None, refine_waves: int = 0):
+                    max_supersteps: int, pm_init=None, refine_waves: int = 0,
+                    telemetry_cap: int = 0):
     """The cost-scaling phase schedule: each iteration either runs a
     superstep (while active nodes exist) or advances the eps phase;
     exits as soon as the eps=1 phase drains, bounded by max_supersteps.
     Returns (y, z, pm, steps, converged) — pm is the final machine-price
     vector, for carrying into the next round; steps an int32 scalar
-    tensor, converged a bool scalar tensor."""
+    tensor, converged a bool scalar tensor. telemetry_cap > 0 appends
+    the int32 [telemetry_cap, SOLTEL_WIDTH] soltel ring."""
+    from ..obs import soltel
+
     C, Mp1 = wS.shape
     dev = wS.device
+    tel = soltel.device_ring(telemetry_cap, dev) if telemetry_cap else None
     pr, pm, psink = transport_tighten(wS, U, col_cap, pm_init)
     y = torch.zeros((C, Mp1), dtype=_I32, device=dev)
     z = torch.zeros(Mp1, dtype=_I32, device=dev)
@@ -439,9 +463,18 @@ def _transport_loop(wS, U, supply, col_cap, eps_init, alpha: int,
     while not done and steps < max_supersteps:
         e_row, e_col, e_sink = _excesses(supply, y, z)
         if bool((e_row > 0).any() | (e_col > 0).any() | (e_sink > 0)):
-            y, z, pr, pm, psink = transport_superstep(
-                wS, U, supply, col_cap, y, z, pr, pm, psink, eps
+            y, z, pr, pm, psink, *stats = transport_superstep(
+                wS, U, supply, col_cap, y, z, pr, pm, psink, eps,
+                with_stats=bool(telemetry_cap),
             )
+            if telemetry_cap:
+                active = (torch.sum(e_row > 0, dtype=_I32)
+                          + torch.sum(e_col > 0, dtype=_I32) + (e_sink > 0).to(_I32))
+                exc_pos = (torch.sum(e_row.clamp(min=0), dtype=_I32)
+                           + torch.sum(e_col.clamp(min=0), dtype=_I32)
+                           + e_sink.clamp(min=0))
+                soltel.device_ring_write(tel, steps, soltel.device_row(
+                    eps, active, exc_pos, *stats[0], device=dev))
             steps += 1
         elif eps <= 1:
             done = True
@@ -462,7 +495,8 @@ def _transport_loop(wS, U, supply, col_cap, eps_init, alpha: int,
     e_row, e_col, e_sink = _excesses(supply, y, z)
     balanced = ~((e_row != 0).any() | (e_col != 0).any() | (e_sink != 0))
     converged = balanced & done
-    return y, z, pm, torch.tensor(steps, dtype=_I32, device=dev), converged
+    out = (y, z, pm, torch.tensor(steps, dtype=_I32, device=dev), converged)
+    return out + (tel,) if telemetry_cap else out
 
 
 def _solve_transport(
@@ -474,15 +508,17 @@ def _solve_transport(
     alpha: int = 8,
     max_supersteps: int = 20_000,
     refine_waves: int = 0,
+    telemetry_cap: int = 0,
 ):
     """The plain PyTorch version of the transport kernel: same inputs,
-    same (y, pm, steps, converged), bit for bit."""
+    same (y, pm, steps, converged), bit for bit; with telemetry_cap > 0
+    also the soltel ring (which the kernel does not write)."""
     U = torch.minimum(supply[:, None], col_cap[None, :])  # fwd arc capacity
-    y, _z, pm, steps, converged = _transport_loop(
+    y, _z, pm, steps, converged, *tel = _transport_loop(
         wS, U, supply, col_cap, eps_init, alpha, max_supersteps,
-        pm_init=pm0, refine_waves=refine_waves,
+        pm_init=pm0, refine_waves=refine_waves, telemetry_cap=telemetry_cap,
     )
-    return y, pm, steps, converged
+    return (y, pm, steps, converged, *tel)
 
 
 # ---------------------------------------------------------------------------
@@ -917,37 +953,76 @@ class LayeredTransportSolver:
     hands it every collapsible graph). The iterative solve runs on
     `device` — the CUDA kernel on ``"cuda"`` (the default; raises when
     no CUDA device is present), the plain PyTorch version on ``"cpu"``.
-    """
+
+    ``telemetry`` is the soltel ring's capacity (None: obs/soltel's
+    default). The kernels write no ring, so, as the JAX package skips
+    the ring wherever its Pallas kernel runs, a ring is made only where
+    the plain loop runs anyway: on the CPU. On the card the superstep
+    count is all there is (`last_supersteps`), and flows are the same
+    either way."""
 
     def __init__(self, alpha: int = 8, max_supersteps: int = 20_000,
-                 device="cuda"):
+                 telemetry: Optional[int] = None, device="cuda"):
         from ..utils.device import resolve_device
 
         self.alpha = validate_alpha(alpha)
         self.max_supersteps = max_supersteps
+        self.telemetry = telemetry
         self.device = resolve_device(device)
         self.last_supersteps = 0
+        self.last_telemetry = None
 
     def reset(self) -> None:
         pass
 
     def solve_layered(self, lp: LayeredProblem) -> LayeredResult:
+        from ..obs import soltel
         from ..ops import transport_solve
 
+        tel_cap = soltel.resolve_cap(self.telemetry)
+        if self.device.type != "cpu":
+            tel_cap = 0  # the kernel runs: keep it, make no ring
+        captured = []  # (ring, steps, converged) of each attempt
+
         def solve(wS, sup, cap, eps_init):
-            y, _pm, steps, converged = transport_solve(
-                wS, sup, cap, eps_init,
-                alpha=self.alpha, max_supersteps=self.max_supersteps,
-            )
+            if tel_cap:
+                y, _pm, steps, converged, tel = _solve_transport(
+                    wS, sup, cap, eps_init, alpha=self.alpha,
+                    max_supersteps=self.max_supersteps, telemetry_cap=tel_cap,
+                )
+                captured.append((tel, steps, converged))
+            else:
+                y, _pm, steps, converged = transport_solve(
+                    wS, sup, cap, eps_init,
+                    alpha=self.alpha, max_supersteps=self.max_supersteps,
+                )
             return y, steps, converged
 
+        def decode_last(converged=None):
+            if not captured:
+                return None
+            tel, steps, conv = captured[-1]
+            return soltel.decode(
+                tel, int(steps), tel_cap, "layered", self.max_supersteps,
+                converged=bool(conv) if converged is None else converged,
+                nodes=int(lp.supply.shape[0]), arcs=int(lp.cost_cm.size),
+            )
+
+        self.last_telemetry = None
         try:
             res = solve_layered_host(
                 lp, pad=pad_geometry, solve=solve,
                 max_supersteps=self.max_supersteps, device=self.device,
             )
-        except RuntimeError:
+        except RuntimeError as e:
             self.last_supersteps = self.max_supersteps  # budget exhausted
+            tel = decode_last(converged=False)
+            self.last_telemetry = tel
+            if tel is not None and not isinstance(e, soltel.SolverStallError):
+                raise soltel.SolverStallError(
+                    str(e), reason=soltel.detect_stall(tel), telemetry=tel,
+                ) from e
             raise
         self.last_supersteps = res.supersteps
+        self.last_telemetry = decode_last()
         return res

@@ -23,8 +23,13 @@ inert trailing segment (sign 0, supply 0, partner self).
 A device-resident problem (graph/device_export.py DeviceResidentProblem)
 whose pow2 extents already meet the kernel's 256 floor is launched on
 the mirror's own tensors (cap, scaled cost, supply) with the warm flow
-derived on the card; smaller ones take the host path. Not ported yet:
-the soltel telemetry ring (ROADMAP item 10).
+derived on the card; smaller ones take the host path.
+
+Every solve writes the soltel telemetry ring by default (obs/soltel.py;
+kernel B3 writes it on the card, its plain version on the CPU), its
+length clamped by `mega_telemetry_cap` as in the JAX package:
+`last_telemetry` (the fallback's, on a delegated solve), and the stall
+reason on a SolverStallError.
 """
 
 from __future__ import annotations
@@ -139,6 +144,7 @@ class MegaSolver(FlowSolver):
         warm_start: bool = True,
         budget_bytes: Optional[int] = None,
         fallback: Optional[FlowSolver] = None,
+        telemetry: Optional[int] = None,
         device="cuda",
     ):
         from ..ops.mcmf import MEGA_BUDGET_BYTES
@@ -152,6 +158,8 @@ class MegaSolver(FlowSolver):
             MEGA_BUDGET_BYTES if budget_bytes is None else int(budget_bytes)
         )
         self.fallback = fallback
+        #: soltel ring capacity; None = obs/soltel.resolve_cap's default
+        self.telemetry = telemetry
         self.device = resolve_device(device)
         self._prev: Optional[np.ndarray] = None
         self._plan: Optional[MegaPlan] = None
@@ -165,6 +173,7 @@ class MegaSolver(FlowSolver):
         self._prev_src_dev = None
         self._prev_dst_dev = None
         self.last_supersteps = 0
+        self.last_telemetry = None
         self.last_refusal = ""
 
     def reset(self) -> None:
@@ -178,13 +187,15 @@ class MegaSolver(FlowSolver):
     def fits(self, problem: FlowProblem) -> bool:
         """Whether the kernel can take this solve; on refusal
         `last_refusal` names why (the AutoSolver ladder reads it)."""
+        from ..obs import soltel
         from ..ops.mcmf import mega_fits
 
         m = len(problem.src)
         if m == 0 or problem.num_arcs == 0:
             self.last_refusal = "empty graph"
             return False
-        if not mega_fits(2 * m, budget_bytes=self.budget_bytes):
+        if not mega_fits(2 * m, budget_bytes=self.budget_bytes,
+                         telemetry=soltel.resolve_cap(self.telemetry) > 0):
             self.last_refusal = (
                 f"{2 * m} entries exceed the kernel's L2 budget "
                 f"({self.budget_bytes} bytes)"
@@ -233,13 +244,16 @@ class MegaSolver(FlowSolver):
         self._plan_key = plan_key
         return self._plan_dev
 
-    def _launch(self, args, flow0, eps, plan_dev, RL, budget):
+    def _launch(self, args, flow0, eps, plan_dev, RL, budget, tel_cap):
+        """One kernel solve: (flow, steps, converged, p_overflow, ring or
+        None)."""
         from .. import ops
 
-        return ops.mcmf_solve(
+        out = ops.mcmf_solve(
             *args, torch.as_tensor(flow0, device=self.device), eps, *plan_dev,
-            *RL, alpha=self.alpha, max_supersteps=budget,
+            *RL, alpha=self.alpha, max_supersteps=budget, telemetry_cap=tel_cap,
         )
+        return out if tel_cap else out + (None,)
 
     def solve_async(self, problem: FlowProblem):
         """Launch attempt 1; complete() runs attempt 2 if it failed."""
@@ -299,39 +313,60 @@ class MegaSolver(FlowSolver):
                     flow0 = np.where(same, np.minimum(f_prev, cap), 0).astype(np.int32)
             flow0 = _pad_pow2(flow0)
         RL = (self._plan.R, self._plan.L)
+        from ..obs import soltel
+        from ..ops.mcmf import mega_telemetry_cap
+
+        tel_cap = soltel.resolve_cap(self.telemetry)
+        if tel_cap:
+            # the ring is clamped to one [R, L] table; decode needs the
+            # effective cap
+            tel_cap = mega_telemetry_cap(*RL, tel_cap)
         out = self._launch(args, flow0, 1, plan_dev, RL,
-                           min(4096, self.max_supersteps))
+                           min(4096, self.max_supersteps), tel_cap)
         cold = (_pad_pow2(np.zeros(m, dtype=np.int32)), max(1, max_cost * n))
-        return (problem, out, (args, plan_dev, RL, cold, resident), None)
+        return (problem, out, (args, plan_dev, RL, cold, resident, tel_cap), None)
 
     def complete(self, pending) -> FlowResult:
+        from ..obs import soltel
+
         problem, out, rest, delegated = pending
         if delegated is not None:
             res = self.fallback.complete(delegated)
             self.last_supersteps = getattr(
                 self.fallback, "last_supersteps", res.iterations
             )
+            self.last_telemetry = getattr(self.fallback, "last_telemetry", None)
             return res
         if out is None:
+            self.last_telemetry = None
             return FlowResult(
                 flow=np.zeros(len(problem.src), dtype=np.int64),
                 objective=0, iterations=0,
             )
-        args, plan_dev, RL, (f0_cold, eps_cold), resident = rest
-        flow, steps, converged, p_overflow = out
+        args, plan_dev, RL, (f0_cold, eps_cold), resident, tel_cap = rest
+        flow, steps, converged, p_overflow, tel_buf = out
         if not (bool(converged) and not bool(p_overflow)):
-            flow, steps, converged, p_overflow = self._launch(
-                args, f0_cold, eps_cold, plan_dev, RL, self.max_supersteps)
+            flow, steps, converged, p_overflow, tel_buf = self._launch(
+                args, f0_cold, eps_cold, plan_dev, RL, self.max_supersteps, tel_cap)
         self.last_supersteps = int(steps)
+        # the final attempt's ring; its budget is the solver's
+        self.last_telemetry = soltel.decode(
+            tel_buf, int(steps), tel_cap, "mega", self.max_supersteps,
+            converged=bool(converged) and not bool(p_overflow),
+            nodes=problem.num_nodes, arcs=len(problem.src),
+        ) if tel_buf is not None else None
         if bool(p_overflow) or not bool(converged):
             self._prev = None
             self._prev_dev = None
         if bool(p_overflow):
             raise OverflowError("push-relabel potentials approached int32 range")
         if not bool(converged):
+            tel = self.last_telemetry
             raise SolverStallError(
                 f"push-relabel did not converge within {self.max_supersteps} "
-                "supersteps; the flow problem may be infeasible"
+                "supersteps; the flow problem may be infeasible",
+                reason=soltel.detect_stall(tel) if tel is not None else None,
+                telemetry=tel,
             )
         flow_np = flow[: len(problem.src)].cpu().numpy()
         if self.warm_start:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from ..graph.device_export import DeviceGraphState, DeviceResidentState
 from ..graph.graph_manager import GraphManager, TaskMapping
+from ..obs.devprof import get_profiler
 from ..obs.spans import span
 from .base import FlowSolver
 from .decode import flow_to_mapping
@@ -53,6 +54,7 @@ class PlacementSolver:
         result)."""
         gm = self.gm
         full = not self._started or not self.incremental
+        changes = None
         with span("graph_export", kind="full_build" if full else "delta"):
             if full:
                 self._started = True
@@ -74,27 +76,51 @@ class PlacementSolver:
                 problem = self.resident.refresh()
             else:
                 problem = self.state.problem()
-        # the JAX package notes the export's bytes to its device
-        # profiler here (ROADMAP item 10)
+        # Byte accounting: in device-resident mode the exact bytes the
+        # mirror copied to the card (packed records, or the rebuild
+        # upload); otherwise estimated from the journal just applied.
+        if self.resident is not None:
+            get_profiler().note_export(
+                problem,
+                full=self.resident.last_upload_kind == "full_build",
+                exact_bytes=self.resident.last_upload_bytes,
+            )
+        else:
+            get_profiler().note_export(problem, full=full, changes=changes)
         # Task nodes captured NOW: the decode must map the snapshot's
         # tasks, not tasks added while the solve is in flight.
         task_node_ids = [node.id for node in gm.task_to_node.values()]
-        if hasattr(self.backend, "solve_async"):
-            pending = self.backend.solve_async(problem)
-            return (problem, task_node_ids, pending, True)
-        return (problem, task_node_ids, self.backend.solve_traced(problem), False)
+        get_profiler().solve_starting()
+        try:
+            if hasattr(self.backend, "solve_async"):
+                pending = self.backend.solve_async(problem)
+                return (problem, task_node_ids, pending, True)
+            return (problem, task_node_ids, self.backend.solve_traced(problem), False)
+        except BaseException:
+            get_profiler().solve_failed()  # stop an Nth-solve capture
+            raise
 
     def complete(self, token) -> TaskMapping:
         """Phase 2: synchronize the solve and decode the task mapping."""
         problem, task_node_ids, pending, is_async = token
         if is_async:
-            with span("backend_solve", backend=type(self.backend).__name__):
-                result = self.backend.complete(pending)
+            try:
+                with span("backend_solve", backend=type(self.backend).__name__) as sp:
+                    result = self.backend.complete(pending)
+                    # async dispatches bypass solve_traced; publish the
+                    # solver-interior telemetry here instead
+                    tel = getattr(self.backend, "last_telemetry", None)
+                    if tel is not None:
+                        from ..obs import soltel
+
+                        soltel.publish(tel, sp)
+            except BaseException:
+                get_profiler().solve_failed()  # stop an Nth-solve capture
+                raise
         else:
             result = pending
         self.last_result = result
-        # the JAX package notes the solve to its device profiler here
-        # (ROADMAP item 10)
+        get_profiler().note_solve(self.backend, problem, result)
         gm = self.gm
         with span("decode", tasks=len(task_node_ids)):
             return flow_to_mapping(

@@ -199,16 +199,29 @@ def test_csr_solver_errors_match_jax_solver():
 
 
 def test_telemetry_ring_is_not_ported():
-    """Only the soltel telemetry ring still raises (ROADMAP item 10);
-    slot-stable plans are solved (tests/test_torch_csr_slot_stable.py)."""
+    """The soltel telemetry ring, which this solve once refused, is now
+    written: a ring that wraps (cap 8) equal to the JAX package's, bit
+    for bit, with the flows unchanged; slot-stable plans are solved
+    (tests/test_torch_csr_slot_stable.py)."""
     rng = np.random.default_rng(0)
     p = random_scheduling_problem(rng, num_tasks=6, num_machines=2,
                                   slots_per_machine=2)
-    plan = cs.build_csr_plan(p.src.astype(np.int32), p.dst.astype(np.int32),
-                             p.num_nodes)
+    src, dst = p.src.astype(np.int32), p.dst.astype(np.int32)
+    plan = cs.build_csr_plan(src, dst, p.num_nodes)
+    jplan = js.build_csr_plan(src, dst, p.num_nodes)
     args = tuple(torch.as_tensor(x) for x in _scaled(p))
     f0 = torch.zeros(len(p.src), dtype=torch.int32)
     out = cs._solve_mcmf(*args, f0, 1, *plan.tensors("cpu"), slot_stable=True)
     assert bool(out[3])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cs._solve_mcmf(*args, f0, 1, *plan.tensors("cpu"), telemetry_cap=8)
+    eps = max(1, int(np.abs(p.cost).max()) * p.num_nodes)
+    got = cs._solve_mcmf(*args, f0, eps, *plan.tensors("cpu"), telemetry_cap=8)
+    want = js._solve_mcmf(
+        *(jnp.asarray(x) for x in _scaled(p)), jnp.asarray(f0.numpy()),
+        jnp.asarray(np.int32(eps)),
+        *(jnp.asarray(getattr(jplan, f)) for f in PLAN_FIELDS), telemetry_cap=8)
+    assert int(got[2]) > 8  # the ring wrapped
+    np.testing.assert_array_equal(got[5].numpy(), np.asarray(want[5]))
+    assert got[5].dtype == torch.int32
+    off = cs._solve_mcmf(*args, f0, eps, *plan.tensors("cpu"))
+    for a, b in zip(got[:5], off):
+        assert torch.equal(a, b)

@@ -9,7 +9,9 @@ three-tier preemption, group mode and trace replay included, the
 transport kernel at the trace replay's [4, 12,544], and the
 device-resident event rounds (bench.py's churn config at 400 x 40, and
 "mega" with the mcmf kernel reading the mirror's tensors) against the
-CPU.
+CPU; the mcmf kernel's soltel ring against its plain version's across
+blocks, and the rings of the mega, CSR and ELL solves on the card
+against the CPU's.
 Marked `cuda`; every test skips where no CUDA device is present.
 Imports nothing of JAX, so it runs on a machine without it:
 
@@ -689,3 +691,73 @@ def test_resident_mega_on_the_card_matches_cpu(card):
                 return out
 
     assert rounds(card) == rounds("cpu")
+
+
+@pytest.mark.parametrize("case", list(_GRID_CASES))
+@pytest.mark.parametrize("cold", [False, True], ids=["eps1", "cold"])
+@pytest.mark.parametrize("cap", [16, 512])
+def test_mcmf_ring_matches_plain_across_blocks(card, case, cold, cap):
+    """Kernel B3's soltel ring equals its plain version's on 1 to 128
+    blocks, a 16-row ring that wraps among them, run to the longer
+    budget and cut at 7 supersteps (the last row written after the
+    loop); with the ring off the flow and the grid barriers are the
+    same."""
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain, mega_telemetry_cap
+
+    seed, tasks, machines, slots, arc_slots, budget = _GRID_CASES[case]
+    a, t, R, L, eps_cold = _mcmf_case(seed, card, arc_slots=arc_slots, tasks=tasks,
+                                      machines=machines, slots=slots)
+    eps = eps_cold if cold else 1
+    wraps = []
+    for steps in (budget, 7):
+        off = mcmf_loop(*a[:4], eps, *t, R, L, max_supersteps=steps)
+        barriers_off = int(mcmf_loop.last_barriers)
+        got = mcmf_loop(*a[:4], eps, *t, R, L, max_supersteps=steps, telemetry_cap=cap)
+        assert int(mcmf_loop.last_barriers) == barriers_off
+        want = mcmf_loop_plain(*a[:4], eps, *t, R, L, max_supersteps=steps,
+                               telemetry_cap=cap)
+        assert len(got) == len(want) == 5
+        assert got[4].shape == (mega_telemetry_cap(R, L, cap), 8)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(got[:4], off):
+            assert torch.equal(x, y)
+        wraps.append(int(got[1]) > got[4].shape[0])
+    if cap == 16 and cold and R >= 8:
+        assert wraps[0]  # the long cold solves wrap a 16-row ring
+
+
+def test_soltel_rings_on_card_match_cpu(card):
+    """W(20, 200) through "mega" (kernel B3), the CSR and the ELL solves
+    with a 64-row ring: each round's decoded ring on the card equals the
+    CPU's; the layered transport on the card keeps its kernel and makes
+    no ring, with the same supersteps as the CPU's loop."""
+    from ksched_tpu_torch.drivers import whare_mixed_rounds
+    from ksched_tpu_torch.solver.csr_solver import CsrSolver
+    from ksched_tpu_torch.solver.ell_solver import EllSolver
+    from ksched_tpu_torch.solver.layered import LayeredProblem, LayeredTransportSolver
+    from ksched_tpu_torch.solver.mega_solver import MegaSolver
+
+    def rings(make, dev):
+        b = make(dev)
+        out = []
+        for r, _sched, _placed in whare_mixed_rounds(20, 200, b):
+            out.append(b.last_telemetry.to_dict())
+            if r == 2:
+                return out
+
+    for make in (lambda d: MegaSolver(telemetry=64, device=d,
+                                      fallback=CsrSolver(telemetry=64, device=d)),
+                 lambda d: CsrSolver(telemetry=64, device=d),
+                 lambda d: EllSolver(telemetry=64, device=d)):
+        assert rings(make, card) == rings(make, "cpu")
+    rng = np.random.default_rng(11)
+    lp = dict(supply=rng.integers(1, 30, 6).astype(np.int32),
+              col_cap=rng.integers(0, 3, 300).astype(np.int32),
+              cost_cm=rng.integers(0, 50, (6, 300)).astype(np.int32),
+              unsched_cost=40, ec_cost=2)
+    on_card = LayeredTransportSolver(telemetry=64, device=card)
+    on_cpu = LayeredTransportSolver(telemetry=64, device="cpu")
+    assert (on_card.solve_layered(LayeredProblem(**lp)).supersteps
+            == on_cpu.solve_layered(LayeredProblem(**lp)).supersteps > 0)
+    assert on_card.last_telemetry is None and on_cpu.last_telemetry is not None

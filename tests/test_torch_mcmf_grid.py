@@ -52,13 +52,17 @@ def _constant(name):
 
 def test_scratch_count_matches_the_kernel_source():
     """The wrapper's scratch count and live-table count are the kernel's
-    (kScratchTables tables, kHeadWords header words, two words a block)."""
+    (kScratchTables tables, kHeadWords header words: the barrier, flag
+    and end words, then two buffers of the soltel ring's kTelCounters
+    counters; two words a block)."""
     src = SOURCE.read_text()
     assert _constant("kScratchTables") == mcmf.MCMF_SCRATCH_TABLES
-    assert _constant("kHeadWords") == mcmf.MCMF_HEAD_WORDS
+    assert "kHeadWords = kTelWord + 2 * kTelCounters;" in src
+    assert _constant("kTelWord") == 3 and _constant("kTelCounters") == 6
+    assert _constant("kTelWord") + 2 * _constant("kTelCounters") == mcmf.MCMF_HEAD_WORDS
     assert f"{mcmf.MCMF_BLOCK_WORDS}LL * blocks" in src
     assert mcmf.MEGA_LIVE_TABLES == 9 + 1 + mcmf.MCMF_SCRATCH_TABLES
-    assert mcmf.mcmf_scratch_words(131_072, 128) == 11 * 131_072 + 3 + 256
+    assert mcmf.mcmf_scratch_words(131_072, 128) == 11 * 131_072 + 15 + 256
 
 
 @pytest.mark.parametrize("rows", [1, 31, 256, 300, 975, 976])

@@ -1,6 +1,6 @@
 """The JAX package's values for chip_smoke.py's churn phase and ELL line.
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu KSCHED_SOLTEL=0 python tests/torch_churn_reference.py [tasks machines rounds]
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_churn_reference.py [tasks machines rounds]
 
 Runs bench.py's `churn` config (bench.py:1760-1778, defaults 10,000
 tasks, 1,000 machines, 6 warm-up + 24 measured rounds) on the CPU
@@ -17,6 +17,13 @@ plus the fill's supersteps. Then the same scenario through the JAX
 package's EllSolver on the device-resident export, the fill and 3
 rounds: supersteps and sha256.
 
+With soltel on (the default; KSCHED_SOLTEL=0 turns it off, and the
+flows do not depend on it) each round also records the sha256 of the
+CSR solve's soltel ring (`telemetry_sha256`, ksched_tpu_torch.drivers.
+churn.telemetry_sha256's formula), and the run the arm's own registry's
+`warm_price_war` events and host→device bytes by kind (the device
+profiler's `ksched_h2d_bytes_total`).
+
 Prints one JSON object, chip_smoke.py's REF_CHURN, with its
 `cpu_seconds` (46.4 at the defaults, about 30 s of wall).
 """
@@ -25,6 +32,7 @@ import hashlib
 import json
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -33,6 +41,12 @@ def placement_sha256(sched, tmap) -> str:
     rows = sorted((tmap.find(t).name, int(rid))
                   for t, rid in sched.task_bindings.items())
     return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def telemetry_sha256(tel):
+    if tel is None:
+        return None
+    return hashlib.sha256(json.dumps(tel.to_dict(), sort_keys=True).encode()).hexdigest()
 
 
 class JaxChurnArm:
@@ -44,11 +58,14 @@ class JaxChurnArm:
                  backend=None, resident=True):
         from ksched_tpu.drivers import add_job, build_cluster
         from ksched_tpu.graph.device_export import DeviceResidentState
+        from ksched_tpu.obs import DeviceProfiler, Registry
         from ksched_tpu.solver.jax_solver import JaxSolver
         from ksched_tpu.utils import seed_rng
         from ksched_tpu.utils.ids import rng as global_rng
 
         self.k = max(1, int(tasks * churn))
+        self.registry = Registry()
+        self.profiler = DeviceProfiler(registry=self.registry)
         seed_rng(7)
         self.solver = backend if backend is not None else JaxSolver(
             restart_budget=restart_budget)
@@ -60,11 +77,34 @@ class JaxChurnArm:
             self.sched.solver.device_resident = True
             self.sched.solver.resident = DeviceResidentState(self.sched.solver.state)
         self.job_id = add_job(self.sched, self.jmap, self.tmap, num_tasks=tasks)
-        self.sched.schedule_all_jobs()
+        with self.observed():
+            self.sched.schedule_all_jobs()
         self.fill_supersteps = int(self.solver.last_supersteps)
         self.rng = np.random.default_rng(123)
         self._global_rng = global_rng
         self._rng_state = global_rng().getstate()
+
+    @contextmanager
+    def observed(self):
+        """This arm's registry and device profiler, for the block."""
+        from ksched_tpu.obs import devprof, scoped_registry
+
+        prev = devprof._profiler
+        devprof.set_profiler(self.profiler)
+        try:
+            with scoped_registry(self.registry):
+                yield
+        finally:
+            devprof.set_profiler(prev)
+
+    def counters(self):
+        reg = self.registry
+        return {
+            "h2d_bytes": {k: int(reg.value("ksched_h2d_bytes_total", kind=k))
+                          for k in ("full_build", "delta")},
+            "price_wars": int(reg.value("ksched_solver_stalls_total",
+                                        kind="warm_price_war")),
+        }
 
     def drive_round(self, r):
         from ksched_tpu.drivers.synthetic import add_task_to_job
@@ -79,13 +119,17 @@ class JaxChurnArm:
             add_task_to_job(self.job_id, self.jmap, tmap)
         sched.add_job(self.jmap.find(self.job_id))
         self._rng_state = self._global_rng().getstate()
-        sched.schedule_all_jobs()
+        with self.observed():
+            sched.schedule_all_jobs()
         res = sched.solver.resident
         out = {
             "supersteps": int(self.solver.last_supersteps),
             "warm_scope": getattr(self.solver, "last_warm_scope", None),
             "sha256": placement_sha256(sched, tmap),
         }
+        tel_sha = telemetry_sha256(getattr(self.solver, "last_telemetry", None))
+        if tel_sha is not None:
+            out["telemetry_sha256"] = tel_sha
         if res is not None:
             out["plan_kind"] = res.last_plan_kind
             out["upload_bytes"] = int(res.last_upload_bytes)
@@ -106,6 +150,10 @@ def churn_reference(tasks=10_000, machines=1_000, rounds=30, ell_rounds=3) -> di
     plan = arm.sched.solver.state.plan
     out["plan_counters"] = [int(plan.layout_rebuilds), int(plan.region_overflows),
                             int(plan.region_relocations)]
+    from ksched_tpu.obs import soltel
+
+    if soltel.enabled():
+        out.update(arm.counters())
     ell = JaxChurnArm(tasks, machines, backend=EllSolver())
     ell_per = [ell.drive_round(r) for r in range(ell_rounds)]
     out["ell"] = {

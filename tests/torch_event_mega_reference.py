@@ -1,6 +1,6 @@
 """The JAX package's values for chip_smoke.py's general-graph phases.
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu KSCHED_SOLTEL=0 python tests/torch_event_mega_reference.py [W|P|WP] [machines tasks [rounds]]
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_event_mega_reference.py [W|P|WP] [machines tasks [rounds]]
 
 Runs event-path scenarios through the JAX package's FlowScheduler on
 the CPU and prints one JSON object per scenario, per round: tasks
@@ -8,7 +8,11 @@ placed, the AutoSolver path (where there is one), supersteps, objective
 and the sha256 of the sorted task bindings; a round that stalls is
 recorded with its path and the stalled rung's `last_supersteps` (and,
 on graphs of at most 8,192 nodes, the cpu_ref objective of the stalled
-round's problem) and ends the scenario. Defaults: W and P, 1,000
+round's problem) and ends the scenario. With soltel on (the default;
+KSCHED_SOLTEL=0 turns it off, and the flows do not depend on it) a round
+on the mega path also records the sha256 of its solve's soltel ring
+(`telemetry_sha256`, the formula of ksched_tpu_torch.drivers.churn's),
+and a stall its SolverStallError's `reason`. Defaults: W and P, 1,000
 machines, 10,000 tasks, 3 rounds.
 
 - W: Scenario W (Whare-Map, mixed task classes) with
@@ -25,11 +29,12 @@ process only `mcmf_loop_pallas` is replaced by `mega_standin`: it
 rebuilds the CSR tables from the MegaPlan's entry tables and runs the
 scan-CSR `_solve_mcmf`, whose outputs the kernel reproduces bit for bit
 (tests/test_mega_solver.py; tests/test_torch_mega.py holds the stand-in
-equal to the interpreted kernel). With soltel on, MegaSolver would also
-expect the kernel's telemetry ring, which the stand-in does not make:
-the MegaSolvers here are built with telemetry=0, and KSCHED_SOLTEL=0
-turns it off for the JaxSolvers too (flows do not depend on it). A few
-minutes at 1k machines and 10k tasks.
+equal to the interpreted kernel). Asked for the kernel's telemetry ring,
+the stand-in returns the scan-CSR solve's ring at the kernel's clamped
+capacity (`mega_telemetry_cap`): the two rings agree superstep for
+superstep (tests/test_soltel.py; tests/test_torch_soltel.py holds the
+stand-in's ring equal to the interpreted kernel's). A few minutes at 1k
+machines and 10k tasks.
 """
 
 import hashlib
@@ -52,8 +57,12 @@ def mega_standin(cap, cost, supply, flow0, eps_init, e_arc, e_sign, e_src,
                  telemetry_cap=0):
     """`mcmf_loop_pallas` through the scan-CSR solve: the same
     (steps, converged, p_overflow) and the same flow on the M real
-    arcs (zeros past them, which MegaSolver drops)."""
-    assert not telemetry_cap, "the stand-in makes no telemetry ring"
+    arcs (zeros past them, which MegaSolver drops); with telemetry_cap
+    the scan-CSR solve's soltel ring at the kernel's clamped capacity."""
+    from ksched_tpu.ops.mcmf_pallas import mega_telemetry_cap
+
+    if telemetry_cap:
+        telemetry_cap = mega_telemetry_cap(R, L, telemetry_cap)
     sign = np.asarray(e_sign)
     m2 = int((sign != 0).sum())  # the live entries lead, pads trail
     m = m2 // 2
@@ -76,14 +85,22 @@ def mega_standin(cap, cost, supply, flow0, eps_init, e_arc, e_sign, e_src,
     plan = tuple(jnp.asarray(x) for x in (
         s_arc, s_sign, s_src, s_dst, s_segstart, s_isstart, inv_order,
         node_first, node_last, node_nonempty))
-    flow, _p, steps, conv, povf = _solve_mcmf(
+    flow, _p, steps, conv, povf, *tel = _solve_mcmf(
         cap[:m], cost[:m], supply, flow0[:m], eps_init, *plan,
         alpha=alpha, max_supersteps=max_supersteps,
-        tighten_sweeps=tighten_sweeps,
+        tighten_sweeps=tighten_sweeps, telemetry_cap=telemetry_cap,
     )
     out = np.zeros(len(fwd_pos), np.int32)
     out[:m] = np.asarray(flow)
-    return jnp.asarray(out), steps, conv, povf
+    return (jnp.asarray(out), steps, conv, povf, *tel)
+
+
+def telemetry_sha256(tel):
+    """sha256 of a decoded soltel ring, as ksched_tpu_torch.drivers.churn
+    computes it (None without one)."""
+    if tel is None:
+        return None
+    return hashlib.sha256(json.dumps(tel.to_dict(), sort_keys=True).encode()).hexdigest()
 
 
 def bindings_sha256(sched) -> str:
@@ -127,10 +144,10 @@ def make_solver(name):
     from ksched_tpu.solver.mega_solver import MegaSolver
 
     if name == "W":
-        return MegaSolver(fallback=JaxSolver(), telemetry=0)
+        return MegaSolver(fallback=JaxSolver())
     if name == "WP":
         return AutoSolver(JaxSolver())
-    return AutoSolver(JaxSolver(), mega=MegaSolver(telemetry=0))
+    return AutoSolver(JaxSolver(), mega=MegaSolver())
 
 
 def reference(name, num_machines, num_tasks, rounds=3) -> dict:
@@ -140,20 +157,26 @@ def reference(name, num_machines, num_tasks, rounds=3) -> dict:
     from ksched_tpu.obs.soltel import SolverStallError
     from ksched_tpu.solver.cpu_ref import ReferenceSolver
 
+    from ksched_tpu.obs import soltel
+
     backend = make_solver(name)
-    out = {k: [] for k in ("placed", "path", "supersteps", "objective",
-                           "bindings_sha256")}
+    keys = ["placed", "path", "supersteps", "objective", "bindings_sha256"]
+    if soltel.enabled():
+        keys.append("telemetry_sha256")
+    out = {k: [] for k in keys}
     run = scenario_rounds(name, num_machines, num_tasks, backend)
     sched = None
     for _ in range(rounds):
         try:
             r, sched, placed = next(run)
-        except SolverStallError:
+        except SolverStallError as e:
             path = getattr(backend, "last_path", "mega")
             rung = {"mega": getattr(backend, "mega", backend),
                     "csr": getattr(backend, "csr", None)}[path]
             out["stall"] = {"round": len(out["placed"]), "path": path,
                             "last_supersteps": int(rung.last_supersteps)}
+            if e.reason is not None:
+                out["stall"]["reason"] = e.reason
             problem = sched.solver.state.problem() if sched else None
             if problem is not None and problem.num_nodes <= 8192:
                 out["stall"]["cpu_ref_objective"] = int(
@@ -164,6 +187,10 @@ def reference(name, num_machines, num_tasks, rounds=3) -> dict:
         out["supersteps"].append(int(backend.last_supersteps))
         out["objective"].append(int(sched.solver.last_result.objective))
         out["bindings_sha256"].append(bindings_sha256(sched))
+        if "telemetry_sha256" in out:
+            mega = out["path"][-1] == "mega"
+            out["telemetry_sha256"].append(
+                telemetry_sha256(backend.last_telemetry) if mega else None)
     return out
 
 
