@@ -41,7 +41,10 @@ no result line):
    grouped stage 1 and the incremental tier's escalation need (one per
    solve attempt in these runs) plus the counted branch reads;
 7b. coco50k-preempt at bench.py's three-tier arguments: the fill and 4
-   host-driven rounds, then 130 steady rounds on the JAX package's
+   host-driven rounds, a device checkpoint round trip
+   (save_device_checkpoint, load_device_checkpoint on the card: the
+   loaded state, hybrid carry and placements equal the saved ones), then
+   130 steady rounds on the loaded cluster on the JAX package's
    draws (incremental rounds on the transport kernel under an 8,192-
    superstep budget, scoped and global re-solves on the tiered one),
    each round's tier, supersteps, census drift and wall time printed;
@@ -136,15 +139,48 @@ no result line):
    package's in every arm, no warm price war, and the resident arm's
    host->device bytes by kind (its device profiler's counter) equal to
    the JAX package's; then two more resident arms round-robin in turns,
-   the CSR ring on and off, their wall p50 and p99 side by side;
+   the CSR ring on and off, over the warm-up and 12 measured rounds,
+   their wall p50 and p99 side by side;
 15. the ELL line: make_backend("ell") on the churn config's resident
    export, the fill and 3 rounds, equal to the JAX package's EllSolver;
+16. the scheduler service (cli.SchedulerService through
+   drivers/service.py) at BASELINE's width, 10k pods on 1,000 fabricated
+   machines x 4 PUs x 4 slots through make_backend("auto") on the card:
+   the one-shot and 4 rounds of 1% completions and 100 arrivals, on the
+   trivial model (one class row: the dense rung's closed form, no
+   kernel) and on Whare-Map with four task classes (the transport
+   kernel from round 2), each sync and then pipelined with the same
+   placements, every round's bound count, AutoSolver path, supersteps
+   and placements' sha256 equal to the JAX package's and its RoundRecord
+   phases printed; the Whare-Map transport solves re-solved by the plain
+   version with the same bits and timed beside their bound; then
+   cli.main's one-shot at that width binding its whole batch;
+17. service-resident: the same width through "jax" (the scan-CSR solve)
+   on the device-resident mirror, audited every round, in two arms: a
+   clean one, and one with seeded device bit flips and a checkpoint and
+   warm restore after round 3; every flip detected in its round, the
+   clean arm without a divergence, both arms' placements equal to each
+   other and to the JAX package's; the audit's and repairs' spans, and
+   one audit split into its device fingerprints and its host twins;
+18. the chaos soaks (drivers/soak.py) at 6 machines x 8 slots: the
+   Makefile's chaos-smoke (96 rounds, seed 0, a restore every 48, run
+   twice) and its recovery-smoke cut to 128 rounds (seed 11, chunk 32, a
+   restore every 48: at 64 the JAX package fails its own check), each
+   run's placements, bindings, fault totals, NOOP rounds, ladder steps,
+   restores and integrity counts equal to the JAX package's;
+19. http: cli.main against the loopback FakeAPIServer, 100 nodes and
+   1,000 pods created through the server, every pod bound;
+20. native: the C++ solver built from this checkout (forced, no
+   fallback) on the service's one-shot, placements equal to the JAX
+   package's native solver's;
    then the `kernels` line and the result line. The transport kernel's
-   entry there covers two paths, each counted from 0 just before it ran:
-   Scenario W(1000, 10000) (phase 4) and gtrace12k-coco (phase 7e). Its
-   `launches` is the sum of their launches, and its `ms`, `plain_ms` and
-   `bound_ms` sum the solves timed on them: W's two and gtrace12k-coco's
-   longest at [4, 12,544]. The mcmf kernel's entry covers W-mega
+   entry there covers three paths, each counted from 0 just before it
+   ran: Scenario W(1000, 10000) (phase 4), gtrace12k-coco (phase 7e) and
+   the Whare-Map service (phase 16, sync and pipelined). Its `launches`
+   is the sum of their launches, and its `ms`, `plain_ms` and `bound_ms`
+   sum the solves timed on them: W's two, gtrace12k-coco's longest at
+   [4, 12,544] and the Whare-Map service's sync run's two. The mcmf
+   kernel's entry covers W-mega
    (phase 10) and W-mega-resident (phase 13) the same way: `launches`
    sums both, and `ms`, `plain_ms` and `bound_ms` sum W-mega's timed
    solves and W-mega-resident's round 2 solve. The other paths'
@@ -529,6 +565,80 @@ REF_CHURN = {
             "92c747b61b675ae9a3b7271a4cf7596f6aca2bd327da653d15c2a4d90f494615",
         ],
     },
+}
+
+# The service phases' per-round values, as produced by the JAX package
+# (ksched_tpu's SchedulerService on the CPU, through the same driver,
+# ksched_tpu_torch/drivers/service.py; tests/torch_service_reference.py):
+# [bound, placed, AutoSolver path, solver work, live placements' sha256]
+# (+ [bit flips, divergences] on the resident arms).
+REF_SERVICE = {
+    "service": [
+        [10000, 10000, "dense", 0, "1706cb559bc12fe1eb69fcb7f3787796733a0ed7f4b2c548b36e4058ec3f3414"],
+        [100, 10000, "dense", 0, "0a1f96b5bdeaa98f91d2f0693d08282943c1551ab03c4aca887eb739378851af"],
+        [100, 10000, "dense", 0, "02dfff92c3bbc17d40b0b65c9a88ba823fb6a38594f40e99cc6052bc3adba213"],
+        [100, 10000, "dense", 0, "eaf4fb4baa5ada7f6342fe49fcd6af3dfffdcdad9282fa133aacbbd7f78788c6"],
+        [100, 10000, "dense", 0, "a6d4621b38ee7152442aa02ebc1c1161729a8716675c57ad25fa94972e20dcd9"],
+    ],
+    "service-whare": [
+        [10000, 10000, "dense", 0, "5ed4494c9cf201b9d5a48d5c45c7876cd3d2f35b99cb733a3d458ce79fc43d73"],
+        [100, 10000, "dense", 0, "67ffc2ba803ad1184db9b46e25b69ce945e412a2049af7bb0dec315358737580"],
+        [100, 10000, "dense", 5527, "3bf68bd445607ae6735938dc67ce0cc76e0c6a4587e6b5ea4601bc2404724e8d"],
+        [100, 10000, "dense", 6101, "7179dd3ab44a64fd8a693abf83c91603beac29dd192ce4c286ab5c546f8b08e7"],
+    ],
+    "service-resident": [
+        [10000, 10000, None, 10, "1706cb559bc12fe1eb69fcb7f3787796733a0ed7f4b2c548b36e4058ec3f3414", 0, 0],
+        [100, 10000, None, 10, "0a1f96b5bdeaa98f91d2f0693d08282943c1551ab03c4aca887eb739378851af", 0, 0],
+        [100, 10000, None, 9, "02dfff92c3bbc17d40b0b65c9a88ba823fb6a38594f40e99cc6052bc3adba213", 0, 0],
+        [100, 10000, None, 10, "1340e874c2c8fe19b3d924f5b547ea3076686fe01d9c0e2afb8d97015609fd00", 0, 0],
+        [100, 10000, None, 9, "f4265741a94802d3eb92276142c5eae8ea83bd8705cb91528464c29f42ccc0a1", 0, 0],
+        [100, 10000, None, 9, "9938adcd5aecee09d3a631e1a8b0dabb3e37b0c856759a1d346917c9e8be335b", 0, 0],
+    ],
+    "service-resident-faults": [
+        [10000, 10000, None, 10, "1706cb559bc12fe1eb69fcb7f3787796733a0ed7f4b2c548b36e4058ec3f3414", 1, 1],
+        [100, 10000, None, 10, "0a1f96b5bdeaa98f91d2f0693d08282943c1551ab03c4aca887eb739378851af", 1, 1],
+        [100, 10000, None, 9, "02dfff92c3bbc17d40b0b65c9a88ba823fb6a38594f40e99cc6052bc3adba213", 0, 0],
+        [100, 10000, None, 10, "1340e874c2c8fe19b3d924f5b547ea3076686fe01d9c0e2afb8d97015609fd00", 0, 0],
+        [100, 10000, None, 9, "f4265741a94802d3eb92276142c5eae8ea83bd8705cb91528464c29f42ccc0a1", 0, 0],
+        [100, 10000, None, 9, "9938adcd5aecee09d3a631e1a8b0dabb3e37b0c856759a1d346917c9e8be335b", 0, 0],
+    ],
+    "native": [
+        [10000, 10000, None, 428919, "45782b512df025e9bca21c51ddee1b1b3365b34f4c3230a5d8b7cc9a37949e95"],
+    ],
+}
+
+# tools/soak.py's chaos soak in the JAX package at the smoke's arguments
+# (drivers/soak.py soak_summary of each run).
+REF_SOAK = {
+    "determinism": {
+        "run": {"placements_sha256": "8f31787a410a1de43958883da9f68e571bf089597debffba7b2a9b484af4ee9e", "bindings_sha256": "a39975ad1927a6f5c6d4195a0b1556d06b8bc69e36224e7d2508b388f89f2c65", "placed": 5, "fault_totals": {"api_outage_round": 8, "binding_drop": 15, "machine_flap": 4, "machine_flap_round": 12, "solver_exception": 2}, "noop_rounds": 0, "degradations": 2, "rounds": 112, "restores": 2, "warm_restores": 2, "divergences": 0, "repairs": {}, "device_flips": 0},
+    },
+    "recovery": {
+        "recovered": {"placements_sha256": "4ef4ade2cc6b92b36ceff4f925f1909f9454e032a39b8f8904437f084fbffac2", "bindings_sha256": "83faaf081859782edd6243c5ad113e5fb703478915d8bb4edd96855764567b57", "placed": 25, "fault_totals": {"device_bit_flip": 28}, "noop_rounds": 0, "degradations": 0, "rounds": 144, "restores": 2, "warm_restores": 2, "divergences": 28, "repairs": {"rescatter": 25, "reupload": 3}, "device_flips": 28},
+        "control": {"placements_sha256": "4ef4ade2cc6b92b36ceff4f925f1909f9454e032a39b8f8904437f084fbffac2", "bindings_sha256": "83faaf081859782edd6243c5ad113e5fb703478915d8bb4edd96855764567b57", "placed": 25, "fault_totals": {}, "noop_rounds": 0, "degradations": 0, "rounds": 144, "restores": 0, "warm_restores": 0, "divergences": 0, "repairs": {}, "device_flips": 0},
+    },
+}
+
+# The service phases' configurations (ksched_tpu_torch/drivers/service.py
+# ServiceConfig): BASELINE's round, 10k pods on 1,000 fabricated machines
+# x 4 PUs x 4 slots, then 1% completions and 100 arrivals a round; the
+# resident arms' bit flips drawn per solve at 0.5, a checkpoint and warm
+# restore after round 3. Chaos soaks at the Makefile's chaos-smoke
+# arguments and its recovery-smoke's shapes cut to 128 rounds.
+SERVICE_CONFIGS = {
+    "service": dict(),
+    "service-whare": dict(cost_model="whare", classes=4, rounds=3),
+    "service-resident": dict(backend="jax", rounds=5, device_resident=True,
+                             audit_every=1),
+    "service-resident-faults": dict(backend="jax", rounds=5, device_resident=True,
+                                    audit_every=1, corrupt_prob=0.5, restore_after=3),
+    "native": dict(backend="native", rounds=0),
+}
+SOAK_ARGS = {
+    "determinism": dict(rounds=96, chunk=32, seed=0, machines=6, slots=8,
+                        chaos_restore_every=48, verify_determinism=True),
+    "recovery": dict(rounds=128, chunk=32, seed=11, machines=6, slots=8,
+                     chaos_restore_every=48, verify_recovery=True),
 }
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
@@ -1008,6 +1118,20 @@ def probe_split(run, steps):
             + " (share of the launch / per superstep)")
 
 
+def transport_bound(c):
+    """(bytes bound, operations bound) in ms of a captured transport
+    solve: the bytes it must move once against the int32 operations
+    this data needs."""
+    wS, _supply, _col_cap, eps, *rest = c["args"]
+    pm0 = rest[0] if rest else None
+    C, Mp = wS.shape
+    steps = int(c["out"][2])
+    nbytes = 4 * (2 * C * Mp + C + 2 * Mp + (Mp if pm0 is not None else 0) + 2)
+    phases = eps_phases(eps, c["kw"].get("alpha", 8))
+    return bound_ms(
+        nbytes, C * Mp * (OPS_PER_CELL_STEP * steps + OPS_PER_CELL_PHASE * phases))
+
+
 def phase_timing(calls, reps=10):
     """Kernel and plain times per main-path solve (CUDA events), and
     the bound for the same work."""
@@ -1022,11 +1146,7 @@ def phase_timing(calls, reps=10):
         kw = c["kw"]
         C, Mp = wS.shape
         steps = int(c["out"][2])
-        # bound: bytes moved once vs int32 operations this data needs
-        nbytes = 4 * (2 * C * Mp + C + 2 * Mp + (Mp if pm0 is not None else 0) + 2)
-        phases = eps_phases(eps, kw.get("alpha", 8))
-        b_bytes, b_ops = bound_ms(
-            nbytes, C * Mp * (OPS_PER_CELL_STEP * steps + OPS_PER_CELL_PHASE * phases))
+        b_bytes, b_ops = transport_bound(c)
         k_ms = timed_ms(lambda: transport_loop(wS, supply, col_cap, eps, pm0, **kw), reps)
         p_ms = timed_ms(lambda: _solve_transport(wS, supply, col_cap, eps, pm0, **kw), 1)
         say(f"timing solve {i} [{C},{Mp}] steps={steps}: kernel_ms={k_ms:.4f} "
@@ -1323,7 +1443,7 @@ def round_summary(rows):
             f"decode_ms mean={np.mean([p[4][1] for p in rows]):.3f}")
 
 
-def run_steady(dev, config):
+def run_steady(dev, config, restore=False):
     """The config's scenario (run_bulk: the fill and host-driven rounds
     against the JAX package's values), then REF_STEADY's steady rounds
     on the JAX package's draws with every count set to 0 just before:
@@ -1333,7 +1453,10 @@ def run_steady(dev, config):
     and the final placements' sha256 against the JAX package's; host
     reads against attempts and branch points. Returns (cluster, per-round
     stats, per-round (B1 calls, B2 calls, wall ms, grouped path),
-    launches (B1, B2))."""
+    launches (B1, B2)). With `restore`, the steady rounds run on a
+    cluster saved after the host-driven rounds with
+    save_device_checkpoint and loaded on the card with
+    load_device_checkpoint."""
     import ksched_tpu_torch.ops as ops
     from ksched_tpu_torch.drivers.device_bulk import churn_of, stats_sha256
     from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
@@ -1343,6 +1466,8 @@ def run_steady(dev, config):
 
     ref = REF_STEADY[config]
     cluster, tasks, _rec, _l = run_bulk(dev, config, len(REF_BULK[config]["placed"]) - 1)
+    if restore:
+        cluster = device_checkpoint_round_trip(dev, config, cluster)
     per_round = []
     plain_step = cluster.steady_round
     decode = cluster.rank_match_decode = EventTimer(cluster.rank_match_decode)
@@ -1446,6 +1571,40 @@ def run_steady(dev, config):
     return cluster, got, per_round, launches
 
 
+def device_checkpoint_round_trip(dev, config, cluster):
+    """save_device_checkpoint, then load_device_checkpoint on `dev`: the
+    loaded cluster's state, hybrid carry and placements equal the
+    saved one's. Returns the loaded cluster."""
+    import os
+    import tempfile
+
+    from ksched_tpu_torch.runtime import load_device_checkpoint, save_device_checkpoint
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "cluster.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_device_checkpoint(cluster, path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_device_checkpoint(path, class_cost_fn=cluster.class_cost_fn,
+                                        device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    a, b = cluster.fetch_state(), loaded.fetch_state()
+    same = all(np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype for k in a)
+    if cluster.hybrid_preempt:
+        same = same and torch.equal(cluster._hyb_census, loaded._hyb_census) and (
+            (cluster._hyb_k, cluster._hyb_kg) == (loaded._hyb_k, loaded._hyb_kg))
+    say(f"{config}: device checkpoint {size} bytes, saved in {t_save:.3f} s, "
+        f"loaded on {loaded.device} in {t_load:.3f} s; state equal: {same}; "
+        f"pu sha256 {pu_sha256(loaded)}")
+    check(same and loaded.device.type == dev.type,
+          f"{config}: the loaded cluster differs from the saved one")
+    return loaded
+
+
 def resolve_plain(tag, c, tiered):
     """A captured solve re-solved by the plain version on the card,
     timed with CUDA events: bits equal or the phase fails. Returns
@@ -1473,7 +1632,7 @@ def phase_tiers(dev):
     """coco50k-preempt at bench.py's three-tier arguments: the host-driven
     rounds, 130 steady rounds, then a scoped tiered solve and a capped
     incremental solve re-solved by the plain versions and timed."""
-    _cluster, got, per_round, launches = run_steady(dev, "coco50k-preempt")
+    _cluster, got, per_round, launches = run_steady(dev, "coco50k-preempt", restore=True)
     check(launches[0] > 0 and launches[1] > 0,
           "coco50k-preempt steady rounds did not run both transport kernels")
     scoped = [c for r, p in enumerate(per_round) if tier_of(got, r) == "scoped"
@@ -2072,6 +2231,8 @@ def pctl(xs, q):
 
 #: the churn phase's spans; "solve" is RoundTiming.solve_s, which also
 #: holds the backend's dispatch (the CSR attempt runs there)
+#: measured rounds of the churn phase's ring on/off pair (of 24)
+RING_AB_ROUNDS = 12
 CHURN_SPANS = ("graph_export", "delta_pack", "delta_upload", "plan_upload",
                "backend_solve", "decode", "solve")
 
@@ -2161,13 +2322,14 @@ def phase_churn(dev):
                 for k in CHURN_SPANS))
     # the resident arm twice more, round-robin in turns (on, off, off,
     # on, ...): the solver's ring on (the default) and off, for the
-    # ring's cost on the round's wall
+    # ring's cost on the round's wall; over the warm-up and the first
+    # RING_AB_ROUNDS measured rounds (the smoke's time budget)
     pair = [ChurnArm("device_resident", device=dev,
                      backend=CsrSolver(restart_budget=CHURN["restart_budget"],
                                        telemetry=cap, device=dev))
             for cap in (None, 0)]
     walls = ([], [])
-    for r in range(warmup + CHURN["rounds"]):
+    for r in range(warmup + RING_AB_ROUNDS):
         order = (0, 1) if r % 2 == 0 else (1, 0)
         recs = {i: pair[i].drive_round(r) for i in order}
         check(recs[0]["sha256"] == recs[1]["sha256"] == ref["sha256"][r],
@@ -2177,7 +2339,8 @@ def phase_churn(dev):
                 w.append(recs[i]["wall_ms"])
     check(pair[1].solver.last_telemetry is None
           and pair[0].solver.last_telemetry is not None, "churn: ring on/off arms")
-    say(f"churn device_resident soltel on/off (round-robin): wall_ms p50 "
+    say(f"churn device_resident soltel on/off (round-robin, {RING_AB_ROUNDS} "
+        f"measured rounds): wall_ms p50 "
         f"{pctl(walls[0], 50):.3f} / {pctl(walls[1], 50):.3f} p99 "
         f"{pctl(walls[0], 99):.3f} / {pctl(walls[1], 99):.3f}")
     launches = mcmf_loop.launches + transport_loop.launches + transport_loop_tiered.launches
@@ -2284,6 +2447,306 @@ def phase_ell(dev):
               f"ell round {r}: differs from the JAX package's EllSolver")
     check(backend._prev_dev is not None, "ell: the warm flow did not stay on the card")
     arm.sched.solver.resident.parity_check()
+
+
+# ---------------------------------------------------------------------------
+# the scheduler service (cli.py's loop), its runtime, soaks, HTTP, native
+# ---------------------------------------------------------------------------
+
+
+def service_row(r, name):
+    """A driver round record as REF_SERVICE holds it."""
+    row = [r["bound"], r["placed"], r["path"], r["solver_work"], r["sha256"]]
+    if "resident" in name:
+        row += [r["flips"], r["divergences"]]
+    return row
+
+
+def say_service(name, mode, got, wall):
+    for r, rec in enumerate(got["rounds"]):
+        ph = rec["phases_ms"]
+        say(f"{name} {mode} round {r}: bound={rec['bound']} placed={rec['placed']} "
+            f"path={rec['path']} solver_work={rec['solver_work']} "
+            f"flips={rec['flips']} divergences={rec['divergences']} "
+            f"sha256={rec['sha256'][:16]} round_ms: "
+            + " ".join(f"{k}={ph[k]:.3f}" for k in
+                       ("stats", "graph_update", "solve", "deltas", "apply", "total")))
+    say(f"{name} {mode}: {len(got['rounds'])} rounds in {wall:.3f} s")
+
+
+def run_service_checked(dev, name, **over):
+    """One ServiceConfig run on the card, its rounds held against the
+    JAX package's. Returns (driver output, wall s)."""
+    from ksched_tpu_torch.drivers.service import ServiceConfig, package, run_service
+
+    cfg = ServiceConfig(**{**SERVICE_CONFIGS[name], **over})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run_service(package(dev), cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mode = "pipelined" if cfg.pipeline else "sync"
+    say_service(name, mode, got, wall)
+    rows = [service_row(r, name) for r in got["rounds"]]
+    for r, (a, b) in enumerate(zip(rows, REF_SERVICE[name])):
+        check(a == b, f"{name} {mode} round {r}: {a} != the JAX package's {b}")
+    check(len(rows) == len(REF_SERVICE[name]), f"{name}: {len(rows)} rounds")
+    return got, wall
+
+
+def phase_service(dev):
+    """SchedulerService at BASELINE's width through make_backend("auto")
+    on the card: the trivial model (the dense rung's closed form) and
+    Whare-Map with four task classes (the transport kernel), each sync
+    and pipelined with equal placements, every round held against the
+    JAX package's; the transport solves of the Whare-Map sync run
+    re-solved by the plain version and timed beside their bound; then
+    cli.main's one-shot. Returns (launches, max_abs_err, kernel ms,
+    plain ms, bound ms, bound_by)."""
+    import contextlib
+    import io
+
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.cli import main as cli_main
+    from ksched_tpu_torch.ops.transport import transport_loop
+
+    launches = 0
+    captured = []
+    for name in ("service", "service-whare"):
+        sync_rows = None
+        for pipeline in (False, True):
+            transport_loop.launches = 0
+            with Recorder(ops) as rec:
+                got, _wall = run_service_checked(dev, name, pipeline=pipeline)
+            rows = [service_row(r, name) for r in got["rounds"]]
+            if sync_rows is None:
+                sync_rows = rows
+                if name == "service-whare":
+                    captured = rec.calls
+            check(rows == sync_rows, f"{name}: pipelined placements != sync")
+            n = transport_loop.launches
+            iterative = sum(1 for r in rows if r[3] > 0)
+            say(f"{name} {'pipelined' if pipeline else 'sync'}: transport launches {n} "
+                f"(solves {len(rec.calls)}, rounds with supersteps {iterative}) "
+                f"kernel_ms={rec.kernel_ms():.4f}")
+            check(n == len(rec.calls) and n >= iterative,
+                  f"{name}: launches {n} != solves {len(rec.calls)}")
+            if name == "service-whare":
+                launches += n
+                check(n > 0, "service-whare ran no transport kernel")
+            else:
+                check(n == 0, "the trivial model's service left its closed form")
+    worst = 0
+    k_ms = p_ms = b_ms = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for i, c in enumerate(captured):
+        err, plain_ms = resolve_plain(f"service-whare solve {i}", c, False)
+        worst = max(worst, err)
+        wS, supply, col_cap, eps, *rest = c["args"]
+        pm0 = rest[0] if rest else None
+        kms = timed_ms(lambda: transport_loop(wS, supply, col_cap, eps, pm0, **c["kw"]), 3)
+        b_bytes, b_ops = transport_bound(c)
+        steps = int(c["out"][2])
+        say(f"service-whare solve {i} [{wS.shape[0]},{wS.shape[1]}] steps={steps}: "
+            f"in-round kernel_ms={c['events'][0].elapsed_time(c['events'][1]):.4f} "
+            f"kernel_ms={kms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={max(b_bytes, b_ops):.6f} "
+            f"kernel_us_per_step={1e3 * kms / max(steps, 1):.3f}")
+        k_ms += kms
+        p_ms += plain_ms
+        b_ms += max(b_bytes, b_ops)
+        by["bytes"] += b_bytes
+        by["operations"] += b_ops
+    # cli.main builds its backend itself: keep a handle on it to read the
+    # AutoSolver's path, and read the ladder's rung from the round trace
+    import os
+    import tempfile
+
+    import ksched_tpu_torch.cli as cli_mod
+    from ksched_tpu_torch.solver.graph_collapse import AutoSolver
+
+    made = []
+    make = cli_mod.make_backend
+    cli_mod.make_backend = lambda *a, **k: made.append(make(*a, **k)) or made[-1]
+    transport_loop.launches = 0
+    err = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as td, contextlib.redirect_stderr(err):
+            trace = os.path.join(td, "rounds.jsonl")
+            t0 = time.perf_counter()
+            rc = cli_main(["--fake-machines", "-nm", "1000", "--pus-per-core", "4",
+                           "-mt", "4", "--podgen", "10000", "--one-shot",
+                           "--backend", "auto", "--round-trace", trace])
+            wall = time.perf_counter() - t0
+            with open(trace) as f:
+                records = [json.loads(ln) for ln in f if ln.strip()]
+    finally:
+        cli_mod.make_backend = make
+    lines = [ln for ln in err.getvalue().splitlines() if ln.startswith("scheduled ")]
+    path = made[0].last_path if made and isinstance(made[0], AutoSolver) else None
+    say(f"cli one-shot: rc={rc} {lines[-1] if lines else '(no result line)'} "
+        f"in {wall:.3f} s; path={path} transport launches {transport_loop.launches} "
+        f"rounds {[(r['solver_rung'], r['degradations'], r['noop_round']) for r in records]}")
+    check(rc == 0 and lines, "cli one-shot printed no result")
+    bound, batch = (int(x) for x in lines[-1].split()[1].split("/"))
+    check(batch > 0 and bound == batch, f"cli one-shot bound {bound} of {batch}")
+    check(len(made) == 1 and isinstance(made[0], AutoSolver),
+          f"cli one-shot's backend is {[type(b).__name__ for b in made]}, not AutoSolver")
+    # the trivial model's one-shot is the dense rung's closed form, as
+    # the service's one-shot (REF_SERVICE["service"][0])
+    check(path == REF_SERVICE["service"][0][2],
+          f"cli one-shot took the {path!r} path, not the JAX package's "
+          f"{REF_SERVICE['service'][0][2]!r}")
+    check(transport_loop.launches == 0,
+          f"cli one-shot left the closed form: {transport_loop.launches} transport launches")
+    check(len(records) == 1 and records[0]["solver_rung"] == 0
+          and records[0]["degradations"] == 0 and not records[0]["noop_round"],
+          f"cli one-shot stepped down the ladder: {records}")
+    return launches, worst, k_ms, p_ms, b_ms, max(by, key=by.get)
+
+
+def phase_service_resident(dev):
+    """The service at the same width on the device-resident mirror with
+    the integrity audit every round, backend "jax" (the scan-CSR solve
+    on the card): a clean arm, and an arm with seeded device bit flips
+    and a checkpoint and warm restore after round 3; every flip detected
+    the round it lands, the clean arm without a divergence, both arms'
+    placements equal to each other and to the JAX package's."""
+    from ksched_tpu_torch.obs import SpanTracer
+
+    shas = {}
+    for name in ("service-resident", "service-resident-faults"):
+        with SpanTracer() as tracer:
+            got, _wall = run_service_checked(dev, name)
+        tot = {}
+        for ev in tracer.events_since(0):
+            if ev["name"] in ("state_audit", "state_repair", "graph_export"):
+                tot.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+        say(f"{name}: spans " + " ".join(
+            f"{k} n={len(v)} sum_ms={sum(v):.3f} max_ms={max(v):.3f}"
+            for k, v in sorted(tot.items())))
+        flips = sum(r["flips"] for r in got["rounds"])
+        div = sum(r["divergences"] for r in got["rounds"])
+        counts = got["service"].scheduler.solver.integrity_counts
+        say(f"{name}: flips={flips} divergences={div} restored_warm="
+            f"{got['restored_warm']} the last service's integrity counts "
+            f"{dict(counts)}")
+        check(all(r["flips"] == r["divergences"] for r in got["rounds"]),
+              f"{name}: a flip was not detected in its round")
+        shas[name] = [r["sha256"] for r in got["rounds"]]
+        if name == "service-resident-faults":
+            check(flips >= 1 and got["restored_warm"] is True,
+                  f"{name}: no flip injected or the restore was not warm")
+        else:
+            check(div == 0, f"{name}: divergences in the clean arm")
+    check(shas["service-resident"] == shas["service-resident-faults"],
+          "the faulted arm's placements differ from the clean arm's")
+    audit_split(got["service"].scheduler.solver.auditor)
+
+
+def audit_split(auditor, reps=5):
+    """One audit's two halves on the last resident service, each the
+    mean of `reps`: the 15 device fingerprints with their copies to the
+    host (host clock around a synchronize, as the audit pays them) and
+    the 15 host twins recomputed from the host arrays (what a round whose
+    arrays and plan version changed recomputes)."""
+    from ksched_tpu_torch.runtime import integrity as ig
+
+    r = auditor.resident
+    state = tuple(getattr(r, "d_" + n) for n in ig.FP_STATE_ARRAYS)
+    host = [getattr(r.state.problem(), n) for n in ig.FP_STATE_ARRAYS]
+    host += [getattr(r.state.plan, n) for n in ig.FP_PLAN_ARRAYS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dev = np.concatenate([ig.device_fingerprints(state), r.plan_fingerprints()])
+    t_dev = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        twins = [ig.host_fingerprint(a) for a in host]
+    t_host = (time.perf_counter() - t0) / reps
+    check(dev.tolist() == twins, "audit split: device fingerprints != host twins")
+    say(f"audit split: device fingerprints {1e3 * t_dev:.3f} ms, host twins "
+        f"{1e3 * t_host:.3f} ms ({sum(a.size for a in host)} elements)")
+
+
+def phase_chaos_soak(dev):
+    """drivers/soak.py's chaos soak on the card: the determinism arm
+    (two runs) and the recovery arm (device bit flips and warm restores
+    against a clean control), each run's summary equal to the JAX
+    package's."""
+    import argparse
+
+    from ksched_tpu_torch.drivers.soak import chaos_main, soak_summary
+
+    base = dict(chaos_backend="jax", loop="sync", device_resident=False,
+                corruption=False, wal_chaos=0.0, audit_every=0, verify_recovery=False,
+                verify_loop_parity=False, verify_determinism=False, metrics_port=None,
+                obs_out=None, flight_dir=None, assert_stall_flight=False,
+                solver_outage_prob=None, device=str(dev))
+    quiet = lambda *a, **k: None  # noqa: E731
+    for name, over in SOAK_ARGS.items():
+        t0 = time.perf_counter()
+        runs = chaos_main(argparse.Namespace(**{**base, **over}), quiet)
+        wall = time.perf_counter() - t0
+        for arm, res in runs.items():
+            got = soak_summary(res)
+            want = REF_SOAK[name]["run" if arm == "again" else arm]
+            say(f"chaos soak {name} {arm}: rounds={got['rounds']} placed={got['placed']} "
+                f"faults={got['fault_totals']} noop={got['noop_rounds']} "
+                f"degradations={got['degradations']} restores={got['restores']} "
+                f"(warm {got['warm_restores']}) divergences={got['divergences']} "
+                f"repairs={got['repairs']} placements_sha256="
+                f"{got['placements_sha256'][:16]}")
+            check(got == want, f"chaos soak {name} {arm} differs from the JAX package's")
+        lat = [x for res in runs.values() for x in res.get("recovery_latencies_s", [])]
+        say(f"chaos soak {name}: {wall:.3f} s"
+            + (f"; recovery rounds ms {[round(1e3 * x, 3) for x in lat]}" if lat else ""))
+
+
+def phase_http(dev):
+    """cli.main against the port's FakeAPIServer over loopback HTTP:
+    100 nodes, 1,000 pods created through the server; every pod bound."""
+    import contextlib
+    import io
+
+    from ksched_tpu_torch.cli import main as cli_main
+    from ksched_tpu_torch.cluster import FakeAPIServer
+
+    server = FakeAPIServer().start()
+    try:
+        for i in range(100):
+            server.add_node(f"node_{i}", cores=1, pus_per_core=4)
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(["--api-server", server.base_url, "--podgen", "1000",
+                           "--one-shot", "--node-batch-timeout", "0.5",
+                           "--pod-batch-timeout", "1.0", "--max-tasks-per-pu", "4",
+                           "--backend", "auto", "--device", str(dev.type)])
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and len(server.bindings()) < 1000:
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        bound = len(server.bindings())
+        lines = [ln for ln in err.getvalue().splitlines() if ln.startswith("scheduled ")]
+        say(f"http: rc={rc} {lines[-1] if lines else '(no result line)'}; "
+            f"server bindings {bound}, pending {server.pending_pods()}, {wall:.3f} s")
+        check(rc == 0 and bound == 1000, f"http: {bound} of 1000 pods bound")
+    finally:
+        server.stop()
+
+
+def phase_native(dev):
+    """The C++ native solver, built from this checkout with g++ (forced,
+    no fallback), on the service's one-shot at BASELINE's width: its
+    placements equal to the JAX package's native solver's."""
+    from ksched_tpu_torch.native import load_library
+
+    t0 = time.perf_counter()
+    load_library(force_build=True)
+    say(f"native: g++ build {time.perf_counter() - t0:.2f} s")
+    run_service_checked(dev, "native")
 
 
 def mcmf_bound_ms(c, steps, sweeps):
@@ -2430,17 +2893,28 @@ def main() -> int:
     lap("churn")
     phase_ell(dev)
     lap("ell")
+    s_launches, s_err, s_k, s_p, s_b, _s_by = phase_service(dev)
+    lap("service")
+    phase_service_resident(dev)
+    lap("service-resident")
+    phase_chaos_soak(dev)
+    lap("chaos soak")
+    phase_http(dev)
+    lap("http")
+    phase_native(dev)
+    lap("native")
+    say(f"transport launches: service-whare {s_launches}")
 
     kernels = [{
         "name": "transport",
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/transport.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:59",
-        "launches": launches + g_b1,
-        "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err),
-        "ms": k_ms + g_k,
-        "plain_ms": p_ms + g_p,
-        "bound_ms": b_ms + g_b,
+        "launches": launches + g_b1 + s_launches,
+        "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err, s_err),
+        "ms": k_ms + g_k + s_k,
+        "plain_ms": p_ms + g_p + s_p,
+        "bound_ms": b_ms + g_b + s_b,
         "bound_by": bound_by,
         "library_ms": None,
     }, {

@@ -354,8 +354,9 @@ class TraceReplayDriver:
     rescheduling). Tasks flow SUBMIT → (round places) → FINISH/KILL.
     Window size is simulated time per scheduling round. `backend` is
     the flow solver of the rounds (a LayeredTransportSolver takes the
-    dense fast path); ksched_tpu's default, the C++ NativeSolver, is
-    not ported yet, so one must be given.
+    dense fast path); by default a LayeredTransportSolver on the card,
+    which raises where no CUDA device is present. The JAX package's
+    default, the host C++ NativeSolver, is one to pass explicitly.
     """
 
     def __init__(
@@ -367,13 +368,8 @@ class TraceReplayDriver:
         task_capacity: int = 1 << 17,
     ) -> None:
         from ..scheduler.bulk import BulkCluster
+        from ..solver.layered import LayeredTransportSolver
 
-        if backend is None:
-            raise NotImplementedError(
-                "TraceReplayDriver's default backend (the C++ NativeSolver) "
-                "is not ported to ksched_tpu_torch yet (ROADMAP queue A item "
-                "6b); pass backend="
-            )
         self._machine_events = sorted(machine_events, key=lambda e: e.time_us)
         self._machine_index: Dict[int, int] = {}
         for ev in self._machine_events:
@@ -385,7 +381,7 @@ class TraceReplayDriver:
             pus_per_machine=1,
             slots_per_pu=slots_per_machine,
             num_jobs=num_jobs_hint,
-            backend=backend,
+            backend=backend or LayeredTransportSolver(device="cuda"),
             num_task_classes=4,  # the trace's scheduling_class domain
             task_capacity=task_capacity,
         )

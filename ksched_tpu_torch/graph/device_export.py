@@ -27,8 +27,7 @@ Two consumers read the per-round mutations:
   slot table.
 
 Port of ksched_tpu/graph/device_export.py. Not ported: the sharded plan
-mirror (`enable_sharded_plan`, ROADMAP item 12) and the auditor's
-`plan_fingerprints` (item 9).
+mirror (`enable_sharded_plan`, ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -535,17 +534,6 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _bounded_diff(what: str, got: np.ndarray, want: np.ndarray, k: int = 8):
-    """AssertionError naming the first `k` indices where `got` differs
-    from `want`."""
-    if got.shape != want.shape:
-        return AssertionError(f"{what}: shape {got.shape}, host {want.shape}")
-    idx = np.flatnonzero(got != want)[:k]
-    return AssertionError(
-        f"{what} differs from the host at {idx.tolist()}: device "
-        f"{got[idx].tolist()}, host {want[idx].tolist()}")
-
-
 class DeviceResidentState:
     """Persistent mirror, on `device`, of a DeviceGraphState's folded
     problem arrays.
@@ -790,10 +778,38 @@ class DeviceResidentState:
                             problem.d_cost * int(problem.num_nodes))
         return self._scaled[1]
 
+    def plan_fingerprints(self) -> np.ndarray:
+        """uint32 checksum per mirrored plan tensor, in FP_PLAN_ARRAYS
+        order (runtime/integrity.StateAuditor)."""
+        from ..runtime.integrity import device_fingerprints
+
+        return device_fingerprints((
+            self.d_p_arc, self.d_p_sign, self.d_p_src, self.d_p_dst,
+            self.d_inv, self.d_seg, self.d_isstart,
+            self.d_first, self.d_last, self.d_nonempty,
+        ))
+
+    def rebind(self, problem: DeviceResidentProblem) -> None:
+        """Re-point a problem handle at the mirror's CURRENT tensors.
+        Required after any out-of-band tensor replacement (divergence
+        repair, injected corruption): a handle built at refresh time
+        would read the replaced tensors."""
+        problem.d_excess = self.d_excess
+        problem.d_src = self.d_src
+        problem.d_dst = self.d_dst
+        problem.d_cap = self.d_cap
+        problem.d_cost = self.d_cost
+        if problem.d_plan is not None and self._plan_gen >= 0:
+            problem.d_plan = self._plan_tensors()
+        self._scaled = None
+
     def parity_check(self) -> None:
         """Verify the mirror equals the host folded view bit for bit
-        (fetches the tensors; audit/debug). Raises AssertionError naming
-        the first differing indices."""
+        (fetches the tensors; audit/debug — the cheap per-round path is
+        the fingerprint audit in runtime/integrity.py). Raises a
+        structured IntegrityError carrying a bounded diff."""
+        from ..runtime.integrity import bounded_diff
+
         problem = self.state.problem()
         pairs = (
             ("excess", self.d_excess, problem.excess.astype(np.int32)),
@@ -805,11 +821,13 @@ class DeviceResidentState:
         for name, dev, host in pairs:
             got = dev.cpu().numpy()
             if got.dtype != host.dtype or not np.array_equal(got, host):
-                raise _bounded_diff(f"device mirror {name}", got, host)
+                raise bounded_diff(f"device mirror {name}", got, host)
 
     def plan_parity_check(self) -> None:
         """Verify the scatter-maintained plan tensors equal the host plan
-        arrays bit for bit (test/debug)."""
+        arrays bit for bit (test/debug); raises IntegrityError."""
+        from ..runtime.integrity import bounded_diff
+
         plan = self.state.plan
         if plan is None or not plan.enabled or self._plan_gen < 0:
             return
@@ -822,4 +840,4 @@ class DeviceResidentState:
         for name, dev, host in zip(names, self._plan_tensors(), plan.host_args()):
             got = dev.cpu().numpy()
             if got.dtype != host.dtype or not np.array_equal(got, host):
-                raise _bounded_diff(f"device plan mirror {name}", got, host)
+                raise bounded_diff(f"device plan mirror {name}", got, host)

@@ -190,6 +190,16 @@ class SlotPlanState:
         #: over every upload (the non-resident solve's plan traffic)
         self.uploaded_bytes = 0
 
+    # -- pickling (the warm-restore manifest, runtime/checkpoint.py) -------
+
+    def __getstate__(self):
+        # the device caches hold live tensors; they are rebuilt on first
+        # use in the restored process
+        state = dict(self.__dict__)
+        state["_static_dev"] = None
+        state["_values_dev"] = None
+        return state
+
     # -- lifecycle ---------------------------------------------------------
 
     def invalidate(self) -> None:
@@ -707,7 +717,20 @@ class SlotPlanState:
 
     def check_invariants(self) -> None:
         """Verify the maintained layout is internally consistent with
-        the owning DeviceGraphState (O(E)); raises AssertionError."""
+        the owning DeviceGraphState (O(E)). Raises a structured
+        `runtime.integrity.IntegrityError` (an AssertionError
+        subclass)."""
+        from ..runtime.integrity import IntegrityError
+
+        try:
+            self._check_invariants_impl()
+        except IntegrityError:
+            raise
+        except AssertionError as e:
+            raise IntegrityError(f"slot-plan invariant violated: {e}",
+                                 array="slot_plan") from e
+
+    def _check_invariants_impl(self) -> None:
         st = self.state
         assert not self.needs_rebuild, "plan not built"
         live = sorted(st._arc_slot.values())
@@ -741,10 +764,12 @@ class SlotPlanState:
             f"{n_live_rows} live plan rows for {len(live)} live slots")
         assert self.p_sign[0] == 0, "reserved position 0 must stay dead"
         occ = np.bincount(self.p_src[self.p_sign != 0], minlength=st.n_cap)
-        bad = np.flatnonzero(occ != self._occ[: st.n_cap])
-        assert not len(bad), (
-            f"plan occupancy differs at nodes {bad[:8].tolist()}: kept "
-            f"{self._occ[bad[:8]].tolist()}, rows {occ[bad[:8]].tolist()}")
+        if not np.array_equal(occ, self._occ[: st.n_cap]):
+            from ..runtime.integrity import bounded_diff
+
+            # raised as the structured error itself, so its indices,
+            # expected and found values stay machine-readable
+            raise bounded_diff("plan_occupancy", self._occ[: st.n_cap], occ)
         assert (self._deg_hwm[: st.n_cap] >= occ).all(), (
             "degree high-water mark fell below live occupancy")
         assert self._tail_next <= self.entry_cap, "the tail pool overran the table"

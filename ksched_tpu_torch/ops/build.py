@@ -32,11 +32,17 @@ BUILD_DIR = _HERE / "_build"
 _libs = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel did not build, load or launch. The solver degradation
+    ladder (runtime/degrade.py) never absorbs it: a broken kernel fails
+    the round instead of stepping down to a slower rung."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
+        raise KernelError("no CUDA toolkit found (set CUDA_HOME) to build "
                            "the kernels")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
@@ -82,7 +88,7 @@ def build(names=None) -> dict:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return {name: library_path(name) for name in names}
 
 
@@ -125,5 +131,5 @@ def check_tensor(name, t, shape, device) -> None:
 def raise_on(lib, rc: int, what: str) -> None:
     """Raise if a launch's cudaGetLastError() code is not 0."""
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
+        raise KernelError(f"{what} kernel launch failed: "
                            + lib.ksched_cuda_error_string(rc).decode())

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from .build import check_tensor, load, raise_on
+from .build import KernelError, check_tensor, load, raise_on
 
 _I32 = torch.int32
 _BIG = 1 << 30
@@ -348,7 +348,7 @@ def grid_capacity(dev) -> tuple:
         with torch.cuda.device(index):
             per_sm = lib.ksched_mcmf_blocks_per_sm()
         if per_sm <= 0:
-            raise RuntimeError(
+            raise KernelError(
                 "the mcmf kernel does not fit an SM: "
                 + (lib.ksched_cuda_error_string(-per_sm).decode() if per_sm else
                    "no block is resident"))

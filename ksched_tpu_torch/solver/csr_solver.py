@@ -28,8 +28,10 @@ Every solve writes the soltel telemetry ring by default (obs/soltel.py;
 `telemetry=0` or KSCHED_SOLTEL=0 turns it off): `last_telemetry` holds
 the last attempt's decoded ring, a stall raises SolverStallError with
 the stall detector's reason and the ring, and a warm attempt that burns
-its budget is reported as a `warm_price_war` event. Not ported yet:
-warm-state checkpointing (ROADMAP item 9).
+its budget is reported as a `warm_price_war` event. The carried warm
+state leaves and re-enters a solver as host arrays
+(`export_warm_state` / `import_warm_state`, the warm-restore manifest of
+runtime/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -372,6 +374,61 @@ class CsrSolver(FlowSolver):
         self._prev_src_host = None
         self._prev_dst_host = None
         self._key_solved = None
+
+    # -- warm-state checkpointing (runtime/checkpoint.save_warm_manifest) --
+
+    def export_warm_state(self) -> Optional[dict]:
+        """The carried warm state as host arrays, or None when cold —
+        what a warm crash restore needs to make its first solve
+        bit-identical to the never-killed process's. One device-to-host
+        copy of the potentials (the flow already has a host copy)."""
+        if self._prev is None:
+            return None
+
+        def host(a):
+            if a is None:
+                return None
+            if isinstance(a, torch.Tensor):
+                a = a.cpu().numpy()
+            return np.asarray(a, np.int32)
+
+        return {
+            "prev": host(self._prev),
+            "prev_p": host(self._prev_p),
+            "prev_src": host(self._prev_src_host),
+            "prev_dst": host(self._prev_dst_host),
+            "key_solved": self._key_solved,
+        }
+
+    def import_warm_state(self, state: dict, key_solved=None,
+                          resident: bool = False) -> None:
+        """Adopt an export_warm_state payload. `key_solved` is the
+        endpoint key REMAPPED onto the restored DeviceGraphState (its
+        uid changes across processes; the checkpoint loader owns the
+        remap). The potentials go to the solver's device; with
+        `resident`, so do the warm flow and the last-solve endpoint
+        masks, so a device-resident loop's first post-restore warm
+        attempt consumes the exact values the killed process carried."""
+        def host(name):
+            a = state.get(name)
+            return None if a is None else np.asarray(a, np.int32)
+
+        def dev(a):
+            return None if a is None else torch.tensor(a, device=self.device)
+
+        self._prev = host("prev")
+        self._prev_p = dev(host("prev_p"))
+        self._prev_src_host = host("prev_src")
+        self._prev_dst_host = host("prev_dst")
+        self._key_solved = key_solved if key_solved is not None else state.get("key_solved")
+        if resident and self._prev_src_host is not None:
+            self._prev_dev = dev(self._prev)
+            self._prev_src_dev = dev(self._prev_src_host)
+            self._prev_dst_dev = dev(self._prev_dst_host)
+        else:
+            self._prev_dev = None
+            self._prev_src_dev = None
+            self._prev_dst_dev = None
 
     def _plan_for(self, src, dst, n, plan_key=None) -> tuple:
         plan = self._plan

@@ -59,7 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..graph.flowgraph import NodeType
-from .base import FlowResult, FlowSolver, lower_bound_cost
+from .base import FlowResult, FlowSolver, check_finite_costs, lower_bound_cost
 
 _TASK_TYPES = (
     int(NodeType.ROOT_TASK),
@@ -691,6 +691,10 @@ class AutoSolver(FlowSolver):
             self.mega.reset()
 
     def solve(self, problem) -> FlowResult:
+        # rejected before the collapse audit casts costs to integers: the
+        # JAX package's AutoSolver lets a NaN cost through to the dense
+        # rung, whose objective then comes out as int64's minimum
+        check_finite_costs(problem)
         collapse, reason = try_collapse(problem)
         if collapse is None:
             mega = self.mega

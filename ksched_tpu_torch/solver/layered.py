@@ -42,6 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.build import KernelError
+
 #: sentinel magnitudes; the CUDA kernel (ops/csrc/transport.cu) uses
 #: the same values, and bit parity depends on matching fills
 BIG = 1 << 30
@@ -1014,6 +1016,8 @@ class LayeredTransportSolver:
                 lp, pad=pad_geometry, solve=solve,
                 max_supersteps=self.max_supersteps, device=self.device,
             )
+        except KernelError:
+            raise
         except RuntimeError as e:
             self.last_supersteps = self.max_supersteps  # budget exhausted
             tel = decode_last(converged=False)

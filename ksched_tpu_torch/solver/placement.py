@@ -10,6 +10,8 @@ subprocess; here it is a scatter into the flat host arrays
 
 from __future__ import annotations
 
+from collections import Counter
+
 from ..graph.device_export import DeviceGraphState, DeviceResidentState
 from ..graph.graph_manager import GraphManager, TaskMapping
 from ..obs.devprof import get_profiler
@@ -44,6 +46,20 @@ class PlacementSolver:
         )
         self._started = False
         self.last_result = None
+        # ---- device-state integrity (runtime/integrity.py) -----------
+        #: audit cadence in exports (0 = off); the service sets it from
+        #: --audit-every. On due rounds the post-refresh mirror is
+        #: fingerprinted against the host journal truth and divergence
+        #: is repaired through the escalating ladder before the solve.
+        self.audit_every = 0
+        self.auditor = None
+        self._export_count = 0
+        #: array names that diverged on the LAST audited export (the
+        #: service's flight-dump trigger), None when clean
+        self.last_divergence = None
+        #: cumulative integrity accounting for this solver's lifetime
+        #: (divergences, repair_<rung>): soaks sum it across restores
+        self.integrity_counts = Counter()
 
     def solve_async(self):
         """Phase 1 of a pipelined round: export the journal, snapshot
@@ -71,9 +87,9 @@ class PlacementSolver:
             self.state.set_excess(gm.sink_node.id, gm.sink_node.excess)
             if self.resident is not None:
                 # pack + scatter this round's delta into the persistent
-                # tensors (delta_pack / delta_upload child spans); the
-                # JAX package's integrity gate runs here (ROADMAP item 9)
+                # tensors (delta_pack / delta_upload child spans)
                 problem = self.resident.refresh()
+                problem = self._integrity_gate(problem)
             else:
                 problem = self.state.problem()
         # Byte accounting: in device-resident mode the exact bytes the
@@ -99,6 +115,74 @@ class PlacementSolver:
         except BaseException:
             get_profiler().solve_failed()  # stop an Nth-solve capture
             raise
+
+    def _integrity_gate(self, problem):
+        """The post-refresh integrity seam: apply any injected device
+        corruption (the chaos seam — the injector rides the ladder
+        backend, so corruption is drawn and contained like solver
+        faults), then on audit-due rounds fingerprint the mirror against
+        the host truth and run the divergence response ladder:
+        re-scatter the diverged rows -> full re-upload -> full_build
+        (here) -> the degradation ladder's NOOP backstop. Repairs
+        restore the exact host values, so a repaired round's placements
+        are bit-identical to a clean-state solve."""
+        inj = getattr(self.backend, "injector", None)
+        if inj is not None and hasattr(inj, "device_corruption"):
+            available = {"excess", "src", "dst", "cap", "cost"}
+            if self.resident.d_p_sign is not None:
+                available |= {"p_arc", "p_sign", "p_src", "p_dst"}
+            spec = inj.device_corruption(
+                self.state.n_cap, self.state.m_cap, available=available)
+            if spec is not None:
+                from ..runtime.integrity import apply_device_corruption
+
+                apply_device_corruption(self.resident, spec)
+                self.resident.rebind(problem)
+        self.last_divergence = None
+        self._export_count += 1
+        if not self.audit_every or (self._export_count - 1) % self.audit_every:
+            return problem
+        from ..runtime.checkpoint import find_jax_solver
+        from ..runtime.integrity import IntegrityError, StateAuditor
+
+        if self.auditor is None or self.auditor.resident is not self.resident:
+            self.auditor = StateAuditor(self.resident)
+        # the solver's carried warm flow is solver-owned device state:
+        # fingerprint it against the solver's host copy alongside the
+        # mirror (a diverged warm carry escalates straight to
+        # full_build below, whose backend.reset() drops it)
+        csr = find_jax_solver(self.backend)
+        warm_flow = warm_expected = None
+        if csr is not None and csr._prev_dev is not None and csr._prev is not None:
+            warm_flow, warm_expected = csr._prev_dev, csr._prev
+        with span("state_audit"):
+            diverged = self.auditor.audit(warm_flow, warm_expected)
+        if not diverged:
+            return problem
+        self.last_divergence = list(diverged)
+        self.integrity_counts["divergences"] += 1
+        try:
+            with span("state_repair", arrays=len(diverged)):
+                rung = self.auditor.repair(diverged)
+            self.integrity_counts[f"repair_{rung}"] += 1
+            self.resident.rebind(problem)
+            return problem
+        except IntegrityError:
+            pass
+        # ladder exhausted on the mirror: rebuild the device state from
+        # the host graph wholesale — the last repair rung before the
+        # degradation ladder's NOOP round. full_build reassigns the
+        # slot table, so warm solver state is dropped with it.
+        self.integrity_counts["repair_full_build"] += 1
+        with span("state_repair", kind="full_build"):
+            gm = self.gm
+            self.state.full_build(gm.cm.graph)
+            gm.cm.reset_changes()
+            self.backend.reset()
+            self.state.set_excess(gm.sink_node.id, gm.sink_node.excess)
+            problem = self.resident.refresh()
+        self.auditor._m_repairs.labels(rung="full_build").inc()
+        return problem
 
     def complete(self, token) -> TaskMapping:
         """Phase 2: synchronize the solve and decode the task mapping."""

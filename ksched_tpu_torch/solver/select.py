@@ -13,7 +13,8 @@ from .base import FlowSolver
 
 
 def make_backend(name: str, device="cuda") -> FlowSolver:
-    """name: "auto" | "jax" | "ell" | "mega" | "layered" | "ref".
+    """name: "auto" | "jax" | "ell" | "mega" | "layered" | "ref" |
+    "native".
 
     - "auto": AutoSolver — the dense transport whenever the graph
       audits as collapsible, else the mcmf kernel (MegaSolver) when the
@@ -24,10 +25,18 @@ def make_backend(name: str, device="cuda") -> FlowSolver:
     - "mega": MegaSolver on every solve, delegating a graph it refuses
       to a CsrSolver;
     - "layered": LayeredTransportSolver (solve_layered only);
-    - "ref": the exact host oracle (device is checked, not used)."""
+    - "ref": the exact host oracle (device is checked, not used);
+    - "native": NativeSolver, the in-process C++ solver on the host,
+      built with g++ at first use (device is checked, not used). A
+      failed build raises: unlike the JAX package's ``fallback``, no
+      other backend silently takes the place of the one named."""
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
+    if name == "native":
+        from .native import NativeSolver
+
+        return NativeSolver()
     if name == "auto":
         from .csr_solver import CsrSolver
         from .graph_collapse import AutoSolver
@@ -57,4 +66,4 @@ def make_backend(name: str, device="cuda") -> FlowSolver:
 
         return ReferenceSolver()
     raise ValueError(
-        f"unknown backend {name!r}; want auto | jax | ell | mega | layered | ref")
+        f"unknown backend {name!r}; want auto | jax | ell | mega | layered | ref | native")

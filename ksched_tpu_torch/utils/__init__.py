@@ -1,3 +1,4 @@
+from .backoff import ExpBackoff
 from .device import resolve_device
 from .ids import (
     IDGenerator,
@@ -14,6 +15,7 @@ from .ids import (
 from .maps import JobMap, ResourceMap, ResourceStatus, TaskMap
 
 __all__ = [
+    "ExpBackoff",
     "IDGenerator",
     "SlotAllocator",
     "equiv_class_from_bytes",

@@ -11,7 +11,10 @@ device-resident event rounds (bench.py's churn config at 400 x 40, and
 "mega" with the mcmf kernel reading the mirror's tensors) against the
 CPU; the mcmf kernel's soltel ring against its plain version's across
 blocks, and the rings of the mega, CSR and ELL solves on the card
-against the CPU's.
+against the CPU's; the integrity fingerprints and the poison flip on
+the card against the CPU's, and the scheduler service (the synthetic
+loop through "auto", "jax" on the resident mirror with flips and a warm
+restore, the chaos soak) on the card against the CPU.
 Marked `cuda`; every test skips where no CUDA device is present.
 Imports nothing of JAX, so it runs on a machine without it:
 
@@ -761,3 +764,83 @@ def test_soltel_rings_on_card_match_cpu(card):
     assert (on_card.solve_layered(LayeredProblem(**lp)).supersteps
             == on_cpu.solve_layered(LayeredProblem(**lp)).supersteps > 0)
     assert on_card.last_telemetry is None and on_cpu.last_telemetry is not None
+
+
+# -- the service and its runtime ----------------------------------------------
+
+
+def test_fingerprints_and_flip_on_card_match_cpu(card):
+    from ksched_tpu_torch.runtime import integrity as ig
+
+    rng = np.random.default_rng(7)
+    arrays = [rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
+              for n in (1, 1000, 1 << 17)]
+    arrays.append(rng.integers(0, 2, 300).astype(bool))
+    host = [torch.as_tensor(a) for a in arrays]
+    dev = [t.to(card) for t in host]
+    assert (ig.device_fingerprints(dev) == ig.device_fingerprints(host)).all()
+    assert ig.device_fingerprints(host).tolist() == [ig.host_fingerprint(a) for a in arrays]
+    for i, b in ((0, 0), (17, 30), (999, 13)):
+        flipped = ig.corrupt_flip(dev[1], i, b)
+        assert torch.equal(flipped.cpu(), ig.corrupt_flip(host[1], i, b))
+        assert int(ig._device_fp1(flipped)) != int(ig._device_fp1(dev[1]))
+
+
+@pytest.mark.parametrize("over", [
+    dict(backend="auto", classes=4, cost_model="whare"),
+    dict(backend="auto", pipeline=True),
+    dict(backend="jax", device_resident=True, audit_every=1),
+    dict(backend="jax", device_resident=True, audit_every=1, corrupt_prob=0.5,
+         restore_after=2),
+], ids=["auto-whare", "auto-pipelined", "jax-resident", "jax-resident-faults"])
+def test_service_on_card_matches_cpu(card, over):
+    from ksched_tpu_torch.drivers.service import ServiceConfig, package, run_service
+
+    cfg = ServiceConfig(machines=6, pus_per_core=2, slots=8, pods=60, rounds=4,
+                        arrivals=8, churn=0.1, **over)
+    keep = ("bound", "placed", "path", "sha256", "solver_work", "flips", "divergences")
+    got, want = (run_service(package(d), cfg) for d in (card, "cpu"))
+    assert [[r[k] for k in keep] for r in got["rounds"]] == [
+        [r[k] for k in keep] for r in want["rounds"]]
+    assert got["restored_warm"] == want["restored_warm"]
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_service_kernel_build_failure_raises_on_card(card, monkeypatch, tmp_path, pipeline):
+    """On the card, a transport kernel that does not build fails the
+    service's round through the ladder: no step down to the CSR solve or
+    to cpu_ref."""
+    import warnings
+
+    from ksched_tpu_torch.drivers.service import ServiceConfig, package, run_service
+    from ksched_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "_nvcc", lambda: "false")  # exits 1
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_libs", {})
+    cfg = ServiceConfig(machines=6, pus_per_core=2, slots=8, pods=60, rounds=2,
+                        arrivals=8, churn=0.1, classes=4, cost_model="whare",
+                        backend="auto", pipeline=pipeline)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)  # no "degrading to"
+        with pytest.raises(build.KernelError, match="nvcc failed"):
+            run_service(package(card), cfg)
+
+
+def test_chaos_soak_on_card_matches_cpu(card):
+    import argparse
+
+    from ksched_tpu_torch.drivers import soak
+
+    def args(device):
+        return argparse.Namespace(
+            rounds=48, chunk=16, seed=3, machines=6, slots=8, chaos_backend="jax",
+            chaos_restore_every=24, device=device, loop="sync", device_resident=False,
+            corruption=False, wal_chaos=0.0, audit_every=0, metrics_port=None,
+            obs_out=None, flight_dir=None, assert_stall_flight=False,
+            solver_outage_prob=None)
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    got, want = (soak.soak_summary(soak.run_chaos_soak(args(d), quiet))
+                 for d in (str(card), "cpu"))
+    assert got == want

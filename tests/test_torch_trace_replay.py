@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from ksched_tpu.costmodels.device_costs import coco_device_cost_fn as jax_coco
 from ksched_tpu.drivers import trace_replay as jt
@@ -243,8 +244,19 @@ def test_decode_width_that_defers(width):
 
 
 def test_host_driver_needs_a_backend():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6b"):
-        tt.TraceReplayDriver([tt.TraceMachineEvent(0, 0, 0)])
+    """With no backend given, the host driver runs its rounds on the
+    card, so where no CUDA device is present it needs one. The JAX
+    package's default, the C++ native solver, is passed explicitly."""
+    from ksched_tpu.solver.native import NativeSolver as JaxNative
+    from ksched_tpu_torch.solver.native import NativeSolver
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tt.TraceReplayDriver([tt.TraceMachineEvent(0, 0, 0)])
+    td = tt.TraceReplayDriver([tt.TraceMachineEvent(0, 0, 0)], backend=NativeSolver())
+    jd = jt.TraceReplayDriver([jt.TraceMachineEvent(0, 0, 0)])
+    assert isinstance(td.cluster.backend, NativeSolver)
+    assert isinstance(jd.cluster.backend, JaxNative)
 
 
 def test_no_schedulable_window_raises():
