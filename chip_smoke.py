@@ -173,18 +173,39 @@ no result line):
 20. native: the C++ solver built from this checkout (forced, no
    fallback) on the service's one-shot, placements equal to the JAX
    package's native solver's;
+21. policies: the six host cost models beyond Trivial, Quincy and
+   Whare-Map (Random, SJF, CoCo with four task classes, Octopus, Void,
+   Net) through drivers/service.py at
+   BASELINE's width (Random cut to 200 pods on 20 machines: each task
+   its own class), the one-shot and a churn round through "auto" on the
+   card, every round's values equal to the JAX package's
+   (tests/torch_policy_reference.py); the transport and mcmf solves they
+   launch counted and re-solved by the plain versions with the same
+   bits (Random's two transport solves; the others stay on the dense
+   rung's closed form, as in the JAX package);
+22. tenancy (tenancy/, the stacked scan-CSR lane solve in plain
+   PyTorch): bench.py's multitenant at its own arguments (16 cells of 3
+   sizes, 4 + 24 rounds, both arms, each cell's placements equal across
+   them), 4 tenants of BASELINE's round through MultiTenantService (the
+   one-shot and 4 churn rounds; one stacked solve re-run on the CPU with
+   the same bits), cli.main --tenants 4 (5,000 pods a cell) and the
+   Makefile's tenant-smoke soak (16 cells, 40 rounds, chaos on cell 0,
+   each clean cell equal to its solo run), every value equal to the JAX
+   package's (tests/torch_tenancy_reference.py), each with its
+   `phase time:` line;
    then the `kernels` line and the result line. The transport kernel's
-   entry there covers three paths, each counted from 0 just before it
-   ran: Scenario W(1000, 10000) (phase 4), gtrace12k-coco (phase 7e) and
-   the Whare-Map service (phase 16, sync and pipelined). Its `launches`
-   is the sum of their launches, and its `ms`, `plain_ms` and `bound_ms`
-   sum the solves timed on them: W's two, gtrace12k-coco's longest at
-   [4, 12,544] and the Whare-Map service's sync run's two. The mcmf
-   kernel's entry covers W-mega
-   (phase 10) and W-mega-resident (phase 13) the same way: `launches`
-   sums both, and `ms`, `plain_ms` and `bound_ms` sum W-mega's timed
-   solves and W-mega-resident's round 2 solve. The other paths'
-   launches are printed before the line.
+   entry there covers four paths, each counted from 0 just before it
+   ran: Scenario W(1000, 10000) (phase 4), gtrace12k-coco (phase 7e),
+   the Whare-Map service (phase 16, sync and pipelined) and the
+   policies (phase 21). Its `launches` is the sum of their launches,
+   and its `ms`, `plain_ms` and `bound_ms` sum the solves timed on
+   them: W's two, gtrace12k-coco's longest at [4, 12,544] and the
+   Whare-Map service's sync run's two. The mcmf kernel's entry covers
+   W-mega (phase 10), W-mega-resident (phase 13) and the policies
+   (phase 21, none there) the same way: `launches` sums them, and `ms`,
+   `plain_ms` and `bound_ms` sum W-mega's timed solves and
+   W-mega-resident's round 2 solve. The other paths' launches are
+   printed before the line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -618,6 +639,142 @@ REF_SOAK = {
         "control": {"placements_sha256": "4ef4ade2cc6b92b36ceff4f925f1909f9454e032a39b8f8904437f084fbffac2", "bindings_sha256": "83faaf081859782edd6243c5ad113e5fb703478915d8bb4edd96855764567b57", "placed": 25, "fault_totals": {}, "noop_rounds": 0, "degradations": 0, "rounds": 144, "restores": 0, "warm_restores": 0, "divergences": 0, "repairs": {}, "device_flips": 0},
     },
 }
+
+# The policies phase's per-round values, as produced by the JAX package
+# (ksched_tpu's SchedulerService on the CPU through drivers/service.py,
+# POLICY_CONFIGS; tests/torch_policy_reference.py): [bound, placed,
+# AutoSolver path, solver work, live placements' sha256].
+REF_POLICY = {
+    "policy-random": [
+        [200, 200, "dense", 35568, "589a5ebf843b56b5e689adfaa3107dfe1b81dc3370f82549772be4607b126102"],
+        [100, 298, "dense", 15676, "3d5cc5d62ffa3d08750a6d599a0c87a27bc383bd8b6976ab6557143652173c41"],
+    ],
+    "policy-sjf": [
+        [10000, 10000, "dense", 0, "1706cb559bc12fe1eb69fcb7f3787796733a0ed7f4b2c548b36e4058ec3f3414"],
+        [100, 10000, "dense", 0, "0a1f96b5bdeaa98f91d2f0693d08282943c1551ab03c4aca887eb739378851af"],
+    ],
+    "policy-coco": [
+        [10000, 10000, "dense", 0, "5ed4494c9cf201b9d5a48d5c45c7876cd3d2f35b99cb733a3d458ce79fc43d73"],
+        [100, 10000, "dense", 0, "67ffc2ba803ad1184db9b46e25b69ce945e412a2049af7bb0dec315358737580"],
+    ],
+    "policy-octopus": [
+        [10000, 10000, "dense", 0, "1706cb559bc12fe1eb69fcb7f3787796733a0ed7f4b2c548b36e4058ec3f3414"],
+        [100, 10000, "dense", 0, "0a1f96b5bdeaa98f91d2f0693d08282943c1551ab03c4aca887eb739378851af"],
+    ],
+    "policy-void": [
+        [0, 0, "dense", 0, "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945"],
+        [0, 0, "dense", 0, "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945"],
+    ],
+    "policy-net": [
+        [10000, 10000, "dense", 0, "1706cb559bc12fe1eb69fcb7f3787796733a0ed7f4b2c548b36e4058ec3f3414"],
+        [100, 10000, "dense", 0, "0a1f96b5bdeaa98f91d2f0693d08282943c1551ab03c4aca887eb739378851af"],
+    ],
+}
+
+# The tenancy phase's values, as produced by the JAX package (ksched_tpu's
+# tenancy on the CPU through the same drivers, ksched_tpu_torch/drivers/
+# multitenant.py and drivers/soak.py; tests/torch_tenancy_reference.py):
+# multitenant per round [placements' sha256, batched supersteps,
+# sequential supersteps, stacked groups]; fleet per round [groups,
+# {tenant: [bound, placed, sha256, supersteps, warm scope, rung, noop]}];
+# cli.main --tenants 4's report; the tenant soak's tenant_soak_summary.
+REF_TENANCY = {
+    "multitenant": [
+        ["7efa54ce4175d6bd7bd1229deaab4637e837fb7281cbfb77e0f0e9c342268290", 160, 160, 3],
+        ["16ece936d124406309d63ca74495eca53138cff936a6beb46716948eb1dc01a0", 160, 160, 3],
+        ["df48c807307d3085289b190f1e6d5463a95457ec5156249202a7c15186115f7c", 152, 152, 3],
+        ["96f1212d0a32a3ad7a3e36f74c27e2644dde2161002f6ad94f6cb3c358f1e45d", 162, 162, 3],
+        ["24778096997308632b862df3120dc7a41895b4ff0dd084eac8276f1fa8eb33a8", 155, 155, 3],
+        ["6d35ae54f58b444b25c21fdd38d5680566415722f3df721510a429d95c5eb90a", 158, 158, 3],
+        ["424e6787cf461e9a613802b96ab9e5316a87f80bb8b77529a2d1791d5198cddd", 153, 153, 3],
+        ["f669915140d824d2433120cadb70af817d4ed7b6168763ace1040a430ce795a9", 157, 157, 3],
+        ["6696019da7228cf0ff2552158a6b84f513402ebe5e144ee2ee8a5bdfa7362f7f", 155, 155, 3],
+        ["1ce98e019892b5f45b311abfec86a76e6a0ae89c282b6c0211b514058d805d8f", 157, 157, 3],
+        ["1e8de72c5c61d31e2f64daea0366577c69ed08482f0ce51abc01805fdc6a7044", 154, 154, 3],
+        ["25c95d4cd6db00db5de2fa3658d9e2c5fe71fb1a4d9b758b63fba34cbb154442", 154, 154, 3],
+        ["dcc304cb842041df85e3232aa2a9e810a8cee36bce92ad1ee2630078477987b9", 155, 155, 3],
+        ["9dbc95aca1abaf59d03a281dd6099494409572b70626495513a54da97bb2b415", 155, 155, 3],
+        ["85e79616fd4b58b2dc55b7e10e1337f1ed7cca0ceb944330a29e7fb76e13ce8d", 153, 153, 3],
+        ["adb98908218761ccfef0e645c257d916fdaf86cbab927b70b8205521db25c138", 159, 159, 3],
+        ["5140ee6cfbc46fc56d8d5de28ed0c8cc251228e167dc82d1b38831b34b60d27f", 156, 156, 3],
+        ["966044996fd9c04a5f139ed7d2dfa59e9b8f7b9dd930f09de413a15e0c12d88d", 153, 153, 3],
+        ["a8cebf232016681d421a8348046ada81de734b4add591b1d42a0d234d550d473", 153, 153, 3],
+        ["0eda23a41a9c5daa9bd9603dfbf6f7c28608ab1fab567625e4399c95cf35ccff", 155, 155, 3],
+        ["819aece005a8a5195e05c88081fa81c18de24c6cd685d1a65b77d7548d63200b", 154, 154, 3],
+        ["d4a255d4e9255aac29493028a641bbe98d615843df44c6b4461eecf375d95fa8", 157, 157, 3],
+        ["a9cc4494a3cea1dfdf830e056fe556b79deb7e9b029cefa97603460f87ef84cd", 153, 153, 3],
+        ["7be54a56195811e343c56ed2754b58b25b0e7b8870562eb4e230283593a3002b", 157, 157, 3],
+        ["2e2a50b634e4675837ac9d440eec4cd4d72471754a41d5483f8279c3f7447240", 156, 156, 3],
+        ["e6b054b159a8f7d1c095e6a67d8e3992b871ab4a870213f597f69c9c0d3d7172", 151, 151, 3],
+        ["32b335e16321e316424a03f76a44df1470521ef7aa955247d93de878dcd3633d", 152, 152, 3],
+        ["0cadb0cd41a93c8721bd4fd799f18f782f4f75b01596ea5be43e417ac837989d", 152, 152, 3],
+    ],
+    "fleet": [
+        [1, {
+            "cell0": [10000, 10000, "5082bc457a4dea44a7ca27f47429e21a2ecceff42d696293d0e2faeec0eb0464", 10, "cold", 0, False],
+            "cell1": [10000, 10000, "a2d93b15410245a769980046a718c51345dee5b77f1d5f93521d51e9e391780a", 10, "cold", 0, False],
+            "cell2": [10000, 10000, "a6dadfd7dee3914f70c87f40f45886be95d9c9a9ed2a44d50647bc5f60634b6c", 10, "cold", 0, False],
+            "cell3": [10000, 10000, "09d83c7082be9b31789ca24523aa44929c5c468cb87c58fd907e82f17516bde9", 10, "cold", 0, False],
+        }],
+        [1, {
+            "cell0": [100, 10000, "7140fdb621ec0d7c8c4d8b8ae4cf42a060394d575c48ffbf5a50823e01b9a1bc", 10, "fresh", 0, False],
+            "cell1": [100, 10000, "e7f941512eaa38e620dec41d660c090d42e39a98250d59132911806a215dbf07", 10, "fresh", 0, False],
+            "cell2": [100, 10000, "8c6fbaff1b7305747331780c97faa32b34ea48077f31a29e9e724f1a66399192", 10, "fresh", 0, False],
+            "cell3": [100, 10000, "f2a9b8df9969110d9b71f43d3fbc2083ef56ba5b07cd7f63486feea6e49c30d8", 10, "fresh", 0, False],
+        }],
+        [1, {
+            "cell0": [100, 10000, "3dcec9de090b5b3da73f909dc2781a7531b1d8d904cc28f6d3be362f2cc68ac7", 10, "fresh", 0, False],
+            "cell1": [100, 10000, "ff768a9f2babcd4e329741190c5bb1b9762ba5e1da4863dfc777666e69ca48da", 10, "fresh", 0, False],
+            "cell2": [100, 10000, "c37b23b2031bde9da496caf0a31f80e83389e9bd5a8ad69012d27c63f457e307", 10, "fresh", 0, False],
+            "cell3": [100, 10000, "0958638e7364a01aaffd7a959f0f223321358d4929cc313eb94ff983f42ba9ff", 10, "fresh", 0, False],
+        }],
+        [1, {
+            "cell0": [100, 10000, "6573da24425085f7beaa720b1c7f93a9d13f9ce57e45ee042e0473fd0dca2b10", 10, "fresh", 0, False],
+            "cell1": [100, 10000, "1f8ab330aa37a2d6e6786b2de247cc3752c69593ddb0ff7bf54083518956d899", 10, "fresh", 0, False],
+            "cell2": [100, 10000, "b3216af5cf691d3418b5df841461bd8da08a8ecb08b12f00f05c84f7ed9abc76", 10, "fresh", 0, False],
+            "cell3": [100, 10000, "36d580d56e2d949ab3f4f0ac63ccd5fc2ae0bf57828700302558fa4ccf6f8736", 10, "fresh", 0, False],
+        }],
+        [1, {
+            "cell0": [100, 10000, "7fd2a2bd9a0b89bf072b2d2493bf3f6fe5cb4075e50624931e8564343495f59f", 10, "fresh", 0, False],
+            "cell1": [100, 10000, "cdabc948cf15c8027bd91c9755f251a47f6837ba470fde21f1d509a3270c06fa", 10, "fresh", 0, False],
+            "cell2": [100, 10000, "4880e3de5083b6bcb46902072d0a151abba9d89e4f4c73e7a300a3bbafffb7a3", 10, "fresh", 0, False],
+            "cell3": [100, 10000, "997c5f3558f4993d56fdf8f69d467c26ebdeb816f4f42438b90a8685880d0c2f", 10, "fresh", 0, False],
+        }],
+    ],
+    "cli": {"rc": 0, "bound": {"cell0": 5000, "cell1": 5000, "cell2": 5000, "cell3": 5000}, "rounds": 1, "flushes": 1},
+    "soak": {
+        "tenants": {
+            "cell_0": {"bindings_sha256": "0ea9b655cdaf54ca17de94d1a13ef42afb0bb86764a4aca55e0e01f2da65fe43", "bound": 34, "work": [10, 10, 0, 0, 0, 0, 10, 10, 10, 10, 0, 10, 0, 10, 0, 0, 10, 0, 0, 0, 0, 10, 10, 10, 10, 10, 9, 10, 10, 0, 10, 0, 0, 10, 0, 0, 10, 0, 10, 0], "scheduled": [2, 1, 0, 0, 0, 0, 2, 1, 2, 2, 0, 2, 0, 2, 0, 0, 2, 0, 0, 0, 0, 2, 1, 1, 2, 1, 1, 2, 2, 0, 1, 0, 0, 2, 0, 0, 1, 0, 2, 0], "faults": 10, "degradations": 10, "noops": 1},
+            "cell_1": {"bindings_sha256": "4f15e6dfb6e8ef424f2844f33bd9a823a6ef4a70c7075b627c12bf8633dfac4d", "bound": 43, "work": [10, 10, 10, 10, 0, 10, 0, 0, 9, 10, 0, 0, 0, 10, 10, 10, 9, 0, 9, 10, 10, 0, 10, 10, 10, 10, 10, 0, 10, 0, 0, 10, 0, 10, 9, 9, 10, 10, 10, 10], "scheduled": [1, 2, 2, 1, 0, 2, 0, 0, 2, 1, 0, 0, 0, 2, 1, 1, 2, 0, 1, 1, 1, 0, 2, 1, 1, 2, 1, 0, 2, 0, 0, 2, 0, 2, 2, 1, 2, 2, 2, 1], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_10": {"bindings_sha256": "483393d5efc3efe2e86a7c922a127e5ae7e9e0bec5ffffbe7d00150a7d75ac4a", "bound": 28, "work": [0, 10, 10, 0, 0, 10, 10, 0, 0, 10, 10, 0, 10, 0, 10, 10, 0, 0, 0, 10, 0, 10, 0, 0, 10, 0, 10, 10, 0, 10, 10, 10, 10, 0, 0, 10, 10, 10, 0, 0], "scheduled": [0, 1, 2, 0, 0, 1, 1, 0, 0, 2, 1, 0, 1, 0, 1, 1, 0, 0, 0, 1, 0, 2, 0, 0, 1, 0, 2, 1, 0, 2, 1, 1, 2, 0, 0, 1, 1, 2, 0, 0], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_11": {"bindings_sha256": "291bef51bc2f05c4fa8d0e45efc506c5853673cf6e23d9aeae3f51869e6e33a9", "bound": 36, "work": [0, 10, 0, 0, 10, 10, 10, 0, 10, 10, 0, 0, 10, 10, 10, 10, 0, 0, 10, 10, 10, 10, 0, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 0, 0, 0, 10, 0], "scheduled": [0, 1, 0, 0, 1, 1, 1, 0, 2, 1, 0, 0, 2, 1, 1, 1, 0, 0, 1, 1, 2, 2, 0, 1, 1, 1, 2, 1, 1, 1, 2, 1, 2, 2, 2, 0, 0, 0, 1, 0], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_12": {"bindings_sha256": "8548e8747ce71196ba749fadc3e1ba2a04547b3d3a48ae21ff36af197c0bf749", "bound": 36, "work": [10, 10, 9, 0, 10, 10, 10, 10, 0, 10, 0, 10, 0, 0, 10, 0, 10, 10, 9, 0, 9, 10, 9, 10, 9, 0, 0, 0, 10, 0, 0, 10, 10, 0, 10, 0, 0, 0, 10, 0], "scheduled": [2, 1, 2, 0, 2, 2, 2, 2, 0, 2, 0, 2, 0, 0, 1, 0, 2, 2, 2, 0, 2, 1, 1, 1, 1, 0, 0, 0, 1, 0, 0, 1, 2, 0, 1, 0, 0, 0, 1, 0], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_13": {"bindings_sha256": "a3ced4fe89518f0acaaf838e96f53be3152b62bb425ebaba566759f23a76c5ca", "bound": 47, "work": [10, 10, 10, 10, 10, 10, 10, 10, 0, 10, 10, 10, 10, 10, 10, 0, 0, 10, 0, 10, 10, 9, 10, 10, 0, 10, 0, 9, 10, 10, 10, 9, 9, 10, 9, 0, 10, 10, 10, 0], "scheduled": [2, 1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1, 1, 2, 0, 0, 2, 0, 2, 2, 2, 1, 1, 0, 2, 0, 1, 1, 2, 2, 2, 2, 2, 2, 0, 2, 1, 2, 0], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_14": {"bindings_sha256": "c787b5d0dc273100959faffb91cad3b766f4e6841c5f5d669d9efcc312652a7e", "bound": 42, "work": [10, 10, 10, 0, 10, 10, 10, 0, 10, 10, 0, 0, 10, 10, 10, 9, 0, 10, 0, 10, 10, 10, 0, 0, 0, 10, 10, 10, 0, 10, 0, 10, 0, 10, 0, 10, 10, 9, 9, 0], "scheduled": [1, 1, 2, 0, 2, 1, 2, 0, 2, 2, 0, 0, 2, 2, 2, 1, 0, 2, 0, 1, 2, 2, 0, 0, 0, 2, 2, 1, 0, 1, 0, 2, 0, 2, 0, 1, 2, 1, 1, 0], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_15": {"bindings_sha256": "584d9a004744eebed913dbf202a3410c022f5f2021238abd46b3784524cd7fe2", "bound": 47, "work": [10, 10, 10, 10, 10, 9, 0, 10, 9, 9, 9, 9, 0, 9, 10, 10, 10, 9, 9, 9, 10, 0, 0, 9, 9, 0, 9, 0, 9, 0, 9, 9, 0, 9, 10, 10, 9, 0, 9, 10], "scheduled": [2, 1, 1, 2, 2, 2, 0, 1, 2, 2, 1, 2, 0, 1, 1, 2, 2, 2, 2, 1, 2, 0, 0, 2, 1, 0, 1, 0, 1, 0, 2, 2, 0, 1, 1, 1, 2, 0, 1, 1], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_2": {"bindings_sha256": "b6af97905b2b9eea38d8ac3240dbfbdc71dd09fa453a618659f15a5785810c1d", "bound": 32, "work": [10, 0, 0, 10, 10, 0, 10, 0, 0, 10, 10, 10, 10, 10, 0, 10, 10, 10, 10, 10, 0, 0, 0, 10, 0, 10, 10, 10, 0, 10, 0, 0, 0, 0, 10, 10, 10, 0, 10, 10], "scheduled": [2, 0, 0, 1, 2, 0, 2, 0, 0, 1, 1, 1, 1, 2, 0, 2, 1, 2, 2, 2, 0, 0, 0, 1, 0, 1, 1, 1, 0, 1, 0, 0, 0, 0, 1, 1, 1, 0, 1, 1], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_3": {"bindings_sha256": "240e52bf8c961e16d7d4badb67637a8a4c1deb57b616040f13590bf4e90fc982", "bound": 32, "work": [10, 10, 10, 10, 9, 9, 0, 10, 10, 0, 0, 0, 0, 10, 9, 0, 10, 10, 10, 0, 0, 0, 0, 10, 10, 10, 10, 0, 10, 0, 10, 0, 10, 0, 0, 10, 0, 10, 0, 10], "scheduled": [1, 2, 2, 2, 1, 2, 0, 2, 2, 0, 0, 0, 0, 1, 1, 0, 1, 1, 1, 0, 0, 0, 0, 1, 1, 1, 1, 0, 1, 0, 2, 0, 1, 0, 0, 2, 0, 2, 0, 1], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_4": {"bindings_sha256": "711f3d2889d472d1783a42ca013d9316ccb2823532ccfae8f17ffa8e119b1e93", "bound": 43, "work": [10, 10, 10, 0, 10, 0, 10, 10, 0, 10, 10, 0, 0, 10, 10, 10, 10, 10, 10, 9, 9, 10, 0, 10, 0, 9, 0, 0, 0, 0, 10, 10, 10, 0, 0, 10, 10, 0, 10, 9], "scheduled": [1, 2, 1, 0, 2, 0, 2, 2, 0, 1, 2, 0, 0, 1, 2, 2, 2, 2, 1, 2, 2, 2, 0, 1, 0, 1, 0, 0, 0, 0, 2, 1, 2, 0, 0, 1, 2, 0, 2, 2], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_5": {"bindings_sha256": "eacef566c221fd1f1bda5f560abd0915c519d78d07bf946bf901322fd2d2f68c", "bound": 43, "work": [10, 10, 10, 0, 0, 10, 10, 0, 10, 0, 10, 10, 10, 10, 10, 0, 0, 10, 0, 10, 9, 10, 10, 10, 10, 9, 9, 10, 0, 9, 10, 0, 0, 10, 0, 10, 10, 10, 10, 10], "scheduled": [2, 1, 1, 0, 0, 2, 1, 0, 1, 0, 1, 1, 2, 2, 2, 0, 0, 2, 0, 2, 2, 1, 1, 2, 2, 1, 2, 1, 0, 1, 1, 0, 0, 1, 0, 2, 1, 2, 1, 2], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_6": {"bindings_sha256": "eb237cdc0a81e02e6d4f167bd3f509ab439ecebc1a433a99bbff1112230c3cde", "bound": 43, "work": [10, 10, 10, 0, 10, 10, 10, 10, 0, 0, 10, 0, 10, 0, 10, 0, 10, 10, 0, 10, 0, 10, 9, 9, 9, 9, 10, 10, 9, 9, 10, 0, 10, 0, 10, 10, 0, 9, 0, 9], "scheduled": [1, 1, 1, 0, 1, 1, 1, 1, 0, 0, 2, 0, 2, 0, 2, 0, 1, 2, 0, 2, 0, 2, 2, 1, 1, 2, 1, 2, 2, 1, 1, 0, 2, 0, 2, 2, 0, 2, 0, 2], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_7": {"bindings_sha256": "472f55c38ad92ac98daded66ba7f8bee135aa0adad78cf7004043cc00ad9bc1d", "bound": 52, "work": [10, 0, 10, 10, 10, 10, 10, 0, 0, 10, 10, 10, 10, 9, 9, 10, 10, 9, 9, 10, 0, 10, 10, 0, 10, 10, 9, 10, 10, 9, 9, 10, 10, 9, 0, 9, 0, 10, 10, 0], "scheduled": [2, 0, 1, 2, 2, 2, 1, 0, 0, 1, 2, 1, 1, 1, 2, 1, 2, 1, 1, 2, 0, 1, 2, 0, 2, 1, 2, 2, 2, 2, 2, 2, 1, 2, 0, 2, 0, 2, 2, 0], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_8": {"bindings_sha256": "303a0f9ada9af38851a64b3bed424613cf45e1a9c974ca817e1e02947ec66664", "bound": 33, "work": [0, 10, 10, 10, 10, 0, 10, 10, 10, 10, 9, 9, 10, 10, 9, 9, 0, 0, 10, 0, 10, 0, 10, 10, 0, 0, 0, 10, 0, 10, 10, 0, 10, 0, 0, 10, 0, 10, 0, 10], "scheduled": [0, 2, 2, 2, 2, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 1, 0, 1, 0, 1, 2, 0, 0, 0, 1, 0, 1, 2, 0, 1, 0, 0, 2, 0, 1, 0, 2], "faults": 0, "degradations": 0, "noops": 0},
+            "cell_9": {"bindings_sha256": "37910ec2bff1aa7a94b9eeb1c6d065ca8aa9b9f62c7e0d113b4f3c6948f2bcac", "bound": 33, "work": [0, 10, 0, 10, 10, 0, 10, 0, 10, 0, 10, 10, 10, 10, 10, 0, 10, 0, 10, 0, 10, 0, 0, 0, 10, 10, 0, 10, 10, 0, 0, 10, 10, 10, 9, 10, 10, 10, 0, 10], "scheduled": [0, 1, 0, 2, 1, 0, 1, 0, 1, 0, 1, 2, 2, 1, 2, 0, 2, 0, 1, 0, 1, 0, 0, 0, 1, 1, 0, 1, 1, 0, 0, 1, 2, 1, 1, 1, 1, 2, 0, 2], "faults": 0, "degradations": 0, "noops": 0},
+        },
+        "flushes": 40,
+        "last_groups": 4,
+        "last_lanes": 9,
+        "quarantines": 0.0,
+        "checked": 15,
+    },
+}
+#: cli.main --tenants 4 at BASELINE's width with 5,000 pods a cell: the
+#: synthetic pod channel holds 5,000, and --tenants fills each cell's
+#: channel before its first round (so does the JAX package's)
+CLI_TENANTS = ["--tenants", "4", "--podgen", "20000", "-nm", "1000", "--pus-per-core", "4",
+               "-mt", "4"]
+#: the Makefile's tenant-smoke
+TENANT_SOAK = dict(tenants=16, rounds=40, seed=0, chaos_tenant=0)
 
 # The service phases' configurations (ksched_tpu_torch/drivers/service.py
 # ServiceConfig): BASELINE's round, 10k pods on 1,000 fabricated machines
@@ -2749,6 +2906,184 @@ def phase_native(dev):
     run_service_checked(dev, "native")
 
 
+def phase_policies(dev):
+    """One service run per host cost model beyond Trivial, Quincy and
+    Whare-Map (drivers/service.py POLICY_CONFIGS: BASELINE's round and one round
+    of 1% completions and 100 arrivals through make_backend("auto") on
+    the card): every round's bound count, placements' sha256, AutoSolver
+    path and solver work equal to the JAX package's, its RoundRecord
+    phases printed; the transport and mcmf solves they launch counted
+    and re-solved by the plain versions with the same bits. Returns
+    (transport launches, mcmf launches, max_abs_err)."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers.service import POLICY_CONFIGS, package, run_service
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+    from ksched_tpu_torch.ops.transport import transport_loop
+
+    b1 = b3 = worst = 0
+    for name, cfg in POLICY_CONFIGS.items():
+        transport_loop.launches = mcmf_loop.launches = 0
+        with Recorder(ops) as rec1, Recorder(ops, "mcmf_solve") as rec3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run_service(package(dev), cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        say_service(name, "sync", got, wall)
+        rows = [service_row(r, name) for r in got["rounds"]]
+        check(rows == REF_POLICY[name], f"{name}: {rows} != the JAX package's {REF_POLICY[name]}")
+        n1, n3 = transport_loop.launches, mcmf_loop.launches
+        say(f"{name}: transport launches {n1} (solves {len(rec1.calls)}), mcmf launches "
+            f"{n3} (solves {len(rec3.calls)}); kernel_ms transport="
+            f"{rec1.kernel_ms():.4f} mcmf={rec3.kernel_ms():.4f}")
+        check(n1 == len(rec1.calls) and n3 == len(rec3.calls),
+              f"{name}: launches {n1}/{n3} != solves {len(rec1.calls)}/{len(rec3.calls)}")
+        b1, b3 = b1 + n1, b3 + n3
+        for i, c in enumerate(rec1.calls):
+            err, _ms = resolve_plain(f"{name} transport solve {i}", c, False)
+            worst = max(worst, err)
+        for i, c in enumerate(rec3.calls):
+            plain = mcmf_loop_plain(*c["args"], **c["kw"])
+            err = max_abs_diff(c["out"], plain)
+            say(f"{name} mcmf solve {i}: R={c['args'][13]} steps={int(c['out'][1])} "
+                f"max_abs_err={err} vs plain")
+            check(same_bits(c["out"], plain), f"{name} mcmf solve {i}: kernel != plain")
+            worst = max(worst, err)
+    return b1, b3, worst
+
+
+def bench_rows(got):
+    """run_multitenant_bench's rounds as REF_TENANCY holds them."""
+    return [[r["batched"]["sha256"], r["batched"]["supersteps"],
+             r["sequential"]["supersteps"], r["batched"]["groups"]] for r in got["rounds"]]
+
+
+def fleet_rows(got):
+    """run_tenant_fleet's rounds as REF_TENANCY holds them."""
+    keys = ("bound", "placed", "sha256", "supersteps", "scope", "rung", "noop")
+    return [[r["groups"], {t: [v[k] for k in keys] for t, v in r["tenants"].items()}]
+            for r in got["rounds"]]
+
+
+def cli_tenants(argv):
+    """cli.main --tenants: each cell's bound count, the rounds and the
+    batch flushes from its report."""
+    import contextlib
+    import io
+
+    from ksched_tpu_torch.cli import main as cli_main
+    from ksched_tpu_torch.obs.metrics import Registry, scoped_registry
+
+    err = io.StringIO()
+    # a registry of its own: the earlier phases registered the service's
+    # families without the tenant label that the cells' scoped views add
+    with contextlib.redirect_stderr(err), scoped_registry(Registry()):
+        rc = cli_main(argv)
+    lines = err.getvalue().splitlines()
+    for ln in lines:
+        if ln.startswith(("cell", "tenancy:")):
+            say(f"cli --tenants: {ln}")
+    bound = {ln.split(":")[0]: int(ln.split()[1].split("=")[1])
+             for ln in lines if ln.startswith("cell")}
+    tail = [ln for ln in lines if ln.startswith("tenancy:") and "rounds" in ln]
+    check(tail, "cli --tenants printed no report")
+    words = tail[-1].split()
+    return {"rc": rc, "bound": bound, "rounds": int(words[1]), "flushes": int(words[3])}
+
+
+def phase_tenancy(dev, lap):
+    """The multi-tenant service on the card (tenancy/, the stacked
+    scan-CSR solve in plain PyTorch): bench.py's multitenant at its own
+    arguments, both arms, each cell's placements equal across them and
+    every round equal to the JAX package's; 4 tenants of BASELINE's
+    round through MultiTenantService, every tenant's round equal to the
+    JAX package's, and one stacked solve re-run on the CPU with the same
+    bits; cli.main --tenants 4; the Makefile's tenant-smoke soak (zero
+    cross-tenant interference, each clean tenant equal to its solo run)
+    equal to the JAX package's."""
+    import argparse
+
+    import ksched_tpu_torch.tenancy.batch as batch_mod
+    from ksched_tpu_torch.drivers.multitenant import (
+        FleetConfig,
+        package,
+        run_multitenant_bench,
+        run_tenant_fleet,
+    )
+    from ksched_tpu_torch.drivers.soak import run_tenant_soak, tenant_soak_summary
+
+    got = run_multitenant_bench(package(dev))
+    for r, rec in enumerate(got["rounds"]):
+        b, q = rec["batched"], rec["sequential"]
+        say(f"multitenant round {r}: batched fleet_ms={b['fleet_ms']:.3f} "
+            f"groups={b['groups']} stack_supersteps={b['stack_supersteps']} "
+            f"stack_reads={b['stack_reads']} lane_supersteps={b['supersteps']}; "
+            f"sequential fleet_ms={q['fleet_ms']:.3f} supersteps={q['supersteps']}; "
+            f"sha256={b['sha256'][:16]}")
+    for arm, st in got["arms"].items():
+        cells = st["per_tenant"].values()
+        say(f"multitenant {arm}: fleet p50_ms={st['fleet_p50_ms']:.3f} "
+            f"p99_ms={st['fleet_p99_ms']:.3f} mean_ms={st['fleet_mean_ms']:.3f} "
+            f"supersteps_per_round_p50={st['supersteps_per_round_p50']}; cell p50_ms "
+            f"{min(c['p50_ms'] for c in cells):.3f}-{max(c['p50_ms'] for c in cells):.3f}")
+    rows = bench_rows(got)
+    check(rows == REF_TENANCY["multitenant"], "multitenant rounds differ from the JAX package's")
+    lap("tenancy multitenant")
+
+    captured = []
+    inner = batch_mod.stacked_solve_fn
+
+    def capture(**statics):
+        fn = inner(**statics)
+
+        def run(*args):
+            out = fn(*args)
+            if not captured and args[0].shape[0] > 1:
+                captured.append((statics, [a.clone() for a in args], [o.clone() for o in out]))
+            return out
+
+        return run
+
+    batch_mod.stacked_solve_fn = capture
+    try:
+        got = run_tenant_fleet(package(dev), FleetConfig())
+    finally:
+        batch_mod.stacked_solve_fn = inner
+    for r, rec in enumerate(got["rounds"]):
+        say(f"tenant fleet round {r}: wall_ms={rec['wall_ms']:.3f} groups={rec['groups']} "
+            f"stack_supersteps={rec['stack_supersteps']} stack_reads={rec['stack_reads']} "
+            + " ".join(f"{t}:bound={v['bound']},steps={v['supersteps']},{v['scope']}"
+                       for t, v in rec["tenants"].items()))
+    for tid, s in sorted(got["service"].tenant_summary().items()):
+        say(f"tenant fleet {tid}: p50_ms={s.get('p50_ms', 0):.3f} p99_ms={s.get('p99_ms', 0):.3f}")
+    check(fleet_rows(got) == REF_TENANCY["fleet"], "tenant fleet differs from the JAX package's")
+    check(captured, "the tenant fleet ran no stacked solve of more than one lane")
+    statics, args, out = captured[0]
+    cpu = inner(**statics)(*(a.cpu() for a in args))
+    check(same_bits([o.cpu() for o in out], cpu),
+          "the card's stacked solve differs from the CPU's")
+    say(f"tenant fleet: a stacked solve of {args[0].shape[0]} lanes x {args[0].shape[1]} arcs "
+        f"({int(out[2].max())} supersteps) equal on the card and the CPU")
+    lap("tenancy fleet")
+
+    t0 = time.perf_counter()
+    got = cli_tenants(CLI_TENANTS)
+    say(f"cli --tenants: {got} in {time.perf_counter() - t0:.3f} s")
+    check(got == REF_TENANCY["cli"], f"cli --tenants: {got} != {REF_TENANCY['cli']}")
+    lap("tenancy cli")
+
+    t0 = time.perf_counter()
+    res = run_tenant_soak(package(dev), argparse.Namespace(**TENANT_SOAK),
+                          lambda *a, **k: None)
+    got = tenant_soak_summary(res)
+    say(f"tenant soak: {TENANT_SOAK} in {time.perf_counter() - t0:.3f} s; checked "
+        f"{got['checked']} clean tenants, flushes {got['flushes']}, chaos tenant "
+        f"faults={got['tenants']['cell_0']['faults']} "
+        f"degradations={got['tenants']['cell_0']['degradations']}")
+    check(got == REF_TENANCY["soak"], "tenant soak differs from the JAX package's")
+    lap("tenancy soak")
+
+
 def mcmf_bound_ms(c, steps, sweeps):
     """(bytes bound, operations bound) of one captured mcmf solve."""
     (cap, cost, supply, flow0, eps, e_arc, e_sign, e_src, e_hs, e_he,
@@ -2904,14 +3239,19 @@ def main() -> int:
     phase_native(dev)
     lap("native")
     say(f"transport launches: service-whare {s_launches}")
+    pol_b1, pol_b3, pol_err = phase_policies(dev)
+    lap("policies")
+    say(f"launches on the policies path: transport {pol_b1}, mcmf {pol_b3}")
+    phase_tenancy(dev, lap)
 
     kernels = [{
         "name": "transport",
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/transport.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:59",
-        "launches": launches + g_b1 + s_launches,
-        "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err, s_err),
+        "launches": launches + g_b1 + s_launches + pol_b1,
+        "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err, s_err,
+                           pol_err),
         "ms": k_ms + g_k + s_k,
         "plain_ms": p_ms + g_p + s_p,
         "bound_ms": b_ms + g_b + s_b,
@@ -2934,8 +3274,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/mcmf.cu",
         "replaces": "ksched_tpu/ops/mcmf_pallas.py:108",
-        "launches": m_launches + mr_launches,
-        "max_abs_err": max(m_err, m_main_err, mr_err),
+        "launches": m_launches + mr_launches + pol_b3,
+        "max_abs_err": max(m_err, m_main_err, mr_err, pol_err),
         "ms": mk_ms + mr_k,
         "plain_ms": mp_ms + mr_p,
         "bound_ms": mb_ms + mr_b,

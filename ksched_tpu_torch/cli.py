@@ -10,9 +10,7 @@ Run on the card: python -m ksched_tpu_torch.cli --fake-machines \
          --num-machines 10 --podgen 100 --one-shot
 and on the CPU with --device cpu (every kernel's plain PyTorch version).
 
-Port of ksched_tpu/cli.py. Not ported yet: --tenants (the multi-tenant
-service, ROADMAP item 11) and the cost models outside MODEL_REGISTRY
-(item 7).
+Port of ksched_tpu/cli.py.
 """
 
 from __future__ import annotations
@@ -105,6 +103,9 @@ class SchedulerService:
         #: service is the whole process, as before) — stamped onto every
         #: RoundRecord and the service_round span
         self.tenant = tenant
+        #: in-flight split-round state (dispatch_round/complete_round,
+        #: the multi-tenant loop's seam) — None outside a split round
+        self._split: Optional[dict] = None
         #: double-buffered round mode: each round DISPATCHES its solve,
         #: then posts the PREVIOUS round's bindings while the device
         #: crunches, then synchronizes/decodes/applies — so binding
@@ -473,13 +474,15 @@ class SchedulerService:
         self._note_flight(rec, span_mark)
         return bound
 
-    def _note_flight(self, rec, span_mark: int) -> None:
+    def _note_flight(self, rec, span_mark: int, span_prefix=None) -> None:
         if self.flight is not None and rec is not None:
             events = (
                 self.span_tracer.events_since(span_mark)
                 if self.span_tracer is not None
                 else None
             )
+            if span_prefix:
+                events = list(span_prefix) + (events or [])
             self.flight.note_round(rec, events)
 
     def _run_round_body(self, pods, now, solve):
@@ -515,8 +518,102 @@ class SchedulerService:
         rec = self._round_accounting(noop, bound, deadline_miss, now, solve, deg_mark)
         return rec, bound
 
+    # -- split rounds: the multi-tenant loop's dispatch/complete seam ------
+
+    def dispatch_round(self, pods) -> bool:
+        """Phase A of a SPLIT round (tenancy/): ingest the pod
+        batch and DISPATCH the solve without synchronizing, so the
+        multi-tenant loop can dispatch every cell, flush the shared
+        stacked batch ONCE, and only then complete each cell. The
+        watchdog starts here and stops in complete_round, so the
+        per-tenant deadline covers the cell's whole round (its own
+        phases plus its share of the batched-solve window). Returns
+        True when a solve was dispatched (runnable work existed)."""
+        if self._split is not None:
+            raise RuntimeError("a split round is already in flight; call complete_round first")
+        st = {
+            "deg_mark": self.ladder.degradations_total if self.ladder is not None else 0,
+            "t0": time.perf_counter(),
+            "pods": len(pods),
+        }
+        self.watchdog.__enter__()
+        try:
+            for pod in pods:
+                self._add_pod(pod)
+            jd = self.job_map.find(self.job_id)
+            if jd is not None:
+                self.scheduler.add_job(jd)
+            st["token"] = self.scheduler.schedule_all_jobs_async()
+        except BaseException:
+            self.watchdog.__exit__(*sys.exc_info())
+            raise
+        self._split = st
+        return st["token"] is not None
+
+    def complete_round(
+        self,
+        now: Optional[float] = None,
+        span_mark: int = 0,
+        span_prefix=None,
+    ) -> int:
+        """Phase B of a split round: synchronize the lane solve, apply
+        deltas, queue/post this round's bindings, then the same
+        heartbeat sweep + trace attribution as run_round (a failed
+        ladder becomes a NOOP round exactly as in the synchronous
+        loop). ``span_mark`` scopes the flight-ring span slice to this
+        phase (pass a mark taken at its start); ``span_prefix`` carries
+        the cell's OWN dispatch-phase events — in a multiplexed round
+        the wall-clock window between a cell's dispatch and complete
+        contains every other cell's spans, which must not leak into a
+        tenant-scoped flight dump."""
+        if self._split is None:
+            raise RuntimeError("no split round in flight; call dispatch_round first")
+        st, self._split = self._split, None
+        noop = False
+        bound = 0
+        try:
+            try:
+                if st["token"] is not None:
+                    self.scheduler.finish_scheduling()
+                else:
+                    self.scheduler.last_timing = RoundTiming()
+            except LadderExhausted as e:
+                noop = True
+                self.noop_rounds += 1
+                self.scheduler.last_timing = RoundTiming()
+                warnings.warn(
+                    f"NOOP round (previous assignments kept): {e}",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+        finally:
+            self.watchdog.__exit__(*sys.exc_info())
+        deadline_miss = self.watchdog.fired
+        self.round_latencies_s.append(time.perf_counter() - st["t0"])
+        if not noop:
+            out = self._collect_bindings()
+            if self.pipeline:
+                # per-tenant dispatch window: the POSTs ride the NEXT
+                # round's batched-solve window (cell.post_window)
+                self._pending_bindings.extend(out)
+            elif out:
+                self.api.assign_bindings(out)
+            bound = len(out)
+        # a round with no runnable work (token None) dispatched no
+        # solve: record it as an idle sweep (solver_rung -1, zeroed
+        # phase timings EXCLUDED from latency percentiles), not as a
+        # solved round whose all-zero timings would drag a lightly
+        # loaded tenant's published p50 toward zero
+        rec = self._round_accounting(
+            noop, bound, deadline_miss, now, st["token"] is not None,
+            st["deg_mark"],
+        )
+        self._note_flight(rec, span_mark, span_prefix)
+        return bound
+
     def _round_accounting(self, noop, bound, deadline_miss, now, solve, deg_mark):
-        """The post-solve tail of a round: heartbeat sweep, backlog
+        """The post-solve tail every round shape shares (run_round's
+        body and the split complete_round): heartbeat sweep, backlog
         flag maintenance, service gauges, and the round's trace record
         with fault/retry/degradation attribution."""
         lost: List[int] = []
@@ -941,6 +1038,80 @@ def podgen(
         api.close()
 
 
+def _run_multi_tenant(args, span_tracer, metrics_server) -> int:
+    """--tenants N: the scheduler-as-a-service demo path — N synthetic
+    cells multiplexed through one warm batched solver (tenancy/), its
+    solves on ``args.device``."""
+    from .tenancy import MultiTenantService
+
+    tenants = args.tenants
+    mts = MultiTenantService(
+        round_deadline_s=args.round_deadline,
+        pipeline=args.pipeline,
+        device_resident=args.device_resident,
+        flight_dir=args.flight_dir,
+        flight_capacity=args.flight_capacity,
+        span_tracer=span_tracer,
+        device=args.device,
+    )
+    per_cell = max(1, args.podgen // tenants) if args.podgen > 0 else 0
+    try:
+        for i in range(tenants):
+            cell = mts.add_tenant(
+                f"cell{i}",
+                machines=args.num_machines,
+                pus_per_core=args.pus_per_core,
+                slots=args.max_tasks_per_pu,
+                seed=1000 + i,
+                machine_timeout_s=args.machine_timeout,
+            )
+            for j in range(per_cell):
+                cell.api.submit_pod(PodEvent(pod_id=f"cell{i}_pod_{j}"))
+        print(
+            f"tenancy: {tenants} cells x {args.num_machines} machines, "
+            f"{per_cell} pods each",
+            file=sys.stderr,
+        )
+        rounds = 0
+        while rounds < 512:
+            mts.run_round(now=float(rounds))
+            rounds += 1
+            if per_cell and all(
+                len(c.svc.scheduler.task_bindings) >= min(
+                    per_cell,
+                    args.num_machines * args.pus_per_core * args.max_tasks_per_pu,
+                )
+                for c in mts.cells.values()
+            ):
+                break
+            if not per_cell and rounds >= 8:
+                break
+        mts.drain()
+        for tid, summary in sorted(mts.tenant_summary().items()):
+            bound = len(mts.cells[tid].svc.scheduler.task_bindings)
+            print(
+                f"{tid}: bound={bound} p50={summary.get('p50_ms', 0):.2f}ms "
+                f"p99={summary.get('p99_ms', 0):.2f}ms",
+                file=sys.stderr,
+            )
+        print(
+            f"tenancy: {rounds} rounds, "
+            f"{mts.batcher.flushes} batch flushes, last round "
+            f"{mts.batcher.last_groups} stacked program(s) for "
+            f"{mts.batcher.last_lanes} lanes",
+            file=sys.stderr,
+        )
+        return 0
+    finally:
+        mts.close()
+        if span_tracer is not None:
+            span_tracer.uninstall()
+            if args.trace_out:
+                span_tracer.dump(args.trace_out)
+        if metrics_server is not None:
+            metrics_server.stop()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ksched-tpu-torch",
@@ -955,13 +1126,10 @@ def main(argv=None) -> int:
     ap.add_argument("--num-machines", "-nm", type=int, default=10)
     ap.add_argument("--cores-per-machine", type=int, default=1)
     ap.add_argument("--pus-per-core", type=int, default=1)
-    ported = [m.name.lower() for m in MODEL_REGISTRY]
     ap.add_argument(
         "--cost-model",
         choices=[m.name.lower() for m in CostModelType],
         default="trivial",
-        help=f"cost model: one of {', '.join(ported)} (the others are "
-        "ROADMAP item 7)",
     )
     ap.add_argument(
         "--backend", choices=["ref", "native", "jax", "ell", "auto"],
@@ -990,8 +1158,11 @@ def main(argv=None) -> int:
     ap.add_argument("--one-shot", action="store_true",
                     help="exit once the pod queue is drained")
     ap.add_argument("--tenants", type=int, default=0, metavar="N",
-                    help="multi-tenant mode: not ported yet (ROADMAP item "
-                    "11); any N > 0 is refused")
+                    help="multi-tenant mode: serve N independent synthetic "
+                    "cells from this one warm process (tenancy/; "
+                    "--num-machines/--max-tasks-per-pu apply per cell, "
+                    "--podgen pods are split across cells); prints "
+                    "per-tenant p50/p99 on exit")
     ap.add_argument("--pipeline", action="store_true",
                     help="double-buffered rounds: dispatch the solve, "
                     "post the previous round's bindings while it is in "
@@ -1041,13 +1212,6 @@ def main(argv=None) -> int:
         "synthetic API; --podgen then posts pods to the server",
     )
     args = ap.parse_args(argv)
-    if args.tenants:
-        ap.error("--tenants: the multi-tenant service is not ported to "
-                 "ksched_tpu_torch yet (ROADMAP item 11)")
-    if CostModelType[args.cost_model.upper()] not in MODEL_REGISTRY:
-        ap.error(f"--cost-model {args.cost_model}: not ported to "
-                 f"ksched_tpu_torch yet (ROADMAP item 7); one of "
-                 f"{', '.join(ported)}")
     if args.one_shot and args.podgen <= 0:
         ap.error("--one-shot needs --podgen N: the pod wait blocks until a first pod arrives")
     if args.audit_every and not args.device_resident:
@@ -1088,14 +1252,18 @@ def main(argv=None) -> int:
     )
     # flight-only services need records but not the whole history:
     # bound the tracer at the ring size so a weeks-long run does not
-    # accumulate records nothing will ever dump
+    # accumulate records nothing will ever dump. In --tenants mode the
+    # multi-tenant service builds PER-TENANT tracers/recorders under
+    # tenant-scoped registry views; constructing unscoped ones here
+    # first would register the same family names without the tenant
+    # label and the scoped views would (correctly) refuse to alias them
     tracer = None
-    if args.round_trace:
+    if args.round_trace and not args.tenants:
         tracer = RoundTracer()
-    elif args.flight_dir:
+    elif args.flight_dir and not args.tenants:
         tracer = RoundTracer(capacity=args.flight_capacity)
     flight = None
-    if args.flight_dir:
+    if args.flight_dir and not args.tenants:
         flight = FlightRecorder(
             capacity=args.flight_capacity, dump_dir=args.flight_dir
         )
@@ -1108,6 +1276,9 @@ def main(argv=None) -> int:
                 capture_solve=args.devprof_capture, capture_dir=args.devprof_dir
             )
         )
+
+    if args.tenants > 0:
+        return _run_multi_tenant(args, span_tracer, metrics_server)
 
     if args.api_server:
         from .cluster.http_api import HTTPClusterAPI

@@ -99,6 +99,21 @@ class ServiceConfig:
     restore_after: Optional[int] = None
 
 
+#: one configuration per host cost model beyond Trivial, Quincy and
+#: Whare-Map, at BASELINE's round: the one-shot and a round of 1%
+#: completions and 100 arrivals through "auto" (CoCo with four task
+#: classes, as service-whare).
+#: Random is cut to 200 pods on 20 machines: every task is a class of
+#: its own, and the dense solve needs 35,568 supersteps at that size
+#: already (the JAX package's CPU run at full size did not end in 10
+#: minutes)
+POLICY_CONFIGS = {
+    f"policy-{m}": ServiceConfig(cost_model=m, rounds=1, classes=4 if m == "coco" else 1,
+                                 **(dict(machines=20, pods=200) if m == "random" else {}))
+    for m in ("random", "sjf", "coco", "octopus", "void", "net")
+}
+
+
 def run_service(pkg, cfg: ServiceConfig) -> dict:
     """Run `cfg` through package `pkg`, a namespace holding its
     SchedulerService, SyntheticClusterAPI, PodEvent, CostModelType,

@@ -15,8 +15,16 @@ Run: python -m ksched_tpu_torch.drivers.soak --rounds 96 --chunk 32 \
          --seed 0 --machines 6 --slots 8 --chaos-restore-every 48 \
          --verify-determinism [--device cpu]
 
-Port of the chaos soak of ksched_tpu's tools/soak.py (its device-bulk
-soak and its tenant soak are not ported). The soak's solves run on
+The multi-tenant soak (`run_tenant_soak`, --tenants N): one warm
+process serves N cells of mixed sizes with chaos on one of them; zero
+cross-tenant interference in the round trace, and each clean tenant's
+placements and solver work equal to the same tenant run alone:
+
+    python -m ksched_tpu_torch.drivers.soak --tenants 16 --rounds 40 \
+         --seed 0 --chaos-tenant 0 [--device cpu]
+
+Port of the chaos and tenant soaks of ksched_tpu's tools/soak.py (its
+device-bulk soak is not ported). The soak's solves run on
 ``args.device`` ("cuda" by default, "cpu" for the plain versions).
 """
 
@@ -735,6 +743,173 @@ def chaos_main(args, log=print) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# multi-tenant soak: N cells, one warm batched solver, chaos on one
+# ---------------------------------------------------------------------------
+
+
+def _drive_tenant_fleet(pkg, args, tenant_ids, chaos_on):
+    """Run one multi-tenant process serving ``tenant_ids`` (mixed cell
+    sizes cycling 3 classes) for args.rounds logical rounds; chaos is
+    injected ONLY into ``chaos_on``'s cell. Returns per-tenant round
+    records, placements, and latency summaries."""
+    import warnings
+
+    #: three cell size classes -> mixed pow2 shape buckets
+    SIZES = ((3, 2, 4), (5, 2, 4), (9, 2, 8))  # (machines, pus/core, slots)
+    reg = pkg.Registry()
+    mts = pkg.MultiTenantService(registry=reg, pipeline=True,
+                                 flight_dir=getattr(args, "flight_dir", None))
+    cells = {}
+    for tid in tenant_ids:
+        i = int(tid.split("_")[-1])
+        machines, ppc, slots = SIZES[i % len(SIZES)]
+        inj = None
+        if tid == chaos_on:
+            inj = pkg.FaultInjector(pkg.ChaosPolicy(
+                seed=args.seed + 17, solver_fault_prob=0.25,
+                solver_total_outage_prob=0.1))
+        cells[tid] = mts.add_tenant(
+            tid, machines=machines, pus_per_core=ppc, slots=slots,
+            seed=args.seed * 1000 + i, injector=inj,
+            machine_timeout_s=1e9,  # logical-time soak: no expiry
+        )
+    # per-tenant seeded workloads: arrivals + completions, reproducible
+    # in isolation (the parity re-runs drive the same streams)
+    wrngs = {tid: np.random.default_rng([args.seed, int(tid.split("_")[-1])])
+             for tid in tenant_ids}
+    pod_seq = {tid: 0 for tid in tenant_ids}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for r in range(args.rounds):
+            for tid, cell in cells.items():
+                rng = wrngs[tid]
+                if len(cell.svc.pod_to_task) < 64:
+                    for _ in range(int(rng.integers(0, 3))):
+                        cell.api.submit_pod(pkg.PodEvent(pod_id=f"{tid}_pod_{pod_seq[tid]}"))
+                        pod_seq[tid] += 1
+                if r % 2 == 1:
+                    bound = sorted(p for p, t in cell.svc.pod_to_task.items()
+                                   if t in cell.svc.scheduler.task_bindings)
+                    if bound:
+                        k = int(rng.integers(1, min(3, len(bound)) + 1))
+                        for j in sorted(int(x) for x in
+                                        rng.choice(len(bound), k, replace=False)):
+                            cell.svc.complete_pod(bound[j])
+            mts.run_round(now=float(r))
+        mts.drain()
+    out = {}
+    for tid, cell in cells.items():
+        recs = cell.svc.tracer.records
+        out[tid] = dict(
+            bindings=dict(cell.api.bindings()),
+            work=[rec.solver_work for rec in recs],
+            scheduled=[rec.num_scheduled for rec in recs],
+            faults=sum(sum(r2.faults_injected.values()) for r2 in recs),
+            degradations=sum(r2.degradations for r2 in recs),
+            noops=sum(1 for r2 in recs if r2.noop_round),
+            summary=cell.svc.tracer.summary(),
+            tenants_seen={r2.tenant for r2 in recs},
+        )
+    meta = dict(
+        flushes=mts.batcher.flushes,
+        last_groups=mts.batcher.last_groups,
+        last_lanes=mts.batcher.last_lanes,
+        quarantines=reg.value("ksched_tenant_quarantines_total"),
+    )
+    mts.close()
+    return out, meta
+
+
+def run_tenant_soak(pkg, args, log=print) -> dict:
+    """--tenants N: the multi-tenant acceptance soak through package
+    `pkg`, a namespace holding its MultiTenantService, PodEvent, Registry,
+    ChaosPolicy and FaultInjector (drivers/multitenant.py `package()`
+    builds this one's). One warm process
+    serves N synthetic cells (mixed sizes across 3 cell classes) with
+    chaos injected into ONE tenant, then asserts:
+
+    - zero cross-tenant interference in the round trace: every clean
+      tenant's records carry 0 faults / 0 degradations / 0 NOOPs, and
+      each record is tagged with its own tenant only;
+    - per-tenant placements (and per-round solver work) bit-identical
+      to the same tenant run in ISOLATION — its own single-cell
+      process with the same seed — for every clean tenant;
+    - per-tenant p50/p99 round latency published.
+
+    Returns {"tenants": the fleet's per-tenant records, "meta": the
+    batcher's counters and quarantines, "checked": clean tenants held
+    to their solo runs}."""
+    import time as _time
+
+    n = args.tenants
+    tenant_ids = [f"cell_{i}" for i in range(n)]
+    chaos_on = tenant_ids[args.chaos_tenant] if 0 <= args.chaos_tenant < n else None
+    t0 = _time.perf_counter()
+    multi, meta = _drive_tenant_fleet(pkg, args, tenant_ids, chaos_on)
+    log(f"fleet: {n} cells x {args.rounds} rounds in "
+        f"{_time.perf_counter() - t0:.1f}s — {meta['flushes']} batch "
+        f"flushes, last round {meta['last_groups']} stacked solve(s) "
+        f"for {meta['last_lanes']} lanes, quarantines={meta['quarantines']:.0f}")
+    log(f"{'tenant':<10} {'rounds':>6} {'p50_ms':>9} {'p99_ms':>9} "
+        f"{'bound':>6} {'faults':>6} {'degr':>5} {'noop':>5}")
+    for tid in tenant_ids:
+        m = multi[tid]
+        s = m["summary"]
+        log(f"{tid:<10} {s.get('rounds', 0):>6} "
+            f"{s.get('p50_ms', 0.0):>9.2f} {s.get('p99_ms', 0.0):>9.2f} "
+            f"{len(m['bindings']):>6} {m['faults']:>6} "
+            f"{m['degradations']:>5} {m['noops']:>5}")
+    for tid in tenant_ids:
+        m = multi[tid]
+        assert m["tenants_seen"] <= {tid}, (
+            f"{tid} round records carry foreign tenant tags: {m['tenants_seen']}")
+        if tid == chaos_on:
+            continue
+        assert m["faults"] == 0 and m["degradations"] == 0 and m["noops"] == 0, (
+            f"cross-tenant interference: clean tenant {tid} shows "
+            f"faults={m['faults']} degradations={m['degradations']} noops={m['noops']}")
+    if chaos_on is not None:
+        cm = multi[chaos_on]
+        assert cm["faults"] > 0, "chaos tenant drew no faults — raise --rounds or the fault probs"
+        log(f"chaos contained to {chaos_on}: faults={cm['faults']} "
+            f"degradations={cm['degradations']} noops={cm['noops']}")
+    checked = 0
+    for tid in tenant_ids:
+        if tid == chaos_on:
+            continue
+        solo, _ = _drive_tenant_fleet(pkg, args, [tid], None)
+        for key in ("bindings", "work", "scheduled"):
+            assert solo[tid][key] == multi[tid][key], (
+                f"isolation parity broken for {tid}: {key} differs between the "
+                f"{n}-cell process and the solo run")
+        checked += 1
+    log(f"TENANT SOAK OK: {checked} clean tenants bit-identical to their "
+        "isolated runs; zero cross-tenant interference in the round trace")
+    return {"tenants": multi, "meta": meta, "checked": checked}
+
+
+def tenant_soak_summary(res: dict) -> dict:
+    """What a `run_tenant_soak` run is held to across packages and runs:
+    per tenant its bindings' sha256, solver work and scheduled counts
+    per round, faults, ladder steps and NOOP rounds; the batcher's
+    flushes and last round's groups and lanes; the tenants checked."""
+    import hashlib
+    import json
+
+    tenants = {
+        tid: {"bindings_sha256": hashlib.sha256(
+                  json.dumps(sorted(m["bindings"].items())).encode()).hexdigest(),
+              "bound": len(m["bindings"]), "work": m["work"], "scheduled": m["scheduled"],
+              "faults": m["faults"], "degradations": m["degradations"], "noops": m["noops"]}
+        for tid, m in sorted(res["tenants"].items())
+    }
+    meta = res["meta"]
+    return {"tenants": tenants, "flushes": meta["flushes"],
+            "last_groups": meta["last_groups"], "last_lanes": meta["last_lanes"],
+            "quarantines": meta["quarantines"], "checked": res["checked"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m ksched_tpu_torch.drivers.soak")
     ap.add_argument("--rounds", type=int, default=512)
@@ -774,7 +949,22 @@ def main(argv=None) -> int:
     ap.add_argument("--flight-dir", metavar="DIR", default=None)
     ap.add_argument("--assert-stall-flight", action="store_true")
     ap.add_argument("--solver-outage-prob", type=float, default=None, metavar="P")
-    chaos_main(ap.parse_args(argv))
+    ap.add_argument("--tenants", type=int, default=0, metavar="N",
+                    help="multi-tenant soak: serve N synthetic cells (mixed "
+                    "sizes) from ONE warm batched-solver process, chaos on "
+                    "--chaos-tenant only; asserts per-tenant placements "
+                    "bit-identical to each tenant run in isolation and zero "
+                    "cross-tenant interference in the round trace")
+    ap.add_argument("--chaos-tenant", type=int, default=0, metavar="I",
+                    help="tenant index the multi-tenant soak injects chaos "
+                    "into (-1 = no chaos)")
+    args = ap.parse_args(argv)
+    if args.tenants:
+        from .multitenant import package
+
+        run_tenant_soak(package(args.device), args)
+        return 0
+    chaos_main(args)
     return 0
 
 

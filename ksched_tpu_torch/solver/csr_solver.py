@@ -298,6 +298,210 @@ def _solve_mcmf(
 _solve_mcmf.reads = 0
 
 
+# ---------------------------------------------------------------------------
+# Stacked lanes: one solve over a whole shape bucket of tenant lanes
+# (tenancy/batch.py, the multi-tenant service)
+# ---------------------------------------------------------------------------
+
+#: lane counts pad to pow2 buckets (repeating a real lane, whose outputs
+#: are ignored), as graph/device_export.pad_record_count pads records
+MIN_LANE_BUCKET = 1
+
+
+def pad_lane_count(k: int) -> int:
+    from ..utils import next_pow2
+
+    return max(next_pow2(max(k, 1)), MIN_LANE_BUCKET)
+
+
+def _solve_stacked(
+    cap, cost, supply, flow0, eps_init,
+    s_arc, s_sign, s_src, s_dst, s_segstart, s_isstart, inv_order,
+    node_first, node_last, node_nonempty,
+    warm_p=None,
+    alpha: int = 8,
+    max_supersteps: int = 4096,
+    tighten_sweeps: int = 32,
+    telemetry_cap: int = 0,
+    use_warm_p: bool = False,
+):
+    """`_solve_mcmf` over a leading lane axis: every argument is the
+    lane's own (local node ids and arc slots) stacked [L, ...], eps_init
+    an int32 [L]. Returns (flow [L, m], p [L, n], steps [L],
+    converged [L], p_overflow [L][, telemetry [L, cap, W]]), each lane
+    equal bit for bit to that lane solved alone with slot_stable=False.
+
+    What the JAX package's vmap of the nested while loops does, written
+    out: the tightening sweeps and the phase loop run while ANY lane is
+    live, and every update is a `torch.where` on the lane's own mask,
+    so a lane that converged (or spent `max_supersteps`) keeps its
+    flow, potentials, eps and superstep count while the others go on,
+    and its ring rows are written only while it pushes. Prefix sums
+    run along each lane's own entry axis in int32, so a lane's values
+    never depend on its neighbours'. One host read of the stack's
+    "any lane live" flag per sweep and per superstep, and two per
+    solve (`_solve_stacked.reads` counts them)."""
+    from ..obs import soltel
+
+    L, m = cap.shape
+    dev = cap.device
+    s_arc, s_src, s_dst, s_segstart, inv_order, node_first, node_last = (
+        t.long() for t in (s_arc, s_src, s_dst, s_segstart, inv_order,
+                           node_first, node_last))
+    s_sign = s_sign.to(_I32)
+    s_isstart = s_isstart.to(torch.bool)
+    node_nonempty = node_nonempty.to(torch.bool)
+    s_cap = cap.gather(1, s_arc)
+    s_cost = s_sign * cost.gather(1, s_arc)
+    fwd_pos = inv_order[:, :m]
+    cap_src = s_src.gather(1, fwd_pos)
+    cap_dst = s_dst.gather(1, fwd_pos)
+    seg_id = torch.cumsum(s_isstart, 1) - 1
+    seg_of_last = seg_id.gather(1, node_last)
+
+    def seg_sum(vals):
+        c = torch.cumsum(vals, 1, dtype=_I32)
+        excl_first = c.gather(1, node_first) - vals.gather(1, node_first)
+        return torch.where(node_nonempty, c.gather(1, node_last) - excl_first, 0)
+
+    def seg_reduce(vals, identity, how):
+        per_seg = torch.full_like(vals, identity).scatter_reduce_(
+            1, seg_id, vals, how, include_self=False)
+        return torch.where(node_nonempty, per_seg.gather(1, seg_of_last), identity)
+
+    def residual(a_flow):
+        return torch.where(s_sign > 0, s_cap - a_flow, a_flow)
+
+    def excess_of(flow):
+        return supply - seg_sum(s_sign * flow.gather(1, s_arc))
+
+    def saturate(flow, p):
+        rc_fwd = cost + p.gather(1, cap_src) - p.gather(1, cap_dst)
+        return torch.where(rc_fwd < 0, cap, torch.where(rc_fwd > 0, 0, flow))
+
+    def tighten(flow, d0=None):
+        r = residual(flow.gather(1, s_arc))
+        if d0 is None:
+            d0 = torch.where(excess_of(flow) < 0, 0, _BIG_D).to(_I32)
+        d = d0
+        changed = torch.ones(L, dtype=torch.bool, device=dev)
+        it = torch.zeros(L, dtype=_I32, device=dev)
+        while True:
+            live = changed & (it < tighten_sweeps)
+            _solve_stacked.reads += 1
+            if not bool(live.any()):
+                break
+            cand = torch.where(r > 0, s_cost + d.gather(1, s_dst), _BIG_D)
+            best = seg_reduce(cand, _BIG_D, "amin")
+            d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
+            changed = torch.where(live, (d2 != d).any(1), changed)
+            d = torch.where(live[:, None], d2, d)
+            it = it + live.to(_I32)
+        return -torch.clamp(d, max=_BIG_D)
+
+    def superstep(flow, p, eps, excess):
+        r = residual(flow.gather(1, s_arc))
+        rc = s_cost + p.gather(1, s_src) - p.gather(1, s_dst)
+        e_at = excess.gather(1, s_src)
+        admissible = (r > 0) & (rc < 0) & (e_at > 0)
+        r_adm = torch.where(admissible, r, 0)
+        excl = torch.cumsum(r_adm, 1, dtype=_I32) - r_adm
+        prefix_before = excl - excl.gather(1, s_segstart)
+        delta = torch.minimum(torch.clamp(e_at - prefix_before, min=0), r_adm)
+        delta_orig = delta.gather(1, inv_order)
+        new_flow = flow + delta_orig[:, :m] - delta_orig[:, m:]
+        pushed = seg_sum(delta)
+        sum_r = seg_sum(r)
+        cand = torch.where(r > 0, p.gather(1, s_dst) - s_cost, -_BIG)
+        best = seg_reduce(cand, -_BIG, "amax")
+        relabel = (excess > 0) & (pushed == 0) & (sum_r > 0)
+        new_p = torch.where(relabel, best - eps[:, None], p)
+        if not telemetry_cap:
+            return new_flow, new_p, ()
+        aux = (
+            torch.sum(pushed, 1, dtype=_I32),
+            torch.sum(relabel, 1, dtype=_I32),
+            torch.sum((s_sign > 0) & (r == 0), 1, dtype=_I32),
+            torch.sum(r_adm > 0, 1, dtype=_I32),
+        )
+        return new_flow, new_p, aux
+
+    lanes = torch.arange(L, device=dev)
+    tel = (torch.zeros((L, telemetry_cap, soltel.SOLTEL_WIDTH), dtype=_I32,
+                       device=dev) if telemetry_cap else None)
+    if use_warm_p:
+        p = tighten(flow0, d0=torch.clamp(-warm_p, -_BIG_D, _BIG_D))
+    else:
+        p = tighten(flow0)
+    flow = saturate(flow0, p)
+    eps = torch.as_tensor(eps_init, dtype=_I32, device=dev).reshape(L).clone()
+    steps = torch.zeros(L, dtype=_I32, device=dev)
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
+    while True:
+        live = ~done & (steps < max_supersteps)
+        _solve_stacked.reads += 1
+        if not bool(live.any()):
+            break
+        excess = excess_of(flow)
+        active = (excess > 0).any(1)
+        push = live & active
+        idle = live & ~active
+        rescale = idle & (eps > 1)
+        done = done | (idle & (eps <= 1))
+        f2, p2, aux = superstep(flow, p, eps, excess)
+        flow = torch.where(push[:, None], f2,
+                           torch.where(rescale[:, None], saturate(flow, p), flow))
+        p = torch.where(push[:, None], p2, p)
+        if telemetry_cap:
+            row = torch.stack([
+                eps, torch.sum(excess > 0, 1, dtype=_I32),
+                torch.sum(excess.clamp(min=0), 1, dtype=_I32), *aux,
+                torch.zeros_like(eps)], 1)
+            slot = (steps % telemetry_cap).long()
+            tel[lanes, slot] = torch.where(push[:, None], row, tel[lanes, slot])
+        steps = steps + push.to(_I32)
+        eps = torch.where(rescale, torch.clamp(eps // alpha, min=1), eps)
+    converged = done & (excess_of(flow).abs().amax(1) == 0)
+    p_overflow = p.abs().amax(1) >= _P_GUARD
+    out = (flow, p, steps, converged, p_overflow)
+    return out + (tel,) if telemetry_cap else out
+
+
+#: host reads (flags) of every stacked solve since it was set to 0
+_solve_stacked.reads = 0
+
+
+def stacked_solve_fn(
+    *,
+    alpha: int = 8,
+    max_supersteps: int = 4096,
+    tighten_sweeps: int = 32,
+    telemetry_cap: int = 0,
+    use_warm_p: bool = False,
+):
+    """The stacked solve with its statics bound, ksched_tpu's
+    `stacked_solve_fn`: called as fn(cap, cost, supply, flow0, eps,
+    [warm_p,] *plan) on [L, ...] tensors (the ten plan columns in
+    `_solve_mcmf`'s order), it returns `_solve_stacked`'s tuple.
+
+    Same-bucket tenant lanes go through one call, each lane under its
+    own convergence mask: a lane that spends ``max_supersteps`` freezes
+    with ``converged`` False and does not lengthen another lane's
+    superstep count; the call's wall time is the slowest lane's, which
+    is why the tenancy layer batches only budget-capped attempts and
+    escalates per lane (tenancy/batch.py)."""
+    statics = dict(alpha=alpha, max_supersteps=max_supersteps,
+                   tighten_sweeps=tighten_sweeps, telemetry_cap=telemetry_cap)
+    if use_warm_p:
+        def fn(cap, cost, supply, flow0, eps, warm_p, *plan):
+            return _solve_stacked(cap, cost, supply, flow0, eps, *plan,
+                                  warm_p=warm_p, use_warm_p=True, **statics)
+    else:
+        def fn(cap, cost, supply, flow0, eps, *plan):
+            return _solve_stacked(cap, cost, supply, flow0, eps, *plan, **statics)
+    return fn
+
+
 class CsrSolver(FlowSolver):
     """Cost-scaling push-relabel over the scan-CSR layout, warm-started
     across rounds: ksched_tpu's JaxSolver.
@@ -315,7 +519,8 @@ class CsrSolver(FlowSolver):
     max|cost|·n.
 
     A problem that carries a maintained slot-stable plan (every
-    DeviceGraphState problem) is solved on it: the device-resident
+    DeviceGraphState problem) is solved on it (``slot_stable``, the
+    default; False builds the host CsrPlan for every problem): the device-resident
     mirror's plan tensors when present, else the plan's own cached
     upload. Plain array problems keep the host-built CsrPlan. A device-resident problem is solved on its
     persistent tensors, and the flow, its potentials and the endpoint
@@ -327,7 +532,7 @@ class CsrSolver(FlowSolver):
                  warm_start: bool = True, warm_potentials: bool = True,
                  restart_budget: Optional[int] = None,
                  journal_scoped_warm: bool = True, telemetry: Optional[int] = None,
-                 device="cuda"):
+                 slot_stable: bool = True, device="cuda"):
         from ..utils.device import resolve_device
         from .layered import validate_alpha
 
@@ -337,6 +542,7 @@ class CsrSolver(FlowSolver):
         self.warm_potentials = warm_potentials
         self.journal_scoped_warm = journal_scoped_warm
         self.restart_budget = restart_budget
+        self.slot_stable = slot_stable
         #: soltel ring capacity; None = obs/soltel.resolve_cap's default
         self.telemetry = telemetry
         self.device = resolve_device(device)
@@ -473,7 +679,7 @@ class CsrSolver(FlowSolver):
                 "rescale cost-model outputs or shrink the graph padding"
             )
         resident = getattr(problem, "d_cap", None) is not None
-        plan_state = getattr(problem, "plan", None)
+        plan_state = getattr(problem, "plan", None) if self.slot_stable else None
         slot_stable = plan_state is not None
         if slot_stable:
             # endpoint churn is already folded into the maintained

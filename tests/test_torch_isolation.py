@@ -18,10 +18,21 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ksched_tpu")
 
 
+#: modules the port must hold (the cost models, DIMACS and tenancy)
+REQUIRED = ("costmodels/simple.py", "costmodels/net.py", "costmodels/coco.py",
+            "graph/dimacs.py", "tenancy/__init__.py", "tenancy/batch.py",
+            "tenancy/manager.py", "tenancy/service.py", "drivers/multitenant.py")
+
+
 def _port_sources():
     files = sorted((ROOT / "ksched_tpu_torch").rglob("*.py"))
     assert len(files) > 20
     return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("rel", REQUIRED)
+def test_port_holds_the_module(rel):
+    assert (ROOT / "ksched_tpu_torch" / rel).is_file()
 
 
 def _imported_modules(path):
@@ -98,6 +109,14 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     # the scheduler's default backend is make_backend("auto")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_cluster(num_machines=2)
+    from ksched_tpu_torch.tenancy import LaneSolver, MultiTenantService, StackedBatcher
+
+    for entry in (MultiTenantService, StackedBatcher):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LaneSolver(StackedBatcher(device="cpu"))
     # the CPU stays available on request
     assert make_backend("auto", device="cpu").device.type == "cpu"
+    assert MultiTenantService(device="cpu").device.type == "cpu"
     assert make_backend("mega", device="cpu").device.type == "cpu"

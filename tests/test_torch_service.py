@@ -65,8 +65,8 @@ def test_cli_one_shot():
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--tenants", "2"], "ROADMAP item 11"),
-    (["--cost-model", "sjf"], "ROADMAP item 7"),
+    (["--podgen", "0"], "--one-shot needs --podgen"),
+    (["--no-obs", "--obs-dump", "obs.json"], "--no-obs disables"),
     (["--audit-every", "1"], "--device-resident"),
 ])
 def test_cli_refusals(capsys, extra, what):
