@@ -193,14 +193,38 @@ no result line):
    each clean cell equal to its solo run), every value equal to the JAX
    package's (tests/torch_tenancy_reference.py), each with its
    `phase time:` line;
+23. sharded (parallel/, SPMD over torch.distributed): bench.py's
+   gtrace100k driver (drivers/sharded_scale.py) cut to 10k tasks x 1k
+   machines, keep mode, 2 warm-up and 6 rounds of 1% churn with a 10x
+   burst, on 2 ranks that share the card over gloo (ranks started by
+   parallel/launch.py): both arms (the single-card CsrSolver, and
+   AutoSolver's sharded rung behind the forced fitting gate with the
+   sharded resident mirror), every round's record (path, supersteps,
+   converged, placements', flow's and potentials' sha256, plan kind, h2d bytes,
+   ring sha256) equal on both ranks, between the arms and to the JAX
+   package's (tests/torch_parallel_reference.py), the collectives per
+   superstep printed; then one D = 1 sharded solve over NCCL equal to
+   the single-card CsrSolver's;
+24. sharded-layered: the seeded host BulkCluster (1,000 machines, Mp =
+   1,024, 4 class rows, 10,000 tasks) through ShardedLayeredSolver on the
+   2 ranks and LayeredTransportSolver on the card (the transport
+   kernel), superstep for superstep equal and equal to the JAX
+   package's; a tiered instance at [4, 1,024] on the ranks, the tiered
+   kernel and its plain version, all equal to the JAX package's;
+25. whatif: drain_scenarios (16 candidates) and surge_scenarios (8
+   rows) on that cluster through the transport kernel (one launch a
+   scenario), equal to the JAX package's; the two longest solves
+   re-solved by the plain version with the same bits and timed;
    then the `kernels` line and the result line. The transport kernel's
-   entry there covers four paths, each counted from 0 just before it
+   entry there covers six paths, each counted from 0 just before it
    ran: Scenario W(1000, 10000) (phase 4), gtrace12k-coco (phase 7e),
-   the Whare-Map service (phase 16, sync and pipelined) and the
-   policies (phase 21). Its `launches` is the sum of their launches,
-   and its `ms`, `plain_ms` and `bound_ms` sum the solves timed on
-   them: W's two, gtrace12k-coco's longest at [4, 12,544] and the
-   Whare-Map service's sync run's two. The mcmf kernel's entry covers
+   the Whare-Map service (phase 16, sync and pipelined), the policies
+   (phase 21), sharded-layered's single-card arm (phase 24) and the
+   what-if batches (phase 25). Its `launches` is the sum of their
+   launches, and its `ms`, `plain_ms` and `bound_ms` sum the solves
+   timed on them: W's two, gtrace12k-coco's longest at [4, 12,544], the
+   Whare-Map service's sync run's two and the two longest what-if
+   solves. The mcmf kernel's entry covers
    W-mega (phase 10), W-mega-resident (phase 13) and the policies
    (phase 21, none there) the same way: `launches` sums them, and `ms`,
    `plain_ms` and `bound_ms` sum W-mega's timed solves and
@@ -771,6 +795,268 @@ REF_TENANCY = {
 #: cli.main --tenants 4 at BASELINE's width with 5,000 pods a cell: the
 #: synthetic pod channel holds 5,000, and --tenants fills each cell's
 #: channel before its first round (so does the JAX package's)
+# The multi-device phases' values, as produced by the JAX package on the
+# CPU (tests/torch_parallel_reference.py: gtrace100k's scenario cut to
+# 10k x 1k on a 2-device mesh, both arms' round records; the seeded
+# BulkCluster through LayeredTransportSolver and ShardedLayeredSolver, the
+# tiered instance; the what-if batches on that cluster).
+REF_PARALLEL = {'sharded': {'args': {'burst_every': 8,
+                      'burst_factor': 10,
+                      'churn': 0.01,
+                      'devices': 2,
+                      'machines': 1000,
+                      'restart_budget': 64,
+                      'rounds': 6,
+                      'tasks': 10000,
+                      'warmup': 2},
+             'arms': {'scan_csr': [{'converged': True,
+                                    'flow_sha256': '298862043cb4e61a0701670961470e9569fcb4a855d6229444d117d0a26d67b2',
+                                    'h2d_delta': 0,
+                                    'h2d_full': 1703936,
+                                    'kind': 'churn',
+                                    'p_sha256': 'd8b3598bc92fa1d3f80677aea078886ba87441da966e6b56f91f433730985810',
+                                    'path': 'csr',
+                                    'plan_kind': 'none',
+                                    'round': 0,
+                                    'sha256': '3a43c5cb82e462e7822a2c710e3a5f9fa9a5ae0a6d8c955f452be755450e71c2',
+                                    'supersteps': 10,
+                                    'telemetry_sha256': '8998caf7aecc7014acc8bf23cd301498ce90b93ed3b23600a7d4be268f23b498',
+                                    'warm_scope': 'cold'},
+                                   {'converged': True,
+                                    'flow_sha256': '06455d4438fcf727adf1fdb44928a5aeb7cfed8fc50a46cebc83326cbfbb6f6f',
+                                    'h2d_delta': 6833152,
+                                    'h2d_full': 1703936,
+                                    'kind': 'churn',
+                                    'p_sha256': 'f90c75244a18d63df0c9f697cd822653b9cdb2ea474c98e8131e16c821c79d78',
+                                    'path': 'csr',
+                                    'plan_kind': 'rebuild',
+                                    'round': 1,
+                                    'sha256': 'd4112c3ef400836b4b3070bd75d311703e001b630974d696c469034c72497a35',
+                                    'supersteps': 16,
+                                    'telemetry_sha256': '5d7e116732b1b0ef394879a3dbaace3cfb77b6a4c0da6e8eed1a6e93070b5d10',
+                                    'warm_scope': 'fresh'},
+                                   {'converged': True,
+                                    'flow_sha256': 'fd1f6d16f75fc89364bad4a26d42c4c8868b49f9510207ad7cbbea561466cfca',
+                                    'h2d_delta': 8636416,
+                                    'h2d_full': 1703936,
+                                    'kind': 'churn',
+                                    'p_sha256': 'fb93b12512fc31e0a18d2f5c53153a6c6d66c10cea0eef18b1685b15f73a849d',
+                                    'path': 'csr',
+                                    'plan_kind': 'delta',
+                                    'round': 2,
+                                    'sha256': '95c269de95e922382f99b231b166474f9cf6e10be97f9af43266c09cfc48daf6',
+                                    'supersteps': 10,
+                                    'telemetry_sha256': 'ba519a0c86dc7cf08ca72a112efe00da7a6ce75e82aef5772dd5e5054798a8ae',
+                                    'warm_scope': 'fresh'},
+                                   {'converged': True,
+                                    'flow_sha256': '9c152c6dcd42ebceaefc404778062bcf1c9cf6a2a1b3f5b72858f3d5a5b79761',
+                                    'h2d_delta': 10210816,
+                                    'h2d_full': 1703936,
+                                    'kind': 'churn',
+                                    'p_sha256': 'b4cb461894dcba08e1c20af010c3e86a9b6691f1e5ce895cbee2490b8f64c575',
+                                    'path': 'csr',
+                                    'plan_kind': 'delta',
+                                    'round': 3,
+                                    'sha256': '4a0c4e9d5dcc085fc5e071c23c37b55167119b050b1859ce63bb94b057376db8',
+                                    'supersteps': 11,
+                                    'telemetry_sha256': 'f8f2be58461409c1333ff3efc0299ab45b81088e37ba7e4a4c0038278cc4c802',
+                                    'warm_scope': 'fresh'},
+                                   {'converged': True,
+                                    'flow_sha256': '285aec213402549155046c3d58dddde2eaf0494c9f209b38da98f8b6cd98bcc5',
+                                    'h2d_delta': 11784928,
+                                    'h2d_full': 1703936,
+                                    'kind': 'churn',
+                                    'p_sha256': 'bd6a0cdd010b947a9b5724bcdf3e0f53ff91cb64f14ff7e96267b7fc3f1f4fc9',
+                                    'path': 'csr',
+                                    'plan_kind': 'delta',
+                                    'round': 4,
+                                    'sha256': '49eeb816810815871af205cfeaa03b03e6c9398496a4911aedf13c29a5c92941',
+                                    'supersteps': 10,
+                                    'telemetry_sha256': 'a7cf253fb1627fc30a1d70de2c53a7365ac00323741e85ff458ffbaa37b76ea7',
+                                    'warm_scope': 'fresh'},
+                                   {'converged': True,
+                                    'flow_sha256': '268d63dc0655ae219c2577725b6e92e8d048f4586e3b433c544a0e202c74016d',
+                                    'h2d_delta': 13359712,
+                                    'h2d_full': 1703936,
+                                    'kind': 'churn',
+                                    'p_sha256': '38cd92052ed4e17572785322c371561c0f336098a9e3223358d9061fa90676c2',
+                                    'path': 'csr',
+                                    'plan_kind': 'delta',
+                                    'round': 5,
+                                    'sha256': '1c65a6a5edbbcd8708e5c0c27069cdd8a85ea6af8b17b04c03aefd8a1763dd90',
+                                    'supersteps': 11,
+                                    'telemetry_sha256': '1ef0a2106978e0973aecfb8f9a287ff28c9ed5571893d4c1121091edadaddce1',
+                                    'warm_scope': 'fresh'},
+                                   {'converged': True,
+                                    'flow_sha256': 'e1bc61b5a096c8f5aab561634bd7586c1cb9e79162cb603f2d31eb6c97017540',
+                                    'h2d_delta': 14933824,
+                                    'h2d_full': 1703936,
+                                    'kind': 'churn',
+                                    'p_sha256': '61bce40062f231e20cae68d8078d6f26844754d49002b9c2d3048cc22ff2556f',
+                                    'path': 'csr',
+                                    'plan_kind': 'delta',
+                                    'round': 6,
+                                    'sha256': '27fa1f5771e76f3281ccfce2a256cece44aa8240e85de062996018591647ec13',
+                                    'supersteps': 10,
+                                    'telemetry_sha256': '9df6f0caeda0d6c517aaa4c5124b619008b67c4bf033e05908fb26721a973949',
+                                    'warm_scope': 'fresh'},
+                                   {'converged': True,
+                                    'flow_sha256': '6e83dacf754c1fdd0e5caedc8eee22fc40d1693d0778a5b62094c2e7edec1cce',
+                                    'h2d_delta': 16508960,
+                                    'h2d_full': 1703936,
+                                    'kind': 'burst',
+                                    'p_sha256': '524d6c1dac6effa300b9baaa8dd08cb0dd05f6ccef4d9d1cc5421fd22a85491d',
+                                    'path': 'csr',
+                                    'plan_kind': 'delta',
+                                    'round': 7,
+                                    'sha256': '9c94d0ab8273575fd859cd36b603fbae33d7bf00aebdbadeca4fe34ad897ae26',
+                                    'supersteps': 10,
+                                    'telemetry_sha256': 'fb59b61f14141d75a02f990d1204238de99b637914c6c0c3be88d1d7633848b9',
+                                    'warm_scope': 'fresh'}],
+                      'sharded': [{'converged': True,
+                                   'flow_sha256': '298862043cb4e61a0701670961470e9569fcb4a855d6229444d117d0a26d67b2',
+                                   'h2d_delta': 0,
+                                   'h2d_full': 1703936,
+                                   'kind': 'churn',
+                                   'p_sha256': 'd8b3598bc92fa1d3f80677aea078886ba87441da966e6b56f91f433730985810',
+                                   'path': 'csr',
+                                   'plan_kind': 'none',
+                                   'round': 0,
+                                   'sha256': '3a43c5cb82e462e7822a2c710e3a5f9fa9a5ae0a6d8c955f452be755450e71c2',
+                                   'supersteps': 10,
+                                   'telemetry_sha256': '8998caf7aecc7014acc8bf23cd301498ce90b93ed3b23600a7d4be268f23b498',
+                                   'warm_scope': 'cold'},
+                                  {'converged': True,
+                                   'flow_sha256': '06455d4438fcf727adf1fdb44928a5aeb7cfed8fc50a46cebc83326cbfbb6f6f',
+                                   'h2d_delta': 6833152,
+                                   'h2d_full': 1703936,
+                                   'kind': 'churn',
+                                   'p_sha256': 'f90c75244a18d63df0c9f697cd822653b9cdb2ea474c98e8131e16c821c79d78',
+                                   'path': 'csr',
+                                   'plan_kind': 'rebuild',
+                                   'round': 1,
+                                   'sha256': 'd4112c3ef400836b4b3070bd75d311703e001b630974d696c469034c72497a35',
+                                   'supersteps': 16,
+                                   'telemetry_sha256': '5d7e116732b1b0ef394879a3dbaace3cfb77b6a4c0da6e8eed1a6e93070b5d10',
+                                   'warm_scope': 'fresh'},
+                                  {'converged': True,
+                                   'flow_sha256': 'fd1f6d16f75fc89364bad4a26d42c4c8868b49f9510207ad7cbbea561466cfca',
+                                   'h2d_delta': 9488384,
+                                   'h2d_full': 1703936,
+                                   'kind': 'churn',
+                                   'p_sha256': 'fb93b12512fc31e0a18d2f5c53153a6c6d66c10cea0eef18b1685b15f73a849d',
+                                   'path': 'sharded',
+                                   'plan_kind': 'delta',
+                                   'round': 2,
+                                   'sha256': '95c269de95e922382f99b231b166474f9cf6e10be97f9af43266c09cfc48daf6',
+                                   'supersteps': 10,
+                                   'telemetry_sha256': 'f14a7296197c6357b6807ef2fea78200dc90f5191609cfd0dcd1c9e5ce7a879c',
+                                   'warm_scope': 'cold'},
+                                  {'converged': True,
+                                   'flow_sha256': '9c152c6dcd42ebceaefc404778062bcf1c9cf6a2a1b3f5b72858f3d5a5b79761',
+                                   'h2d_delta': 11063168,
+                                   'h2d_full': 1703936,
+                                   'kind': 'churn',
+                                   'p_sha256': 'b4cb461894dcba08e1c20af010c3e86a9b6691f1e5ce895cbee2490b8f64c575',
+                                   'path': 'sharded',
+                                   'plan_kind': 'delta',
+                                   'round': 3,
+                                   'sha256': '4a0c4e9d5dcc085fc5e071c23c37b55167119b050b1859ce63bb94b057376db8',
+                                   'supersteps': 11,
+                                   'telemetry_sha256': 'e6f99eab4e0da35800fd7a1a10d074f1c83a61781de5ca4bf11990d67fa473a1',
+                                   'warm_scope': 'fresh'},
+                                  {'converged': True,
+                                   'flow_sha256': '285aec213402549155046c3d58dddde2eaf0494c9f209b38da98f8b6cd98bcc5',
+                                   'h2d_delta': 12637376,
+                                   'h2d_full': 1703936,
+                                   'kind': 'churn',
+                                   'p_sha256': 'bd6a0cdd010b947a9b5724bcdf3e0f53ff91cb64f14ff7e96267b7fc3f1f4fc9',
+                                   'path': 'sharded',
+                                   'plan_kind': 'delta',
+                                   'round': 4,
+                                   'sha256': '49eeb816810815871af205cfeaa03b03e6c9398496a4911aedf13c29a5c92941',
+                                   'supersteps': 10,
+                                   'telemetry_sha256': 'e269101f9c4401edb6e61b636fc06d343c2479bd9d276be632775c36ef2cee12',
+                                   'warm_scope': 'fresh'},
+                                  {'converged': True,
+                                   'flow_sha256': '268d63dc0655ae219c2577725b6e92e8d048f4586e3b433c544a0e202c74016d',
+                                   'h2d_delta': 14212928,
+                                   'h2d_full': 1703936,
+                                   'kind': 'churn',
+                                   'p_sha256': '38cd92052ed4e17572785322c371561c0f336098a9e3223358d9061fa90676c2',
+                                   'path': 'sharded',
+                                   'plan_kind': 'delta',
+                                   'round': 5,
+                                   'sha256': '1c65a6a5edbbcd8708e5c0c27069cdd8a85ea6af8b17b04c03aefd8a1763dd90',
+                                   'supersteps': 11,
+                                   'telemetry_sha256': '241135803e42fc95b9c691b6042c71de035bd0a8158d6f484aee462c72606b28',
+                                   'warm_scope': 'fresh'},
+                                  {'converged': True,
+                                   'flow_sha256': 'e1bc61b5a096c8f5aab561634bd7586c1cb9e79162cb603f2d31eb6c97017540',
+                                   'h2d_delta': 15787136,
+                                   'h2d_full': 1703936,
+                                   'kind': 'churn',
+                                   'p_sha256': '61bce40062f231e20cae68d8078d6f26844754d49002b9c2d3048cc22ff2556f',
+                                   'path': 'sharded',
+                                   'plan_kind': 'delta',
+                                   'round': 6,
+                                   'sha256': '27fa1f5771e76f3281ccfce2a256cece44aa8240e85de062996018591647ec13',
+                                   'supersteps': 10,
+                                   'telemetry_sha256': 'c40cbd2d0c33a615f4c51f2ff24fa8977aa83240265e2f783055f2617b859a08',
+                                   'warm_scope': 'fresh'},
+                                  {'converged': True,
+                                   'flow_sha256': '6e83dacf754c1fdd0e5caedc8eee22fc40d1693d0778a5b62094c2e7edec1cce',
+                                   'h2d_delta': 17362368,
+                                   'h2d_full': 1703936,
+                                   'kind': 'burst',
+                                   'p_sha256': '524d6c1dac6effa300b9baaa8dd08cb0dd05f6ccef4d9d1cc5421fd22a85491d',
+                                   'path': 'sharded',
+                                   'plan_kind': 'delta',
+                                   'round': 7,
+                                   'sha256': '9c94d0ab8273575fd859cd36b603fbae33d7bf00aebdbadeca4fe34ad897ae26',
+                                   'supersteps': 10,
+                                   'telemetry_sha256': '73c33c0a575edffe405a22cb6799fcdffb3e3362fb28c8e579319f87be3c31ed',
+                                   'warm_scope': 'fresh'}]},
+             'bucket': {'block_extent': 131072,
+                        'entry_cap': 262144,
+                        'm_cap': 65536,
+                        'n_cap': 16384},
+             'budget': 7602176},
+ 'sharded_layered': {'sharded': {'num_placed': 10000,
+                                 'num_unscheduled': 0,
+                                 'placements_sha256': 'ddf1e98cbe11e541b058efbb19f871796db872d84695eb33e37f2914d80308f7',
+                                 'supersteps': 2637},
+                     'single': {'num_placed': 10000,
+                                'num_unscheduled': 0,
+                                'placements_sha256': 'ddf1e98cbe11e541b058efbb19f871796db872d84695eb33e37f2914d80308f7',
+                                'supersteps': 2637},
+                     'tiered': {'converged': True,
+                                'steps': 1639,
+                                'y_sha256': '5c12a84fb37f9936a198ab4b83fe19d300a479942c793526f14c2caa1508ba99'}},
+ 'whatif': {'drain': {'converged': [True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True,
+                                    True],
+                      'num_unsched': [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                      'objective': [64, 0, 0, 64, 0, 64, 0, 0, 64, 64, 0, 0, 64, 0, 64, 64],
+                      'y_sha256': 'bdfe8e91b2241690cc638b6789029434fc29b72b29443f3b1ef949e50cd7f475'},
+            'surge': {'converged': [True, True, True, True, True, True, True, True],
+                      'num_unsched': [0, 0, 0, 0, 0, 0, 10384, 34960],
+                      'objective': [0, 60, 192, 640, 3072, 10572, 290512, 904912],
+                      'y_sha256': 'b379ef7d9042771faa5f4ec7bd84d02d2472ef53bab453fdc6ca188b19cbaa47'}}}
+
 CLI_TENANTS = ["--tenants", "4", "--podgen", "20000", "-nm", "1000", "--pus-per-core", "4",
                "-mt", "4"]
 #: the Makefile's tenant-smoke
@@ -3147,6 +3433,294 @@ def phase_timing_mcmf(calls, picked, plain_ms, reps=3, tag="mcmf", barrier=True)
     return tot_k, tot_p, tot_b, by
 
 
+# ---------------------------------------------------------------------------
+# the multi-device rung (parallel/): D ranks share the one card over gloo
+# ---------------------------------------------------------------------------
+
+#: ranks of the sharded phases (one card holds them all, over gloo)
+SHARD_RANKS = 2
+
+
+def rank_sharded(rank, world, args):
+    """One rank of the `sharded` phase: bench.py's gtrace100k driver
+    (drivers/sharded_scale.py) at REF_PARALLEL's arguments on the card
+    (`args["device"]`), over the launch's gloo group."""
+    from ksched_tpu_torch.drivers.sharded_scale import run_sharded_scale
+    from ksched_tpu_torch.parallel.mesh import ShardMesh
+
+    args = dict(args)
+    dev = torch.device(args.pop("device"))
+    mesh = ShardMesh(None, device=dev)
+    t0 = time.perf_counter()
+    out = run_sharded_scale(mesh, device=dev, **args)
+    out.pop("objects")
+    out["wall_s"] = time.perf_counter() - t0
+    out["backend"] = mesh.backend
+    return out
+
+
+def rank_layered(rank, world, device):
+    """One rank of the `sharded-layered` phase: the seeded BulkCluster's
+    round through ShardedLayeredSolver, then the tiered instance through
+    sharded_transport_solve_tiered, on `device` over gloo."""
+    from ksched_tpu_torch.drivers.parallel_scenarios import (
+        LAYERED, TIERED, layered_cluster, round_record, tiered_instance)
+    from ksched_tpu_torch.parallel.mesh import ShardMesh
+    from ksched_tpu_torch.parallel.sharded_transport import (
+        ShardedLayeredSolver, sharded_transport_solve_tiered)
+    from ksched_tpu_torch.scheduler.bulk import BulkCluster
+
+    dev = torch.device(device)
+    mesh = ShardMesh(None, device=dev)
+    solver = ShardedLayeredSolver(mesh)
+    cluster = layered_cluster(BulkCluster, solver, **LAYERED)
+    t0 = time.perf_counter()
+    rec = dict(round_record(cluster, cluster.round()), supersteps=int(solver.last_supersteps))
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["collectives"] = mesh.by_site()
+    wLo, wHi, R, sup, cap, eps0 = tiered_instance(**TIERED)
+    on_card = [torch.tensor(x, device=dev) for x in (wLo, wHi, R, sup, cap)]
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    y, steps, conv = sharded_transport_solve_tiered(
+        mesh, *on_card, eps0, refine_waves=TIERED["refine_waves"])
+    tiered = {"y_sha256": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest(),
+              "steps": int(steps), "converged": bool(conv),
+              "wall_s": time.perf_counter() - t0, "collectives": mesh.by_site()}
+    return rec, tiered, mesh.backend
+
+
+def per_superstep(sites, steps):
+    """The collectives of `steps` supersteps per superstep, by kind."""
+    out = {}
+    for site in ("loop", "superstep"):
+        for kind, n in sites.get(site, {}).items():
+            out[kind] = out.get(kind, 0) + n
+    return {k: round(v / max(steps, 1), 3) for k, v in sorted(out.items())}
+
+
+def phase_sharded(dev):
+    """The sharded rung at the north star's size (drivers/sharded_scale.py,
+    bench.py's gtrace100k cut to 10k x 1k): SHARD_RANKS gloo ranks on the
+    card run both arms, every round's record (supersteps, converged, path,
+    placements, flow and potentials sha256, plan kind, h2d bytes, ring
+    sha256) equal across the ranks, to the single-card CsrSolver arm and
+    to the JAX package's; the collectives per superstep beside the JAX
+    program's 3 psum, 2 pmax, 1 pmin; then one D = 1 solve over NCCL."""
+    from ksched_tpu_torch.drivers.sharded_scale import COMPARED
+    from ksched_tpu_torch.parallel.launch import run_ranks
+
+    ref = REF_PARALLEL["sharded"]
+    args = {k: v for k, v in ref["args"].items() if k != "devices"}
+    args["device"] = str(dev)
+    check(ref["args"]["devices"] == SHARD_RANKS, "REF_PARALLEL is for another D")
+    got = run_ranks("chip_smoke:rank_sharded", SHARD_RANKS, args, deadline_s=700,
+                    timeout_s=300)
+    for r, g in enumerate(got):
+        check(g["backend"] == "gloo", f"rank {r} on {g['backend']}")
+        check(g["budget"] == ref["budget"] and g["bucket"] == ref["bucket"],
+              f"rank {r}: gate {g['budget']} {g['bucket']} != {ref['budget']} {ref['bucket']}")
+        for arm in ("scan_csr", "sharded"):
+            rows = [{f: rec[f] for f in COMPARED} for rec in g["arms"][arm]]
+            for i, (a, b) in enumerate(zip(rows, ref["arms"][arm])):
+                check(a == b, f"rank {r} {arm} round {i}: "
+                      f"{ {f: (a[f], b[f]) for f in COMPARED if a[f] != b[f]} }")
+            check(len(rows) == len(ref["arms"][arm]), f"{arm}: {len(rows)} rounds")
+    g = got[0]
+    for rec_c, rec_s in zip(g["arms"]["scan_csr"], g["arms"]["sharded"]):
+        say(f"sharded round {rec_s['round']} ({rec_s['kind']}): path {rec_s['path']} "
+            f"steps {rec_s['supersteps']} converged {rec_s['converged']} "
+            f"plan {rec_s['plan_kind']} "
+            f"h2d delta bytes so far {rec_s['h2d_delta']} (global), this round's plan "
+            f"bytes on rank 0 {rec_s['plan_rank_bytes']} "
+            f"wall_ms sharded {rec_s['wall_ms']:.1f} scan_csr {rec_c['wall_ms']:.1f} "
+            f"(rank 1 sharded {got[1]['arms']['sharded'][rec_s['round']]['wall_ms']:.1f}) "
+            f"sha256 {rec_s['sha256'][:12]}")
+    steps = g["measured_supersteps"]
+    say(f"sharded collectives over {steps} measured supersteps (rank 0): "
+        f"{json.dumps(g['collectives'], sort_keys=True)}")
+    say(f"sharded collectives per superstep: {per_superstep(g['collectives'], steps)} "
+        "(the JAX program's loop budget: psum 3, pmax 2 at a phase change, pmin 1 "
+        "a tightening sweep)")
+    check(g["collectives"]["superstep"] == {"psum": 2 * steps},
+          f"superstep collectives {g['collectives']['superstep']} != 2 psum x {steps}")
+    say(f"sharded: fill_s {json.dumps(g['fill_s'])} rank walls "
+        f"{[round(x['wall_s'], 1) for x in got]} s")
+    if dev.type == "cuda":
+        phase_nccl(dev)
+
+
+def phase_nccl(dev):
+    """One D = 1 sharded solve over NCCL (the backend of one card per
+    rank) in this process: the mesh's collectives on the card, and the
+    legacy sharded solve equal to the single-card CsrSolver's (at D = 1
+    both order the entries alike) on a seeded scheduling graph."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ksched_tpu_torch.drivers.synthetic import random_flow_problem
+    from ksched_tpu_torch.parallel.mesh import ShardMesh, init_group
+    from ksched_tpu_torch.parallel.sharded_solver import ShardedJaxSolver
+    from ksched_tpu_torch.solver.csr_solver import CsrSolver
+
+    tmp = tempfile.mkdtemp(prefix="ksched_nccl_")
+    try:
+        init_group("nccl", 0, 1, f"file://{os.path.join(tmp, 'store')}",
+                   timeout_s=120, device=dev)
+        mesh = ShardMesh(None, device=dev)
+        check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        x = torch.arange(-5, 7, dtype=torch.int32, device=dev)
+        check(torch.equal(mesh.psum(x), x) and torch.equal(mesh.pmax(x), x)
+              and torch.equal(mesh.pmin(x), x)
+              and torch.equal(mesh.all_gather(x), x[None]), "nccl collectives")
+        p = random_flow_problem(np.random.default_rng(0), 40, 4, 3)
+        sh = ShardedJaxSolver(mesh, telemetry=0)
+        t0 = time.perf_counter()
+        a = sh.solve(p)
+        wall = time.perf_counter() - t0
+        cs = CsrSolver(device=dev, slot_stable=False, telemetry=0)
+        b = cs.solve(p)
+        check(np.array_equal(a.flow, b.flow) and a.objective == b.objective
+              and sh.last_supersteps == cs.last_supersteps,
+              f"nccl D=1: {a.objective}/{sh.last_supersteps} != "
+              f"{b.objective}/{cs.last_supersteps}")
+        say(f"nccl D=1 sharded solve: objective {a.objective} steps {sh.last_supersteps} "
+            f"equal to CsrSolver; wall {wall:.2f} s; collectives {mesh.totals()}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_sharded_layered(dev):
+    """The sharded layered transport: the seeded BulkCluster (1,000
+    machines, Mp = 1,024, 4 class rows, 10,000 tasks) scheduled through
+    ShardedLayeredSolver on SHARD_RANKS gloo ranks and through
+    LayeredTransportSolver on the card (the transport kernel), the same
+    placements and supersteps on every rank, the card and the JAX
+    package; the tiered instance at [4, 1,024] on the ranks, the tiered
+    kernel and its plain version, all equal to the JAX package's.
+    Returns (the single-card cluster after its round, transport
+    launches, captured solves)."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers.parallel_scenarios import (
+        LAYERED, TIERED, layered_cluster, round_record, tiered_instance)
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+    from ksched_tpu_torch.parallel.launch import run_ranks
+    from ksched_tpu_torch.scheduler.bulk import BulkCluster
+    from ksched_tpu_torch.solver.layered import (
+        LayeredTransportSolver, _solve_transport_tiered)
+
+    ref = REF_PARALLEL["sharded_layered"]
+    got = run_ranks("chip_smoke:rank_layered", SHARD_RANKS, str(dev), deadline_s=400,
+                    timeout_s=300)
+    single = LayeredTransportSolver(device=dev)
+    cluster = layered_cluster(BulkCluster, single, **LAYERED)
+    transport_loop.launches = 0
+    with Recorder(ops) as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cluster.round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = transport_loop.launches
+    card = dict(round_record(cluster, res), supersteps=int(single.last_supersteps))
+    check(card == ref["single"], f"card round {card} != the JAX package's {ref['single']}")
+    check(launches == len(rec.calls) and launches >= 1, f"launches {launches}")
+    for r, (rr, tiered, backend) in enumerate(got):
+        check(backend == "gloo", f"rank {r} on {backend}")
+        row = {k: rr[k] for k in card}
+        check(row == card, f"rank {r}: {row} != card {card}")
+        say(f"sharded-layered rank {r}: steps {rr['supersteps']} wall {rr['wall_s']:.1f} s "
+            f"(card {wall:.3f} s, {launches} transport launches) collectives "
+            f"{json.dumps(rr['collectives'], sort_keys=True)}")
+    wLo, wHi, R, sup, cap, eps0 = tiered_instance(**TIERED)
+    on_card = [torch.tensor(x, device=dev) for x in (wLo, wHi, R, sup, cap)]
+    kw = dict(max_supersteps=1 << 17, refine_waves=TIERED["refine_waves"])
+    transport_loop_tiered.launches = 0
+    kernel = ops.transport_solve_tiered(*on_card, eps0, **kw)
+    plain = _solve_transport_tiered(*on_card, eps0, **kw)
+    check(transport_loop_tiered.launches == 1, "tiered launches")
+    check(same_bits(kernel, plain), "tiered kernel != plain on the sharded instance")
+    k_sha = hashlib.sha256(kernel[0].cpu().numpy().tobytes()).hexdigest()
+    want = ref["tiered"]
+    check({"y_sha256": k_sha, "steps": int(kernel[2]), "converged": bool(kernel[3])}
+          == want, f"tiered kernel {k_sha[:12]}/{int(kernel[2])} != the JAX package's {want}")
+    for r, (_rr, tiered, _b) in enumerate(got):
+        t = {k: tiered[k] for k in want}
+        check(t == want, f"rank {r} tiered {t} != {want}")
+        say(f"sharded tiered rank {r}: steps {tiered['steps']} wall {tiered['wall_s']:.1f} s "
+            f"collectives {json.dumps(tiered['collectives'], sort_keys=True)}")
+    say(f"sharded tiered: the tiered kernel and its plain version equal the ranks "
+        f"and the JAX package ({want['steps']} supersteps)")
+    return cluster, launches, rec.calls
+
+
+def phase_whatif(dev, cluster):
+    """parallel/whatif.py on the scheduled cluster: drain_scenarios over
+    16 candidates and surge_scenarios over 8 rows through the transport
+    kernel (one launch per scenario of C >= 2), objectives, unscheduled
+    counts, converged flags and y equal to the JAX package's; the two
+    longest scenario solves re-solved by the plain version with the same
+    bits and timed beside their bound. Returns (launches, max_abs_err,
+    kernel ms, plain ms, bound ms, bound_by)."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.drivers.parallel_scenarios import WHATIF, whatif_inputs
+    from ksched_tpu_torch.ops.transport import transport_loop
+    from ksched_tpu_torch.parallel.whatif import drain_scenarios, surge_scenarios
+    from ksched_tpu_torch.solver.layered import _solve_transport
+
+    machines, surge = whatif_inputs(cluster, **WHATIF)
+    transport_loop.launches = 0
+    with Recorder(ops) as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = {"drain": drain_scenarios(cluster, machines, device=dev),
+                   "surge": surge_scenarios(cluster, surge, device=dev)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = transport_loop.launches
+    # one launch per scenario, two where the short eps start is retried
+    check(launches == len(rec.calls) >= len(machines) + len(surge),
+          f"whatif launches {launches} (solves {len(rec.calls)})")
+    for name, res in results.items():
+        row = {"objective": [int(x) for x in res.objective],
+               "num_unsched": [int(x) for x in res.num_unsched],
+               "converged": [bool(x) for x in res.converged],
+               "y_sha256": hashlib.sha256(np.ascontiguousarray(res.y).tobytes()).hexdigest()}
+        check(row == REF_PARALLEL["whatif"][name],
+              f"whatif {name}: {row} != the JAX package's {REF_PARALLEL['whatif'][name]}")
+        say(f"whatif {name}: K={len(res.objective)} objective {row['objective']} "
+            f"unsched {row['num_unsched']}")
+    say(f"whatif: {launches} transport launches in {wall:.3f} s wall, supersteps "
+        f"{[int(c['out'][2]) for c in rec.calls]}")
+    picked = sorted(range(len(rec.calls)), key=lambda i: -int(rec.calls[i]["out"][2]))[:2]
+    worst = 0
+    tot_k = tot_p = tot_b = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for i in picked:
+        c = rec.calls[i]
+        err, _ms = resolve_plain(f"whatif transport solve {i}", c, False)
+        worst = max(worst, err)
+        wS, supply, col_cap, eps, *rest = c["args"]
+        b_bytes, b_ops = transport_bound(c)
+        k_ms = timed_ms(lambda: ops.transport_solve(wS, supply, col_cap, eps, *rest,
+                                                    **c["kw"]), 5)
+        p_ms = timed_ms(lambda: _solve_transport(wS, supply, col_cap, eps, *rest,
+                                                 **c["kw"]), 1)
+        steps = int(c["out"][2])
+        say(f"timing whatif solve {i} [{wS.shape[0]},{wS.shape[1]}] steps={steps}: "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={max(b_bytes, b_ops):.6f} "
+            f"kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+        tot_k, tot_p, tot_b = tot_k + k_ms, tot_p + p_ms, tot_b + max(b_bytes, b_ops)
+        by["bytes"] += b_bytes
+        by["operations"] += b_ops
+    return launches, worst, tot_k, tot_p, tot_b, max(by, key=by.get)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3243,18 +3817,25 @@ def main() -> int:
     lap("policies")
     say(f"launches on the policies path: transport {pol_b1}, mcmf {pol_b3}")
     phase_tenancy(dev, lap)
+    phase_sharded(dev)
+    lap("sharded")
+    w_cluster, sl_b1, _sl_calls = phase_sharded_layered(dev)
+    lap("sharded-layered")
+    wi_b1, wi_err, wi_k, wi_p, wi_b, _wi_by = phase_whatif(dev, w_cluster)
+    lap("whatif")
+    say(f"transport launches: sharded-layered single-card arm {sl_b1}, whatif {wi_b1}")
 
     kernels = [{
         "name": "transport",
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/transport.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:59",
-        "launches": launches + g_b1 + s_launches + pol_b1,
+        "launches": launches + g_b1 + s_launches + pol_b1 + sl_b1 + wi_b1,
         "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err, s_err,
-                           pol_err),
-        "ms": k_ms + g_k + s_k,
-        "plain_ms": p_ms + g_p + s_p,
-        "bound_ms": b_ms + g_b + s_b,
+                           pol_err, wi_err),
+        "ms": k_ms + g_k + s_k + wi_k,
+        "plain_ms": p_ms + g_p + s_p + wi_p,
+        "bound_ms": b_ms + g_b + s_b + wi_b,
         "bound_by": bound_by,
         "library_ms": None,
     }, {

@@ -26,8 +26,13 @@ Two consumers read the per-round mutations:
   rebuilt only when a pow2 bucket grows or `full_build` reassigns the
   slot table.
 
-Port of ksched_tpu/graph/device_export.py. Not ported: the sharded plan
-mirror (`enable_sharded_plan`, ROADMAP item 12).
+In sharded plan mode (`DeviceResidentState.enable_sharded_plan`, the
+multi-device rung of parallel/) each rank of the mesh holds its own
+`[Es]` block of the six entry-shaped plan tensors and the whole of the
+replicated ones, and a round's plan records are routed to their owner
+ranks.
+
+Port of ksched_tpu/graph/device_export.py.
 """
 
 from __future__ import annotations
@@ -482,8 +487,13 @@ class DeviceResidentProblem(FlowProblem):
     d_cap: object = None  # int32[m_cap] folded residual bound
     d_cost: object = None  # int32[m_cap] UNSCALED costs
     #: scatter-maintained slot-stable plan tensors in _solve_mcmf order
-    #: (graph/slot_plan.py), or None while the plan is inactive
+    #: (graph/slot_plan.py), or None while the plan is inactive or held
+    #: sharded
     d_plan: object = None
+    #: the same in sharded plan mode: this rank's [Es] blocks of the
+    #: entry-shaped tensors and the replicated rest (a single-device
+    #: solver given such a problem uploads the host plan instead)
+    d_plan_shard: object = None
     resident: object = None  # owning DeviceResidentState
     version: int = 0
 
@@ -522,6 +532,10 @@ def resident_solver_inputs(problem, prev_flow, prev_src, prev_dst, warm_start,
     else:
         flow0 = torch.zeros(m, dtype=torch.int32, device=problem.d_cap.device)
     return dev_args, flow0, warm
+
+
+#: the entry-shaped plan tensors, split by owner in sharded mode
+_ENTRY_PLAN_NAMES = ("p_arc", "p_sign", "p_src", "p_dst", "seg_start", "is_start")
 
 
 def _upload(x: np.ndarray, device) -> torch.Tensor:
@@ -585,8 +599,15 @@ class DeviceResidentState:
         self._plan_gen = -1  # layout_gen mirrored
         self._plan_ver = -1  # value_version mirrored
         self.last_plan_kind = "none"  # none | rebuild | delta | clean
+        #: plan bytes of the last sync: the global count (every shard's
+        #: records, the JAX package's [D, K, cols] total) and what this
+        #: rank itself uploaded (equal when the mirror is not sharded)
         self.last_plan_bytes = 0
+        self.last_plan_rank_bytes = 0
         self.last_plan_records = 0
+        #: sharded plan mirror mode (enable_sharded_plan): the mesh whose
+        #: rank this process is, or None for the single-device mirror
+        self._shard = None
 
     # -- packing -----------------------------------------------------------
 
@@ -680,6 +701,7 @@ class DeviceResidentState:
         self._m_cap = st.m_cap
         self.version += 1
         d_plan = self._sync_plan()
+        sharded = self._shard is not None
         return DeviceResidentProblem(
             num_nodes=problem.num_nodes,
             excess=problem.excess,
@@ -695,16 +717,30 @@ class DeviceResidentState:
             d_dst=self.d_dst,
             d_cap=self.d_cap,
             d_cost=self.d_cost,
-            d_plan=d_plan,
+            d_plan=None if sharded else d_plan,
+            d_plan_shard=d_plan if sharded else None,
             resident=self,
             version=self.version,
             plan=st.plan,
             plan_key=st.plan_key(),
         )
 
-    def enable_sharded_plan(self, mesh, axis: str = "x") -> None:
-        raise NotImplementedError(
-            "the sharded plan mirror is not ported yet (ROADMAP item 12)")
+    def enable_sharded_plan(self, mesh) -> None:
+        """Maintain the slot-plan mirror in SHARDED form for the
+        multi-device rung (parallel/sharded_solver.py): the owning
+        SlotPlanState switches to the per-shard block layout, this rank
+        holds its [Es] block of the entry-shaped tensors (the partition
+        rules) and the rest whole, and each round's dirty rows and
+        segment statics are routed to their owner ranks. `mesh` is a
+        parallel.mesh.ShardMesh on this mirror's device. Idempotent per
+        mesh."""
+        if self._shard is mesh:
+            return
+        if mesh.device != self.device:
+            raise ValueError(f"a mesh on {mesh.device} for a mirror on {self.device}")
+        self._shard = mesh
+        self.state.plan.enable_sharding(mesh.size)
+        self._plan_gen = -1  # mode flip: the next sync re-uploads wholesale
 
     def _plan_tensors(self) -> Tuple:
         """The mirrored plan tensors in `_solve_mcmf` order."""
@@ -714,25 +750,66 @@ class DeviceResidentState:
             self.d_first, self.d_last, self.d_nonempty,
         )
 
-    def _upload_plan_full(self, plan) -> None:
-        """Fresh plan tensors from the host truth (the rebuild path)."""
+    def _upload_plan_full(self, plan) -> int:
+        """Fresh plan tensors from the host truth (the rebuild path and
+        the integrity ladder's reupload rung); in sharded mode this
+        rank's blocks of the entry tensors and the rest whole. Returns
+        the bytes this rank uploaded."""
+        if self._shard is None:
+            tensors = tuple(_upload(x, self.device) for x in plan.host_args())
+        else:
+            from ..parallel.sharded_solver import place_sharded_plan
+
+            mesh = self._shard
+            tensors = place_sharded_plan(mesh, plan.host_args(), mesh.size,
+                                         plan.block_extent)
         (
             self.d_p_arc, self.d_p_sign, self.d_p_src, self.d_p_dst,
             self.d_seg, self.d_isstart, self.d_inv,
             self.d_first, self.d_last, self.d_nonempty,
-        ) = (_upload(x, self.device) for x in plan.host_args())
+        ) = tensors
+        return sum(_nbytes(t) for t in tensors)
 
     def _scatter_plan_delta(self, plan) -> Tuple[int, int]:
-        """Apply a round's dirty plan records; (bytes, records)."""
+        """Apply a round's dirty plan records; (bytes, records), the
+        global counts. In sharded mode the `plan_upload` span carries
+        both the global bytes and this rank's (`rank_bytes`)."""
         from ..obs.spans import span
-        from .slot_plan import plan_apply
 
-        recs = plan.drain_records()
-        rec_bytes = sum(r.nbytes for r in recs)
-        with span("plan_upload", kind="delta", bytes=rec_bytes):
-            plan_apply(self._plan_tensors(),
-                       *(_upload(r, self.device) for r in recs))
-        return rec_bytes, sum(len(r) for r in recs)
+        if self._shard is None:
+            from .slot_plan import plan_apply
+
+            recs = plan.drain_records()
+            rec_bytes = sum(r.nbytes for r in recs)
+            with span("plan_upload", kind="delta", bytes=rec_bytes):
+                plan_apply(self._plan_tensors(),
+                           *(_upload(r, self.device) for r in recs))
+            self.last_plan_rank_bytes = rec_bytes
+            return rec_bytes, sum(len(r) for r in recs)
+        from ..parallel.sharded_solver import (
+            replicated_plan_apply_fn,
+            sharded_plan_apply_fn,
+        )
+
+        mesh = self._shard
+        row_rec, seg_rec, inv_rec, node_rec = plan.drain_records_sharded()
+        rec_bytes = row_rec.nbytes + seg_rec.nbytes + inv_rec.nbytes + node_rec.nbytes
+        # this rank ships its own [K, cols] slices and the replicated
+        # streams whole
+        rank_bytes = (row_rec[mesh.rank].nbytes + seg_rec[mesh.rank].nbytes
+                      + inv_rec.nbytes + node_rec.nbytes)
+        with span("plan_upload", kind="sharded_delta", bytes=rec_bytes,
+                  rank_bytes=rank_bytes, shards=mesh.size):
+            sharded_plan_apply_fn(mesh)(
+                self.d_p_arc, self.d_p_sign, self.d_p_src, self.d_p_dst,
+                self.d_seg, self.d_isstart, row_rec, seg_rec)
+            replicated_plan_apply_fn()(
+                self.d_inv, self.d_first, self.d_last, self.d_nonempty,
+                inv_rec, node_rec)
+        self.last_plan_rank_bytes = rank_bytes
+        records = (int(np.prod(row_rec.shape[:2])) + int(np.prod(seg_rec.shape[:2]))
+                   + len(inv_rec) + len(node_rec))
+        return rec_bytes, records
 
     def _sync_plan(self):
         """Mirror the slot-stable plan as persistent tensors. Inactive
@@ -746,13 +823,16 @@ class DeviceResidentState:
         plan = self.state.plan
         self.last_plan_kind = "none"
         self.last_plan_bytes = 0
+        self.last_plan_rank_bytes = 0
         self.last_plan_records = 0
         if plan is None or not plan.enabled:
             return None
         plan.ensure_built()
         if self._plan_gen != plan.layout_gen:
-            with span("plan_upload", kind="rebuild"):
-                self._upload_plan_full(plan)
+            with span("plan_upload", kind="rebuild") as sp:
+                self.last_plan_rank_bytes = self._upload_plan_full(plan)
+                if self._shard is not None:
+                    sp.set("rank_bytes", self.last_plan_rank_bytes)
             plan.clear_pending()
             self._plan_gen = plan.layout_gen
             self._plan_ver = plan.value_version
@@ -780,14 +860,31 @@ class DeviceResidentState:
 
     def plan_fingerprints(self) -> np.ndarray:
         """uint32 checksum per mirrored plan tensor, in FP_PLAN_ARRAYS
-        order (runtime/integrity.StateAuditor)."""
-        from ..runtime.integrity import device_fingerprints
-
-        return device_fingerprints((
+        order (runtime/integrity.StateAuditor). The sharded mirror
+        psums per-shard partials with global-index weights, so both
+        modes compare against the same host twins."""
+        bufs = (
             self.d_p_arc, self.d_p_sign, self.d_p_src, self.d_p_dst,
             self.d_inv, self.d_seg, self.d_isstart,
             self.d_first, self.d_last, self.d_nonempty,
-        ))
+        )
+        if self._shard is None:
+            from ..runtime.integrity import device_fingerprints
+
+            return device_fingerprints(bufs)
+        from ..parallel.sharded_solver import sharded_plan_fingerprint_fn
+
+        return sharded_plan_fingerprint_fn(self._shard)(*bufs)
+
+    def plan_host_view(self, name: str, tensor) -> np.ndarray:
+        """A mirrored plan tensor as the host holds it: in sharded mode
+        an entry-shaped block is gathered from every rank (a collective:
+        every rank calls this for the same tensors in the same order)."""
+        if self._shard is not None and name in _ENTRY_PLAN_NAMES:
+            from ..parallel.sharded_solver import gather_block
+
+            return gather_block(self._shard, tensor)
+        return tensor.cpu().numpy()
 
     def rebind(self, problem: DeviceResidentProblem) -> None:
         """Re-point a problem handle at the mirror's CURRENT tensors.
@@ -799,8 +896,11 @@ class DeviceResidentState:
         problem.d_dst = self.d_dst
         problem.d_cap = self.d_cap
         problem.d_cost = self.d_cost
-        if problem.d_plan is not None and self._plan_gen >= 0:
-            problem.d_plan = self._plan_tensors()
+        if self._plan_gen >= 0:
+            if problem.d_plan is not None:
+                problem.d_plan = self._plan_tensors()
+            if problem.d_plan_shard is not None:
+                problem.d_plan_shard = self._plan_tensors()
         self._scaled = None
 
     def parity_check(self) -> None:
@@ -838,6 +938,6 @@ class DeviceResidentState:
         names = ("p_arc", "p_sign", "p_src", "p_dst", "seg_start", "is_start",
                  "inv_order", "node_first", "node_last", "node_nonempty")
         for name, dev, host in zip(names, self._plan_tensors(), plan.host_args()):
-            got = dev.cpu().numpy()
+            got = self.plan_host_view(name, dev)
             if got.dtype != host.dtype or not np.array_equal(got, host):
                 raise bounded_diff(f"device plan mirror {name}", got, host)

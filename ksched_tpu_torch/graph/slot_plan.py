@@ -54,8 +54,17 @@ layout:
 Entry position 0 is permanently reserved and dead: freed slots'
 `inv_order` rows are parked there.
 
-Not ported: the sharded layout mode (`enable_sharding`,
-`drain_records_sharded`, `shard_owner`), ROADMAP item 12.
+Sharded layout mode (`enable_sharding(D)`, the multi-device rung of
+parallel/sharded_solver.py): the table is laid out as D equal-extent
+per-shard BLOCKS, block d holding exactly the regions of the nodes
+shard d owns (`shard_owner`'s contiguous id ranges; regions were always
+allocated in node-id order, so this is the same layout with per-block
+bases). Each block reserves its local position 0 as a per-shard dead
+slot and keeps its own tail arena and dead-span list, so relocations
+stay inside the owner's block and the entry tensors reshape losslessly
+to `[D, E/D]`: rank d of the mesh holds block d. Entry order within a
+region is unchanged, so a single-device consumer of the same plan
+solves bit-identically to the unsharded layout.
 """
 
 from __future__ import annotations
@@ -80,17 +89,19 @@ SEG_RECORD_COLS = 3
 #: (node, node_first, node_last, node_nonempty flag)
 NODE_RECORD_COLS = 4
 
-_SHARDED = "the sharded slot-plan layout is not ported yet (ROADMAP item 12)"
-
-
 def _pad_records(k: int) -> int:
     from .device_export import pad_record_count
 
     return pad_record_count(k)
 
 
-def shard_owner(node_ids, num_nodes: int, num_shards: int):
-    raise NotImplementedError(_SHARDED)
+def shard_owner(node_ids, num_nodes: int, num_shards: int) -> np.ndarray:
+    """Owner shard per node id: a contiguous range partition, so
+    resource subtrees laid out contiguously stay on one shard. The
+    sharded solve re-derives the same arithmetic from an arange
+    (parallel/sharded_solver.py `node_owner` is this function)."""
+    per = -(-num_nodes // max(num_shards, 1))
+    return np.minimum(np.asarray(node_ids) // per, num_shards - 1)
 
 
 def plan_apply(plan, row_rec, inv_rec, seg_rec, node_rec) -> None:
@@ -174,10 +185,19 @@ class SlotPlanState:
         #: cumulative alloc/release events per node id: the slack
         #: rationing weight; persists across rebuilds
         self._churn_ct = np.zeros(0, np.int64)
-        #: first unassigned tail-pool position (the relocation arena)
-        self._tail_next = 0
-        #: abandoned (start, cap) spans, reused best-fit before fresh tail
-        self._dead_spans: List[Tuple[int, int]] = []
+        #: first unassigned tail-pool position per shard block (the
+        #: relocation arena; one block covering the whole table in the
+        #: default single-shard layout)
+        self._tail_next = np.zeros(1, np.int64)
+        #: abandoned (start, cap) spans per shard block, reused
+        #: best-fit before fresh tail
+        self._dead_spans: List[List[Tuple[int, int]]] = [[]]
+        #: sharded layout mode (enable_sharding): block count, equal
+        #: per-block extent (== entry_cap when unsharded), and the
+        #: node -> owner-shard map of the current layout
+        self._num_shards = 1
+        self.block_extent = 0
+        self._owner = np.zeros(0, np.int64)
         # ---- dirty journal (for the device scatter) ------------------
         self._dirty_pos: set = set()
         self._dirty_inv: set = set()
@@ -215,7 +235,14 @@ class SlotPlanState:
             self._rebuild()
 
     def enable_sharding(self, num_shards: int) -> None:
-        raise NotImplementedError(_SHARDED)
+        """Switch every FUTURE layout to the per-shard block form (see
+        the module docstring). Idempotent; a shard-count change
+        invalidates the layout."""
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        if num_shards != self._num_shards:
+            self._num_shards = num_shards
+            self.invalidate()
 
     # -- layout build ------------------------------------------------------
 
@@ -250,31 +277,82 @@ class SlotPlanState:
         # slack headroom, granted whole from the pow2 surplus in
         # descending churn x region-size order, after a tail-pool floor
         want = np.where(active, 2 + (hwm >> 2), 0)
-        need = 1 + int(base.sum())
-        self.entry_cap = max(2 * m_cap, next_pow2(need))
-        if self.entry_cap - need < max(64, self.entry_cap >> 4):
-            self.entry_cap = max(
-                2 * m_cap,
-                next_pow2(need + max(64, self.entry_cap >> 4)),
-            )
-        surplus = self.entry_cap - need
-        grantable = max(surplus - max(64, self.entry_cap >> 4), 0)
-        slack = want
-        if int(want.sum()) > grantable:
-            order = np.argsort(-(churn * (hwm + 1)), kind="stable")
-            fits = np.cumsum(want[order]) <= grantable
+        D = self._num_shards
+        if D == 1:
+            owner = np.zeros(n_cap, np.int64)
+            need = 1 + int(base.sum())
+            self.entry_cap = max(2 * m_cap, next_pow2(need))
+            if self.entry_cap - need < max(64, self.entry_cap >> 4):
+                self.entry_cap = max(
+                    2 * m_cap,
+                    next_pow2(need + max(64, self.entry_cap >> 4)),
+                )
+            surplus = self.entry_cap - need
+            grantable = max(surplus - max(64, self.entry_cap >> 4), 0)
+            slack = want
+            if int(want.sum()) > grantable:
+                order = np.argsort(-(churn * (hwm + 1)), kind="stable")
+                fits = np.cumsum(want[order]) <= grantable
+                slack = np.zeros_like(want)
+                slack[order[fits]] = want[order[fits]]
+            self.block_extent = self.entry_cap
+        else:
+            # equal-extent per-shard blocks, each with its own reserved
+            # dead slot (local 0), packed regions and tail arena, sized
+            # for the densest shard with full slack wants and floored at
+            # (2*m_cap)/D (sharded_entry_extent)
+            owner = shard_owner(np.arange(n_cap), n_cap, D)
+            full = (base + want).astype(np.int64)
+            shard_need = np.bincount(owner, weights=full,
+                                     minlength=D).astype(np.int64) + 1
+            max_need = int(shard_need.max())
+            Es = next_pow2(max_need)
+            if Es - max_need < max(64, Es >> 4):
+                Es = next_pow2(max_need + max(64, Es >> 4))
+            if (2 * m_cap) % D == 0:
+                Es = max(Es, (2 * m_cap) // D)
+            self.block_extent = Es
+            self.entry_cap = D * Es
+            base_sum = np.bincount(owner, weights=base.astype(np.float64),
+                                   minlength=D).astype(np.int64)
             slack = np.zeros_like(want)
-            slack[order[fits]] = want[order[fits]]
+            for d in range(D):
+                sel = np.flatnonzero(owner == d)
+                grantable = max(int(Es - 1 - base_sum[d] - max(64, Es >> 4)), 0)
+                wd = want[sel]
+                if int(wd.sum()) <= grantable:
+                    slack[sel] = wd
+                else:
+                    order = np.argsort(-(churn[sel] * (hwm[sel] + 1)),
+                                       kind="stable")
+                    fits = np.cumsum(wd[order]) <= grantable
+                    slack[sel[order[fits]]] = wd[order[fits]]
         caps = base + slack
         E = self.entry_cap
+        Es = self.block_extent
+        self._owner = owner
+        start = np.empty(n_cap, np.int64)
         seg = np.zeros(E, np.int32)
         isstart = np.zeros(E, bool)
-        # position 0 is the reserved dead slot: its own one-row segment
-        isstart[0] = True
-        start = 1 + np.concatenate(([0], np.cumsum(caps[:-1])))
-        used = int(caps.sum())
-        seg[1 : 1 + used] = np.repeat(start, caps).astype(np.int32)
-        isstart[start[caps > 0]] = True
+        tail0 = np.zeros(D, np.int64)
+        for d in range(D):
+            sel = np.flatnonzero(owner == d) if D > 1 else np.arange(n_cap)
+            # each block's local position 0 is its reserved dead slot:
+            # its own one-row segment, never allocated
+            seg[d * Es] = d * Es
+            isstart[d * Es] = True
+            if len(sel) == 0:
+                # a shard may own no node (D near or above n_cap leaves
+                # trailing shards empty): one dead slot and its tail
+                tail0[d] = d * Es + 1
+                continue
+            cd = caps[sel]
+            sd = d * Es + 1 + np.concatenate(([0], np.cumsum(cd[:-1])))
+            start[sel] = sd
+            used_d = int(cd.sum())
+            seg[d * Es + 1 : d * Es + 1 + used_d] = np.repeat(sd, cd).astype(np.int32)
+            isstart[sd[cd > 0]] = True
+            tail0[d] = d * Es + 1 + used_d
         self.region_start = start.astype(np.int32)
         self.region_cap = caps.astype(np.int32)
         self.node_first = np.minimum(start, E - 1).astype(np.int32)
@@ -325,8 +403,8 @@ class SlotPlanState:
         self._next_back = start + caps - counts_b - 1
         self._freed_f = {}
         self._freed_b = {}
-        self._tail_next = 1 + used
-        self._dead_spans = []
+        self._tail_next = tail0
+        self._dead_spans = [[] for _ in range(D)]
         self.clear_pending()
         self.layout_gen += 1
         self.value_version += 1
@@ -407,9 +485,11 @@ class SlotPlanState:
             heapq.heappush(self._freed_b.setdefault(node, []), -pos)
 
     def _return_span(self, start: int, cap: int) -> None:
-        """Give a span back to the arena, coalescing with adjacent dead
-        spans and with the tail frontier."""
-        spans = self._dead_spans
+        """Give a span back to its owner block's arena, coalescing with
+        adjacent dead spans and with that block's tail frontier (a span
+        never straddles a block boundary)."""
+        d = start // self.block_extent if self.block_extent else 0
+        spans = self._dead_spans[d]
         merged = True
         while merged:
             merged = False
@@ -424,16 +504,17 @@ class SlotPlanState:
                     spans.pop(i)
                     merged = True
                     break
-        if start + cap == self._tail_next:
-            self._tail_next = start
+        if start + cap == self._tail_next[d]:
+            self._tail_next[d] = start
         else:
             spans.append((start, cap))
 
-    def _claim_span(self, k: int) -> Optional[Tuple[int, int]]:
-        """A (start, cap) span of >= k rows for a relocated region:
-        best-fit from the dead-span list (split when the fit is loose),
-        else fresh tail. None when neither fits."""
-        spans = self._dead_spans
+    def _claim_span(self, k: int, shard: int = 0) -> Optional[Tuple[int, int]]:
+        """A (start, cap) span of >= k rows in `shard`'s block for a
+        relocated region: best-fit from the block's dead-span list
+        (split when the fit is loose), else the block's fresh tail.
+        None when neither fits."""
+        spans = self._dead_spans[shard]
         best = -1
         for i, (_s0, c0) in enumerate(spans):
             if c0 >= k and (best < 0 or c0 < spans[best][1]):
@@ -444,9 +525,10 @@ class SlotPlanState:
                 spans.append((s0 + k, c0 - k))
                 return (s0, k)
             return (s0, c0)
-        if self._tail_next + k <= self.entry_cap:
-            s0 = self._tail_next
-            self._tail_next += k
+        limit = (shard + 1) * self.block_extent
+        if self._tail_next[shard] + k <= limit:
+            s0 = int(self._tail_next[shard])
+            self._tail_next[shard] += k
             return (s0, k)
         return None
 
@@ -457,21 +539,23 @@ class SlotPlanState:
         old_start = int(self.region_start[node])
         old_cap = int(self.region_cap[node])
         occ = int(self._occ[node])
+        shard = int(self._owner[node]) if len(self._owner) > node else 0
         want = max(old_cap + max(old_cap >> 2, 2), occ + 2, 4)
         if old_cap == 0:
             # fresh region: the id's TYPE names the new tenant, so its
             # degree record sizes the span, capped by pool health
-            pool_left = (self.entry_cap - self._tail_next) + sum(
-                c for _, c in self._dead_spans)
+            pool_left = int(
+                (shard + 1) * self.block_extent - self._tail_next[shard]
+            ) + sum(c for _, c in self._dead_spans[shard])
             rec = max(
                 self._type_hwm.get(int(self.state.node_type[node]), 0),
                 int(self._deg_hwm[node]),
             )
             hint = rec + max(2, rec >> 3)
             want = max(want, min(hint, max(pool_left >> 1, 8)))
-        placed = self._claim_span(want)
+        placed = self._claim_span(want, shard)
         if placed is None:
-            placed = self._claim_span(max(occ + 2, 4))
+            placed = self._claim_span(max(occ + 2, 4), shard)
         if placed is None:
             return False
         new_start, new_cap = placed
@@ -641,8 +725,77 @@ class SlotPlanState:
         self.clear_pending()
         return row_rec, inv_rec, seg_rec, node_rec
 
-    def drain_records_sharded(self):
-        raise NotImplementedError(_SHARDED)
+    def drain_records_sharded(
+        self,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """The per-shard routed form of `drain_records` (sharded layout
+        mode): (row_rec [D, K, 5], seg_rec [D, K, 3], inv_rec [Ki, 2],
+        node_rec [Kn, 4]). Plan rows and segment statics are grouped by
+        OWNER shard (position // block_extent) with block-local
+        positions, stacked [D, K, cols] and padded to one shared pow2
+        record bucket per stream: a shard with fewer records pads with
+        its first real record, an idle shard with an idempotent rewrite
+        of its block's dead slot. inv-order and node-boundary records
+        stay global (those tensors are replicated)."""
+        D = self._num_shards
+        Es = self.block_extent
+        pos = np.sort(np.fromiter(self._dirty_pos, np.int64, len(self._dirty_pos)))
+        segs = np.sort(np.fromiter(self._dirty_seg, np.int64, len(self._dirty_seg)))
+        ents = np.sort(np.fromiter(self._dirty_inv, np.int32, len(self._dirty_inv)))
+        nids = np.sort(np.fromiter(self._dirty_node, np.int32, len(self._dirty_node)))
+
+        def route(idx, cols, fill):
+            """[D, K, cols] per-shard records from global positions."""
+            owner = idx // Es
+            counts = np.bincount(owner, minlength=D)
+            k = _pad_records(int(counts.max()) if len(idx) else 0)
+            rec = np.zeros((D, k, cols), np.int32)
+            for d in range(D):
+                rec[d] = fill(d)  # idempotent dead-slot pad, whole block
+                mine = idx[owner == d]
+                kd = len(mine)
+                if kd:
+                    rec[d, :kd, 0] = (mine - d * Es).astype(np.int32)
+                    rec[d, :kd, 1:] = self._row_values(mine, cols)
+                    rec[d, kd:] = rec[d, 0]
+            return rec
+
+        # a dead slot's row is all zero; its segment static is
+        # (own position, start flag)
+        row_rec = route(pos, PLAN_RECORD_COLS,
+                        lambda d: np.zeros(PLAN_RECORD_COLS, np.int32))
+        seg_rec = route(segs, SEG_RECORD_COLS,
+                        lambda d: np.array([0, d * Es, 1], np.int32))
+        ki, kn = len(ents), len(nids)
+        inv_rec = np.zeros((_pad_records(ki), INV_RECORD_COLS), np.int32)
+        if ki:
+            inv_rec[:ki, 0] = ents
+            inv_rec[:ki, 1] = self.inv_order[ents]
+            inv_rec[ki:] = inv_rec[0]
+        else:
+            inv_rec[:, 1] = self.inv_order[0]
+        node_rec = np.zeros((_pad_records(kn), NODE_RECORD_COLS), np.int32)
+        if kn:
+            node_rec[:kn, 0] = nids
+            node_rec[:kn, 1] = self.node_first[nids]
+            node_rec[:kn, 2] = self.node_last[nids]
+            node_rec[:kn, 3] = self.node_nonempty[nids]
+            node_rec[kn:] = node_rec[0]
+        else:
+            node_rec[:, 1] = self.node_first[0]
+            node_rec[:, 2] = self.node_last[0]
+            node_rec[:, 3] = self.node_nonempty[0]
+        self.clear_pending()
+        return row_rec, seg_rec, inv_rec, node_rec
+
+    def _row_values(self, idx: np.ndarray, cols: int) -> np.ndarray:
+        if cols == PLAN_RECORD_COLS:
+            return np.stack(
+                [self.p_arc[idx], self.p_sign[idx], self.p_src[idx], self.p_dst[idx]],
+                axis=1,
+            )
+        return np.stack(
+            [self.seg_start[idx], self.is_start[idx].astype(np.int32)], axis=1)
 
     def clear_pending(self) -> None:
         self._dirty_pos.clear()
@@ -772,7 +925,9 @@ class SlotPlanState:
             raise bounded_diff("plan_occupancy", self._occ[: st.n_cap], occ)
         assert (self._deg_hwm[: st.n_cap] >= occ).all(), (
             "degree high-water mark fell below live occupancy")
-        assert self._tail_next <= self.entry_cap, "the tail pool overran the table"
+        block_limits = (np.arange(self._num_shards, dtype=np.int64) + 1) * self.block_extent
+        assert (self._tail_next <= block_limits).all(), (
+            "a tail pool overran its shard block")
         # the fwd-front/bwd-back split within every region
         fpos = np.flatnonzero(self.p_sign == 1).astype(np.int64)
         bpos = np.flatnonzero(self.p_sign == -1).astype(np.int64)
@@ -790,8 +945,15 @@ class SlotPlanState:
         hi = lo + caps64[held][order]
         if lo.size:
             assert (hi[:-1] <= lo[1:]).all(), "regions overlap"
-            assert (starts[held] >= 1).all(), "a region covers the reserved dead slot"
-            assert (starts[held] + caps64[held] <= self._tail_next).all(), (
+            # every held region lives inside its OWNER's block, past the
+            # block's reserved dead slot and under its tail frontier
+            # (one block is the whole table when unsharded)
+            own = self._owner[np.flatnonzero(held)]
+            s_h = starts[held]
+            e_h = s_h + caps64[held]
+            assert (s_h >= own * self.block_extent + 1).all(), (
+                "a region precedes its block's reserved dead slot")
+            assert (e_h <= self._tail_next[own]).all(), (
                 "a region lies outside the packed/tail extent")
         for node in np.flatnonzero(held):
             assert int(self.node_first[node]) == int(starts[node])

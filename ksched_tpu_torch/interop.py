@@ -103,3 +103,44 @@ def continue_cluster(cluster, np_state: dict, groups: Optional[dict] = None,
         census, k, kg = hybrid
         cluster._hyb_census = torch.as_tensor(np.array(census, np.int32), device=dev)
         cluster._hyb_k, cluster._hyb_kg = int(k), int(kg)
+
+
+#: the array fields of a ShardedPlan (parallel/sharded_solver.py)
+SHARDED_PLAN_FIELDS = (
+    "s_arc", "s_sign", "s_src", "s_dst", "s_segstart", "s_isstart",
+    "s_valid", "node_first", "node_last", "node_nonempty", "owned",
+    "pos_fwd", "pos_bwd", "src", "dst",
+)
+
+#: the layout of a SlotPlanState in sharded mode: its ten plan tensors
+#: (host_args order), the allocator state and the owner map
+SHARDED_LAYOUT_FIELDS = (
+    "p_arc", "p_sign", "p_src", "p_dst", "seg_start", "is_start",
+    "inv_order", "node_first", "node_last", "node_nonempty",
+    "region_start", "region_cap", "pos_fwd", "pos_bwd",
+)
+
+
+def sharded_plan(plan):
+    """A parallel.sharded_solver.ShardedPlan from another package's
+    ShardedPlan (or any object with its fields), as numpy copies."""
+    from .parallel.sharded_solver import ShardedPlan
+
+    return ShardedPlan(**{f: np.array(getattr(plan, f)) for f in SHARDED_PLAN_FIELDS})
+
+
+def sharded_layout(plan_state) -> dict:
+    """A SlotPlanState's sharded layout as a dict of numpy arrays and
+    ints: the plan tensors, region table, per-slot positions, owner map,
+    per-block tail frontiers and dead spans, block extent and shard
+    count. Either package's SlotPlanState goes in; two layouts compare
+    equal field by field."""
+    out = {f: np.array(getattr(plan_state, f)) for f in SHARDED_LAYOUT_FIELDS}
+    out["owner"] = np.asarray(plan_state._owner, np.int64).copy()
+    out["tail_next"] = np.asarray(plan_state._tail_next, np.int64).copy()
+    out["dead_spans"] = [[(int(s), int(c)) for s, c in spans]
+                         for spans in plan_state._dead_spans]
+    out["block_extent"] = int(plan_state.block_extent)
+    out["entry_cap"] = int(plan_state.entry_cap)
+    out["num_shards"] = int(plan_state._num_shards)
+    return out

@@ -55,8 +55,16 @@ KERNEL_ERRORS = (KernelError,) + (
 
 def is_kernel_failure(e: BaseException) -> bool:
     """Whether `e` is a kernel or CUDA runtime failure (older torch
-    reports the latter as a plain RuntimeError naming a CUDA error)."""
-    return isinstance(e, KERNEL_ERRORS) or (
+    reports the latter as a plain RuntimeError naming a CUDA error), or
+    a failed or timed-out collective of the sharded rung
+    (parallel/mesh.py CollectiveError). The latter is not degradable
+    either: the ranks of a mesh step down together or not at all, and a
+    rank that stepped down alone would leave the others waiting in
+    their next collective. A failure every rank sees alike (an injected
+    chaos fault, a stall) still steps down."""
+    from ..parallel.mesh import CollectiveError
+
+    return isinstance(e, KERNEL_ERRORS + (CollectiveError,)) or (
         isinstance(e, RuntimeError) and str(e).startswith("CUDA error"))
 
 

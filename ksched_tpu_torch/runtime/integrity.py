@@ -69,6 +69,11 @@ FP_PLAN_ARRAYS = (
     "seg_start", "is_start", "node_first", "node_last", "node_nonempty",
 )
 
+#: the mirror attributes of the entry-shaped plan tensors, which a
+#: sharded mirror holds as per-rank blocks
+_SHARDED_PLAN_ATTRS = ("d_p_arc", "d_p_sign", "d_p_src", "d_p_dst",
+                       "d_seg", "d_isstart")
+
 #: mismatching indices carried on an IntegrityError / divergence event
 DIFF_BOUND = 8
 
@@ -227,6 +232,18 @@ def apply_device_corruption(resident, spec: Dict) -> None:
     buf = getattr(resident, attr, None)
     if buf is None:
         return  # mirror not built for that family yet: flip has no target
+    mesh = getattr(resident, "_shard", None)
+    if mesh is not None and attr in _SHARDED_PLAN_ATTRS:
+        # a sharded entry tensor: this rank holds one [Es] block of the
+        # [D * Es] whole, and the flip lands on ONE element of the whole
+        # (the JAX package flips the flattened [D, Es] stack), so only
+        # the rank that owns that element flips it
+        es = int(buf.shape[0])
+        g = int(spec["index"]) % (es * mesh.size)
+        if g // es != mesh.rank:
+            return
+        setattr(resident, attr, corrupt_flip(buf, g % es, int(spec["bit"]) % 31))
+        return
     idx = int(spec["index"]) % int(buf.shape[0])
     setattr(resident, attr, corrupt_flip(buf, idx, int(spec["bit"]) % 31))
 
@@ -395,9 +412,12 @@ class StateAuditor:
             if want is None:
                 want = plan_host.get(name)
                 dev = getattr(r, attr.get(name, "d_" + name))
+                # a sharded entry block is gathered whole (every rank saw
+                # the same psum'd fingerprints, so every rank is here)
+                got = r.plan_host_view(name, dev).astype(np.int32)
             else:
                 dev = getattr(r, "d_" + name)
-            got = dev.cpu().numpy().astype(np.int32)
+                got = dev.cpu().numpy().astype(np.int32)
             out.append(bounded_diff(name, got, want.astype(np.int32)))
         return out
 

@@ -655,25 +655,44 @@ def try_collapse(problem) -> Tuple[Optional[GraphCollapse], str]:
 
 
 class AutoSolver(FlowSolver):
-    """The automatic policy-dispatch seam, a three-rung ladder: dense
+    """The automatic policy-dispatch seam, a four-rung ladder: dense
     transport on `device` when the graph is collapsible, the mcmf
     kernel (solver/mega_solver.py) when a general graph fits its
-    budget, the general-graph CSR backend otherwise. Drop-in
-    FlowSolver (PlacementSolver/FlowScheduler-compatible); `last_path`
-    ("dense" | "mega" | "csr") / `last_refusal` / `last_mega_refusal`
+    budget, the general-graph CSR backend while its working set fits
+    one device, and the SHARDED multi-device backend
+    (parallel/sharded_solver.py) beyond that. Drop-in FlowSolver
+    (PlacementSolver/FlowScheduler-compatible); `last_path` ("dense" |
+    "mega" | "csr" | "sharded") / `last_refusal` / `last_mega_refusal`
     expose which way each solve went and why.
 
-    `mega` is optional: without it the ladder is dense -> CSR.
-    ksched_tpu's ladder also has a sharded multi-chip rung after the
-    CSR one; it comes in a later part of the port."""
+    `mega` and `sharded` are optional: without them the ladder is
+    dense -> CSR. Escalation to the sharded rung happens exactly when
+    the scan-CSR live set outgrows the per-device working-set budget
+    AND the per-shard slice fits it (`scan_csr_fits_hbm` /
+    `sharded_fits_hbm`); a graph too big even per shard stays on the
+    CSR rung. The budget resolves from `hbm_budget_bytes`, else the
+    KSCHED_HBM_BUDGET environment variable, else
+    DEFAULT_HBM_BUDGET_BYTES (the JAX package's policy value). Under
+    the sharded rung every rank of the mesh runs the same AutoSolver on
+    the same problem, so every rank takes the same rung."""
 
     def __init__(self, csr_backend: FlowSolver,
                  alpha: int = 8, max_supersteps: int = 1 << 17,
-                 mega: Optional[FlowSolver] = None, device="cuda"):
+                 mega: Optional[FlowSolver] = None, device="cuda",
+                 sharded=None, hbm_budget_bytes: Optional[int] = None):
         from ..utils.device import resolve_device
 
         self.csr = csr_backend
         self.mega = mega
+        #: sharded rung: a FlowSolver, or a zero-arg factory resolved
+        #: lazily on the first escalation
+        self._sharded = sharded
+        if hbm_budget_bytes is None:
+            import os
+
+            env = os.environ.get("KSCHED_HBM_BUDGET")
+            hbm_budget_bytes = int(env) if env else None
+        self.hbm_budget_bytes = hbm_budget_bytes
         self.device = resolve_device(device)
         self.alpha = alpha
         self.max_supersteps = max_supersteps
@@ -685,10 +704,46 @@ class AutoSolver(FlowSolver):
         #: solve (obs/soltel.py); solve_traced publishes it
         self.last_telemetry = None
 
+    @property
+    def sharded(self):
+        """The sharded rung, resolving a lazy factory on first use."""
+        s = self._sharded
+        if s is not None and not isinstance(s, FlowSolver) and callable(s):
+            s = s()
+            if not isinstance(s, FlowSolver):
+                raise TypeError(f"sharded factory returned {type(s).__name__}")
+            self._sharded = s
+        return s
+
     def reset(self) -> None:
         self.csr.reset()
         if self.mega is not None:
             self.mega.reset()
+        if isinstance(self._sharded, FlowSolver):
+            self._sharded.reset()
+
+    def _escalates_to_sharded(self, problem) -> bool:
+        """The fitting gate: True when the single-device scan-CSR
+        working set exceeds the per-device budget AND the per-shard
+        slice fits it."""
+        if self._sharded is None:
+            return False
+        from ..parallel.sharded_solver import (
+            DEFAULT_HBM_BUDGET_BYTES,
+            scan_csr_fits_hbm,
+            sharded_fits_hbm,
+        )
+
+        budget = self.hbm_budget_bytes
+        if budget is None:
+            budget = DEFAULT_HBM_BUDGET_BYTES
+        n_cap = problem.num_nodes
+        m_cap = len(problem.src)
+        if scan_csr_fits_hbm(n_cap, m_cap, budget):
+            return False
+        sharded = self.sharded  # resolve the factory: the mesh size
+        num_shards = getattr(sharded, "num_shards", 1)
+        return sharded_fits_hbm(n_cap, m_cap, num_shards, budget)
 
     def solve(self, problem) -> FlowResult:
         # rejected before the collapse audit casts costs to integers: the
@@ -711,6 +766,15 @@ class AutoSolver(FlowSolver):
                 getattr(mega, "last_refusal", "") if mega is not None
                 else "no megakernel attached"
             )
+            if self._escalates_to_sharded(problem):
+                sharded = self.sharded
+                self.last_path, self.last_refusal = "sharded", reason
+                res = sharded.solve(problem)
+                self.last_supersteps = getattr(
+                    sharded, "last_supersteps", res.iterations
+                )
+                self.last_telemetry = getattr(sharded, "last_telemetry", None)
+                return res
             self.last_path, self.last_refusal = "csr", reason
             res = self.csr.solve(problem)
             ss = getattr(self.csr, "last_supersteps", None)

@@ -12,13 +12,38 @@ from __future__ import annotations
 from .base import FlowSolver
 
 
+def _default_mesh(dev):
+    """A ShardMesh over the default torch.distributed group on `dev`;
+    raises when no group is initialised."""
+    from ..parallel.mesh import ShardMesh
+
+    return ShardMesh(None, device=dev)
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    if not dist.is_available() or not dist.is_initialized():
+        return 1
+    return dist.get_world_size()
+
+
 def make_backend(name: str, device="cuda") -> FlowSolver:
-    """name: "auto" | "jax" | "ell" | "mega" | "layered" | "ref" |
-    "native".
+    """name: "auto" | "jax" | "ell" | "mega" | "sharded" | "layered" |
+    "ref" | "native".
 
     - "auto": AutoSolver — the dense transport whenever the graph
       audits as collapsible, else the mcmf kernel (MegaSolver) when the
-      graph fits it, else the scan-CSR solve (CsrSolver);
+      graph fits it, else the scan-CSR solve (CsrSolver) while its
+      working set fits one device, else the sharded solve when the
+      process is a rank of a default torch.distributed group of more
+      than one rank (attached lazily: no mesh until the fitting gate
+      escalates);
+    - "sharded": ShardedJaxSolver over the default torch.distributed
+      group, one rank per shard, on `device` (every rank calls it with
+      the same problems); raises when no process group is initialised.
+      Selecting it directly sends every general-graph solve to the
+      mesh;
     - "jax": CsrSolver, the scan-CSR solve (the JAX package's
       JaxSolver under the same name);
     - "ell": EllSolver, the bucketed-ELL layout of the same solve;
@@ -42,8 +67,18 @@ def make_backend(name: str, device="cuda") -> FlowSolver:
         from .graph_collapse import AutoSolver
         from .mega_solver import MegaSolver
 
+        sharded = None
+        if _world_size() > 1:
+            def sharded():
+                from ..parallel.sharded_solver import ShardedJaxSolver
+
+                return ShardedJaxSolver(_default_mesh(dev))
         return AutoSolver(CsrSolver(device=dev), mega=MegaSolver(device=dev),
-                          device=dev)
+                          device=dev, sharded=sharded)
+    if name == "sharded":
+        from ..parallel.sharded_solver import ShardedJaxSolver
+
+        return ShardedJaxSolver(_default_mesh(dev))
     if name == "jax":
         from .csr_solver import CsrSolver
 
@@ -66,4 +101,4 @@ def make_backend(name: str, device="cuda") -> FlowSolver:
 
         return ReferenceSolver()
     raise ValueError(
-        f"unknown backend {name!r}; want auto | jax | ell | mega | layered | ref | native")
+        f"unknown backend {name!r}; want auto | jax | ell | mega | sharded | layered | ref | native")

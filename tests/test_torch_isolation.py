@@ -18,10 +18,14 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ksched_tpu")
 
 
-#: modules the port must hold (the cost models, DIMACS and tenancy)
+#: modules the port must hold (the cost models, DIMACS and tenancy; the
+#: multi-device rung)
 REQUIRED = ("costmodels/simple.py", "costmodels/net.py", "costmodels/coco.py",
             "graph/dimacs.py", "tenancy/__init__.py", "tenancy/batch.py",
-            "tenancy/manager.py", "tenancy/service.py", "drivers/multitenant.py")
+            "tenancy/manager.py", "tenancy/service.py", "drivers/multitenant.py",
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_solver.py",
+            "parallel/sharded_transport.py", "parallel/whatif.py", "parallel/launch.py",
+            "drivers/sharded_scale.py", "drivers/parallel_scenarios.py")
 
 
 def _port_sources():

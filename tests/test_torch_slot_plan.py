@@ -145,9 +145,20 @@ def test_plan_apply_equals_the_host_arrays():
 
 
 def test_sharded_layout_is_not_ported():
+    """The sharded layout this test once found refused is ported now:
+    under its first name it holds `shard_owner`, `enable_sharding`'s
+    block layout and `drain_records_sharded` equal to the JAX
+    package's (tests/test_torch_sharded_plan.py has the full churn)."""
+    from ksched_tpu.graph import slot_plan as jsp
+
+    np.testing.assert_array_equal(tsp.shard_owner(np.arange(4), 4, 2),
+                                  jsp.shard_owner(np.arange(4), 4, 2))
     pair = Pair(6, 3, resident=False)
-    for call in (lambda: pair.t.plan.enable_sharding(2),
-                 pair.t.plan.drain_records_sharded,
-                 lambda: tsp.shard_owner(np.arange(4), 4, 2)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    for st in (pair.j, pair.t):
+        st.plan.enable_sharding(2)
+        st.plan.ensure_built()
+    assert_plans_equal(pair.j.plan, pair.t.plan, "sharded layout")
+    churn_round(pair, "rewire", np.random.default_rng(1))
+    for a, b in zip(pair.j.plan.drain_records_sharded(),
+                    pair.t.plan.drain_records_sharded()):
+        np.testing.assert_array_equal(b, a)

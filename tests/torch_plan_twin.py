@@ -7,18 +7,13 @@ either package's FlowGraph (the same draws, so the same node ids and arc
 order); `Pair` holds the JAX package's state, resident mirror and
 JaxSolver beside this package's (on the CPU) and applies every mutation
 to both; `churn_round` is tests/test_slot_plan.py's `_churn_round` on a
-Pair. `Pair.solve_round` refreshes, solves and compares both sides.
+Pair (or on a `Solo`, the port's side alone). `Pair.solve_round` refreshes, solves and compares both sides.
 """
 
 import numpy as np
 
-import ksched_tpu.graph.changes as jch
-import ksched_tpu.graph.flowgraph as jfg
 import ksched_tpu_torch.graph.changes as tch
 import ksched_tpu_torch.graph.flowgraph as tfg
-from ksched_tpu.graph.device_export import DeviceGraphState as JState
-from ksched_tpu.graph.device_export import DeviceResidentState as JRes
-from ksched_tpu.solver.jax_solver import JaxSolver
 from ksched_tpu_torch.graph.device_export import DeviceGraphState as TState
 from ksched_tpu_torch.graph.device_export import DeviceResidentState as TRes
 from ksched_tpu_torch.solver.csr_solver import CsrSolver
@@ -71,8 +66,10 @@ def assert_plans_equal(jp, tp, where=""):
     for name in ("region_start", "region_cap", "pos_fwd", "pos_bwd"):
         np.testing.assert_array_equal(getattr(tp, name), getattr(jp, name),
                                       err_msg=f"{where} {name}")
-    assert int(tp._tail_next) == int(jp._tail_next[0]), where
-    assert tp._dead_spans == [(int(s), int(c)) for s, c in jp._dead_spans[0]], where
+    np.testing.assert_array_equal(tp._tail_next, jp._tail_next, err_msg=where)
+    assert tp.block_extent == jp.block_extent, where
+    assert tp._dead_spans == [[(int(s), int(c)) for s, c in spans]
+                              for spans in jp._dead_spans], where
 
 
 def peek_plan_records(plan):
@@ -89,6 +86,16 @@ class Pair:
     their resident mirrors, each with its general-graph solver."""
 
     def __init__(self, num_tasks, num_machines, resident=True, machine_cap=(2, 6)):
+        # the JAX package is imported here, not at module level, so that
+        # `build_graph`, `Solo` and `churn_round` serve processes that
+        # run the port alone (the ranks of tests/torch_parallel_cases.py)
+        import ksched_tpu.graph.changes as jch
+        import ksched_tpu.graph.flowgraph as jfg
+        from ksched_tpu.graph.device_export import DeviceGraphState as JState
+        from ksched_tpu.graph.device_export import DeviceResidentState as JRes
+        from ksched_tpu.solver.jax_solver import JaxSolver
+
+        self._jch = jch
         jg, _s, self.machines, self.tasks = build_graph(jfg, num_tasks, num_machines,
                                                         machine_cap)
         tg, _s, machines, tasks = build_graph(tfg, num_tasks, num_machines, machine_cap)
@@ -104,10 +111,12 @@ class Pair:
     # -- mutations, applied to both states --------------------------------
 
     def arc(self, s, d, cap, cost):
+        jch = self._jch
         self.j.apply_changes([jch.NewArcChange(s, d, 0, cap, cost, jch.ArcType.OTHER)])
         self.t.apply_changes([tch.NewArcChange(s, d, 0, cap, cost, tch.ArcType.OTHER)])
 
     def kill(self, s, d):
+        jch = self._jch
         self.j.apply_changes([jch.ChangeArcChange(s, d, 0, 0, 0, jch.ArcType.OTHER, 0)])
         self.t.apply_changes([tch.ChangeArcChange(s, d, 0, 0, 0, tch.ArcType.OTHER, 0)])
 
@@ -163,6 +172,63 @@ class Pair:
         if self.t.plan.enabled and not self.t.plan.needs_rebuild:
             self.t.plan.check_invariants()
         return tr
+
+
+class Solo:
+    """The port's side of a Pair alone (no JAX): one DeviceGraphState
+    with the mutation methods `churn_round` drives, for processes that
+    must not import the JAX package. `j` and `t` are the same state."""
+
+    def __init__(self, num_tasks, num_machines, machine_cap=(2, 6)):
+        tg, _s, self.machines, self.tasks = build_graph(tfg, num_tasks, num_machines,
+                                                        machine_cap)
+        self.t = TState()
+        self.t.full_build(tg)
+        self.j = self.t
+
+    def arc(self, s, d, cap, cost):
+        self.t.apply_changes([tch.NewArcChange(s, d, 0, cap, cost, tch.ArcType.OTHER)])
+
+    def kill(self, s, d):
+        self.t.apply_changes([tch.ChangeArcChange(s, d, 0, 0, 0, tch.ArcType.OTHER, 0)])
+
+    def set_excess(self, node, excess):
+        self.t.set_excess(node, excess)
+
+    def live(self):
+        return sorted(self.t._arc_slot.keys())
+
+
+class JSolo:
+    """The JAX package's side alone: `Solo` over its DeviceGraphState
+    (the same graph, ids and mutations), for tests that hold a run of
+    the port in other processes against it."""
+
+    def __init__(self, num_tasks, num_machines, machine_cap=(2, 6)):
+        import ksched_tpu.graph.changes as jch
+        import ksched_tpu.graph.flowgraph as jfg
+        from ksched_tpu.graph.device_export import DeviceGraphState as JState
+
+        self._jch = jch
+        jg, _s, self.machines, self.tasks = build_graph(jfg, num_tasks, num_machines,
+                                                        machine_cap)
+        self.j = JState()
+        self.j.full_build(jg)
+        self.t = self.j
+
+    def arc(self, s, d, cap, cost):
+        jch = self._jch
+        self.j.apply_changes([jch.NewArcChange(s, d, 0, cap, cost, jch.ArcType.OTHER)])
+
+    def kill(self, s, d):
+        jch = self._jch
+        self.j.apply_changes([jch.ChangeArcChange(s, d, 0, 0, 0, jch.ArcType.OTHER, 0)])
+
+    def set_excess(self, node, excess):
+        self.j.set_excess(node, excess)
+
+    def live(self):
+        return sorted(self.j._arc_slot.keys())
 
 
 def churn_round(pair, kind, rng):
