@@ -7,6 +7,14 @@ no result line):
 
 1. the card (nvidia-smi name and power limit), versions, and the build
    of every kernel of the path from the sources in this checkout;
+1b. analysis (ksched_tpu_torch/analysis/): the lint and `--coverage`
+   over this checkout; each kernel's registers, spill, static shared
+   bytes and co-resident blocks against the registry's pins; B3's grid
+   gate (the largest size `mega_fits` admits launches) and its measured
+   live set against the reckoning; the launching routes' torch calls
+   independent of supersteps; the in-place appliers' memory growth; and
+   the op-trace contracts and hash pins of mega_solve, layered_solve,
+   csr_solve and delta_apply on CUDA tensors, the pins tier-1 reads;
 2. kernel parity: the transport kernel against its plain PyTorch
    version on the card, bit for bit, on seeded instances, those at the
    row-split plan's edges among them (ops/transport.py row_plan: the
@@ -3479,7 +3487,7 @@ def rank_layered(rank, world, device):
     rec["wall_s"] = time.perf_counter() - t0
     rec["collectives"] = mesh.by_site()
     wLo, wHi, R, sup, cap, eps0 = tiered_instance(**TIERED)
-    on_card = [torch.tensor(x, device=dev) for x in (wLo, wHi, R, sup, cap)]
+    on_card = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (wLo, wHi, R, sup, cap)]
     mesh.reset_counts()
     t0 = time.perf_counter()
     y, steps, conv = sharded_transport_solve_tiered(
@@ -3638,7 +3646,7 @@ def phase_sharded_layered(dev):
             f"(card {wall:.3f} s, {launches} transport launches) collectives "
             f"{json.dumps(rr['collectives'], sort_keys=True)}")
     wLo, wHi, R, sup, cap, eps0 = tiered_instance(**TIERED)
-    on_card = [torch.tensor(x, device=dev) for x in (wLo, wHi, R, sup, cap)]
+    on_card = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (wLo, wHi, R, sup, cap)]
     kw = dict(max_supersteps=1 << 17, refine_waves=TIERED["refine_waves"])
     transport_loop_tiered.launches = 0
     kernel = ops.transport_solve_tiered(*on_card, eps0, **kw)
@@ -3721,6 +3729,77 @@ def phase_whatif(dev, cluster):
     return launches, worst, tot_k, tot_p, tot_b, max(by, key=by.get)
 
 
+# ---------------------------------------------------------------------------
+# the static-analysis suite on the card
+# ---------------------------------------------------------------------------
+
+#: the programs whose op-trace contracts the analysis phase records on
+#: CUDA tensors, against the pins tier-1 reads on the CPU
+ANALYSIS_PROGRAMS = ("mega_solve", "layered_solve", "csr_solve", "delta_apply")
+
+
+def phase_analysis(dev, build_log):
+    """Phase 1b: the lint and its coverage over this checkout, every card
+    check of the engine (each kernel's resources against its pins, B3's
+    grid gate and measured live set, the launching routes, the in-place
+    appliers' memory), and the op-trace contracts and hash pins of
+    ANALYSIS_PROGRAMS on CUDA tensors. Any contract failure fails the
+    run."""
+    from ksched_tpu_torch.analysis import engine
+    from ksched_tpu_torch.analysis.__main__ import main as lint_main
+    from ksched_tpu_torch.analysis.program_registry import KERNELS, PROGRAMS
+
+    t0 = time.perf_counter()
+    check(lint_main(["--coverage"]) == 0, "kschedlint-torch --coverage found problems")
+
+    def run(name, what, fn):
+        try:
+            return fn(PROGRAMS[name], dev)
+        except engine.ContractError as e:
+            raise Failed(f"analysis {what}: {e}") from None
+
+    for name in ("layered_solve", "mega_solve"):
+        for kernel, variants in run(name, "kernel resources",
+                                    engine.check_kernel_resources).items():
+            for variant, a in variants.items():
+                say(f"  kernel {kernel} {variant}: registers {a['registers']}, spill "
+                    f"(local) {a['local_bytes']} B, static shared {a['shared_bytes']} B, "
+                    f"max threads {a['max_threads']}, co-resident blocks "
+                    f"{a['blocks_per_sm']}/SM")
+            for line in build_log.get(kernel, "").splitlines():
+                if "registers" in line or "spill" in line:
+                    say(f"    ptxas {kernel}: {line.strip()}")
+        for kernel, r in run(name, "kernel route", engine.check_kernel_route).items():
+            say(f"  route {kernel}: one launch a solve, {r['ops']} torch calls for "
+                f"{r['supersteps'][0]} and {r['supersteps'][1]} supersteps")
+    g = run("mega_solve", "grid gate", engine.check_grid_gate)
+    say(f"  mcmf grid gate: largest admitted E={g['largest_entries']} on "
+        f"{g['largest_blocks']} blocks (most asked {g['most_blocks']}; co-resident "
+        f"{g['sms']} SMs x {g['blocks_per_sm']}), its launch accepted")
+    ls = run("mega_solve", "live set", engine.check_live_set)
+    say(f"  mcmf live set at E={ls['entries']}: measured {ls['measured_bytes']} B "
+        f"({ls['tables']:.2f} tables), mega_fits reckons {ls['reckoned_bytes']} B "
+        f"(+{ls['slack_bytes']} B slack)")
+    for name, spec in PROGRAMS.items():
+        if "inplace_memory" in engine.applicable_card_checks(spec):
+            m = run(name, "in-place memory", engine.check_inplace_memory)
+            say(f"  {name} in place: peak growth {m['growth_bytes']} B, new outputs "
+                f"{m['new_output_bytes']} B, smallest in-place buffer "
+                f"{m['smallest_buffer']} B")
+    for name in ANALYSIS_PROGRAMS:
+        spec = PROGRAMS[name]
+        run(name, "contracts", engine.check_default_call)
+        run(name, "hash pin", engine.check_hash_pin)
+        rep = engine.report(spec, device=dev)
+        say(f"  {name} on {dev}: trace {rep.trace_hash} (pinned "
+            f"{spec.telemetry_off_hash or '-'}), int64 calls {sum(rep.wide.values())}, "
+            f"scatters {dict(rep.scatters)}, host reads a superstep "
+            f"{sorted(rep.reads_by_kind.get('superstep', ()))}")
+    check(len(KERNELS) == 3, f"{len(KERNELS)} kernels registered")
+    say(f"analysis: {len(PROGRAMS)} programs, {len(KERNELS)} kernels checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3756,6 +3835,9 @@ def main() -> int:
         now = time.perf_counter()
         say(f"phase time: {what} {now - last[0]:.1f} s (total {now - t_start:.1f} s)")
         last[0] = now
+
+    phase_analysis(dev, build_mod.build.log)
+    lap("analysis")
 
     parity_err = phase_parity(dev)
     lap("transport parity")

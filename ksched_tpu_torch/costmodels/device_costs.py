@@ -38,7 +38,7 @@ def _on_device(arrays):
         if device not in cache:
             cache[device] = [
                 None if a is None else torch.as_tensor(
-                    np.asarray(a, np.int64).astype(np.int32), device=device)
+                    np.asarray(a, np.int64).astype(np.int32), device=device)  # kschedlint: host-only (host numpy)
                 for a in arrays
             ]
         return cache[device]

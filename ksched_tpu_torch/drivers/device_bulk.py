@@ -113,13 +113,13 @@ def next_pow2(n: int) -> int:
 
 def coco_penalties(num_machines: int) -> np.ndarray:
     """The bench's per-machine CoCo penalties."""
-    return np.random.default_rng(7).integers(0, 40, (num_machines, 4)).astype(np.int64)
+    return np.random.default_rng(7).integers(0, 40, (num_machines, 4)).astype(np.int64)  # kschedlint: host-only (host numpy)
 
 
 def whare_platform_factors(num_machines: int) -> np.ndarray:
     """The bench's per-machine Whare-Map platform factors: run_config's
     first draw of default_rng(7) (bench.py:1711)."""
-    return np.random.default_rng(7).integers(80, 140, num_machines).astype(np.int64)
+    return np.random.default_rng(7).integers(80, 140, num_machines).astype(np.int64)  # kschedlint: host-only (host numpy)
 
 
 def churn_of(config: str) -> float:

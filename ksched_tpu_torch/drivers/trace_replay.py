@@ -189,12 +189,12 @@ def synthesize_trace(
         burst_t = starts[which] * 1e6 + inside
         arrivals = np.sort(
             np.concatenate([base, burst_t])
-        ).astype(np.int64)
+        ).astype(np.int64)  # kschedlint: host-only (host numpy)
     else:
         arrivals = np.sort(
             rng.uniform(0, duration_s * 1e6, num_tasks)
-        ).astype(np.int64)
-    runtimes = (rng.exponential(mean_runtime_s, num_tasks) * 1e6).astype(np.int64)
+        ).astype(np.int64)  # kschedlint: host-only (host numpy)
+    runtimes = (rng.exponential(mean_runtime_s, num_tasks) * 1e6).astype(np.int64)  # kschedlint: host-only (host numpy)
     jobs = rng.integers(1, max(2, num_tasks // 50), num_tasks)
     events: List[TraceTaskEvent] = []
     for i in range(num_tasks):
@@ -530,7 +530,7 @@ class DeviceTraceReplayDriver:
         if class_cost_fn is None:
             # distinct per-job escape costs (u_j > e = 0 so placement
             # always profits): the row-constant per-job shape
-            job_u = 1 + (np.arange(num_jobs_hint, dtype=np.int64) % 8)
+            job_u = 1 + (np.arange(num_jobs_hint, dtype=np.int64) % 8)  # kschedlint: host-only (host numpy)
             self.cluster = DeviceBulkCluster(job_unsched_cost=job_u, **common)
             assert self.cluster.row_constant, (
                 "trace policy must take the closed form"

@@ -82,7 +82,7 @@ class FlowProblem:
 
     @property
     def total_supply(self) -> int:
-        return int(self.excess[self.excess > 0].sum())
+        return int(self.excess[self.excess > 0].sum())  # kschedlint: disable=int32-reduce -- a host numpy sum
 
 
 def pad_problem(problem: FlowProblem, n_cap: int, m_cap: int) -> FlowProblem:
@@ -225,14 +225,14 @@ class DeviceGraphState:
     def _alloc(self, n: int, m: int) -> None:
         self.n_cap = max(next_pow2(n), 16)
         self.m_cap = max(next_pow2(m), 16)
-        self.excess = np.zeros(self.n_cap, dtype=np.int64)
+        self.excess = np.zeros(self.n_cap, dtype=np.int64)  # kschedlint: host-only (host numpy)
         self.node_type = np.full(self.n_cap, -1, dtype=np.int8)
         self.src = np.zeros(self.m_cap, dtype=np.int32)
         self.dst = np.zeros(self.m_cap, dtype=np.int32)
         self.cap = np.zeros(self.m_cap, dtype=np.int32)
         self.low = np.zeros(self.m_cap, dtype=np.int32)
         self.cost = np.zeros(self.m_cap, dtype=np.int32)
-        self.fold = np.zeros(self.n_cap, dtype=np.int64)
+        self.fold = np.zeros(self.n_cap, dtype=np.int64)  # kschedlint: host-only (host numpy)
         self.generation += 1
         self.plan.invalidate()
 
@@ -263,11 +263,11 @@ class DeviceGraphState:
         new_cap = next_pow2(need)
         if new_cap <= self.n_cap:
             return
-        self.excess = np.concatenate([self.excess, np.zeros(new_cap - self.n_cap, np.int64)])
+        self.excess = np.concatenate([self.excess, np.zeros(new_cap - self.n_cap, np.int64)])  # kschedlint: host-only (host numpy)
         self.node_type = np.concatenate(
             [self.node_type, np.full(new_cap - self.n_cap, -1, np.int8)]
         )
-        self.fold = np.concatenate([self.fold, np.zeros(new_cap - self.n_cap, np.int64)])
+        self.fold = np.concatenate([self.fold, np.zeros(new_cap - self.n_cap, np.int64)])  # kschedlint: host-only (host numpy)
         self.n_cap = new_cap
         self.generation += 1
         self.plan.invalidate()  # regions must cover the new rows
@@ -439,7 +439,7 @@ def pad_record_count(k: int) -> int:
     return max(next_pow2(max(k, 1)), MIN_RECORD_BUCKET)
 
 
-def delta_apply(excess, src, dst, cap, cost, arc_rec, node_rec):
+def delta_apply(excess, src, dst, cap, cost, arc_rec, node_rec):  # kschedlint: program=delta_apply
     """Apply a round's packed delta records (int32 tensors on the
     mirror's device) to the persistent tensors; returns the new
     (excess, src, dst, cap, cost).
@@ -455,9 +455,9 @@ def delta_apply(excess, src, dst, cap, cost, arc_rec, node_rec):
     Records are pow2-padded by repeating a real record (or, for an empty
     delta, re-writing slot/node 0 with its current values): duplicate
     indices carry equal values, so the scatter order cannot matter."""
-    nid = node_rec[:, 0].long()
+    nid = node_rec[:, 0].long()  # kschedlint: index-only (index_copy_ positions)
     excess.index_copy_(0, nid, node_rec[:, 1].contiguous())
-    slot = arc_rec[:, 0].long()
+    slot = arc_rec[:, 0].long()  # kschedlint: index-only (index_copy_ positions)
     src = src.clone().index_copy_(0, slot, arc_rec[:, 1].contiguous())
     dst = dst.clone().index_copy_(0, slot, arc_rec[:, 2].contiguous())
     cap.index_copy_(0, slot, arc_rec[:, 3].contiguous())
@@ -465,7 +465,7 @@ def delta_apply(excess, src, dst, cap, cost, arc_rec, node_rec):
     return excess, src, dst, cap, cost
 
 
-def device_warm_flow(prev_flow, src_prev, dst_prev, src, dst, cap):
+def device_warm_flow(prev_flow, src_prev, dst_prev, src, dst, cap):  # kschedlint: program=warm_flow
     """The previous round's flow kept where the arc endpoints are
     unchanged (compared with the endpoint tensors the solver captured at
     its last successful solve) and clipped to the new capacities:
@@ -541,7 +541,7 @@ _ENTRY_PLAN_NAMES = ("p_arc", "p_sign", "p_src", "p_dst", "seg_start", "is_start
 def _upload(x: np.ndarray, device) -> torch.Tensor:
     """A tensor on `device` that owns its memory (never a view of the
     host array: the mirror is updated in place)."""
-    return torch.tensor(x, device=device)
+    return torch.tensor(x, device=device)  # kschedlint: disable=implicit-dtype -- keeps the host array's dtype (int32 or bool)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -850,7 +850,7 @@ class DeviceResidentState:
             self.last_plan_kind = "clean"
         return self._plan_tensors()
 
-    def scaled_cost(self, problem: DeviceResidentProblem):
+    def scaled_cost(self, problem: DeviceResidentProblem):  # kschedlint: program=scale_cost
         """d_cost * num_nodes (int32), computed on the card, cached per
         refresh."""
         if self._scaled is None or self._scaled[0] != problem.version:
@@ -858,7 +858,7 @@ class DeviceResidentState:
                             problem.d_cost * int(problem.num_nodes))
         return self._scaled[1]
 
-    def plan_fingerprints(self) -> np.ndarray:
+    def plan_fingerprints(self) -> np.ndarray:  # kschedlint: program=plan_fingerprint
         """uint32 checksum per mirrored plan tensor, in FP_PLAN_ARRAYS
         order (runtime/integrity.StateAuditor). The sharded mirror
         psums per-shard partials with global-index weights, so both
@@ -941,3 +941,14 @@ class DeviceResidentState:
             got = self.plan_host_view(name, dev)
             if got.dtype != host.dtype or not np.array_equal(got, host):
                 raise bounded_diff(f"device plan mirror {name}", got, host)
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(
+    __name__,
+    "delta_apply",
+    "warm_flow",
+    "scale_cost",
+    "plan_fingerprint",
+)

@@ -104,7 +104,7 @@ def shard_owner(node_ids, num_nodes: int, num_shards: int) -> np.ndarray:
     return np.minimum(np.asarray(node_ids) // per, num_shards - 1)
 
 
-def plan_apply(plan, row_rec, inv_rec, seg_rec, node_rec) -> None:
+def plan_apply(plan, row_rec, inv_rec, seg_rec, node_rec) -> None:  # kschedlint: program=plan_apply
     """Apply a round's packed plan-row, inv-order, segment-static and
     node-static records (int32 tensors on the plan's device) to the ten
     persistent plan tensors `plan` (SlotPlanState.host_args order), in
@@ -115,16 +115,16 @@ def plan_apply(plan, row_rec, inv_rec, seg_rec, node_rec) -> None:
     equal values and the scatter order cannot matter."""
     (p_arc, p_sign, p_src, p_dst, seg_start, is_start, inv_order,
      node_first, node_last, node_nonempty) = plan
-    pos = row_rec[:, 0].long()
+    pos = row_rec[:, 0].long()  # kschedlint: index-only (index_copy_ positions)
     p_arc.index_copy_(0, pos, row_rec[:, 1].contiguous())
     p_sign.index_copy_(0, pos, row_rec[:, 2].contiguous())
     p_src.index_copy_(0, pos, row_rec[:, 3].contiguous())
     p_dst.index_copy_(0, pos, row_rec[:, 4].contiguous())
-    inv_order.index_copy_(0, inv_rec[:, 0].long(), inv_rec[:, 1].contiguous())
-    spos = seg_rec[:, 0].long()
+    inv_order.index_copy_(0, inv_rec[:, 0].long(), inv_rec[:, 1].contiguous())  # kschedlint: index-only (index_copy_ positions)
+    spos = seg_rec[:, 0].long()  # kschedlint: index-only (index_copy_ positions)
     seg_start.index_copy_(0, spos, seg_rec[:, 1].contiguous())
     is_start.index_copy_(0, spos, seg_rec[:, 2] != 0)
-    nid = node_rec[:, 0].long()
+    nid = node_rec[:, 0].long()  # kschedlint: index-only (index_copy_ positions)
     node_first.index_copy_(0, nid, node_rec[:, 1].contiguous())
     node_last.index_copy_(0, nid, node_rec[:, 2].contiguous())
     node_nonempty.index_copy_(0, nid, node_rec[:, 3] != 0)
@@ -178,17 +178,17 @@ class SlotPlanState:
         #: live rows currently in each node's region, and the max ever
         #: seen per node id (region sizing input; survives rebuilds)
         self._occ: Optional[np.ndarray] = None  # int64[n_cap]
-        self._deg_hwm = np.zeros(0, np.int64)
+        self._deg_hwm = np.zeros(0, np.int64)  # kschedlint: host-only (host numpy)
         #: max degree ever seen per node TYPE: sizes the first span of a
         #: fresh region, where the id has no history
         self._type_hwm: Dict[int, int] = {}
         #: cumulative alloc/release events per node id: the slack
         #: rationing weight; persists across rebuilds
-        self._churn_ct = np.zeros(0, np.int64)
+        self._churn_ct = np.zeros(0, np.int64)  # kschedlint: host-only (host numpy)
         #: first unassigned tail-pool position per shard block (the
         #: relocation arena; one block covering the whole table in the
         #: default single-shard layout)
-        self._tail_next = np.zeros(1, np.int64)
+        self._tail_next = np.zeros(1, np.int64)  # kschedlint: host-only (host numpy)
         #: abandoned (start, cap) spans per shard block, reused
         #: best-fit before fresh tail
         self._dead_spans: List[List[Tuple[int, int]]] = [[]]
@@ -197,7 +197,7 @@ class SlotPlanState:
         #: node -> owner-shard map of the current layout
         self._num_shards = 1
         self.block_extent = 0
-        self._owner = np.zeros(0, np.int64)
+        self._owner = np.zeros(0, np.int64)  # kschedlint: host-only (host numpy)
         # ---- dirty journal (for the device scatter) ------------------
         self._dirty_pos: set = set()
         self._dirty_inv: set = set()
@@ -251,26 +251,26 @@ class SlotPlanState:
         (vectorized; run only on full_build / growth / overflow)."""
         st = self.state
         n_cap, m_cap = st.n_cap, st.m_cap
-        slots = np.fromiter(st._arc_slot.values(), np.int64, len(st._arc_slot))
+        slots = np.fromiter(st._arc_slot.values(), np.int64, len(st._arc_slot))  # kschedlint: host-only (host numpy)
         slots.sort()
-        src_l = st.src[slots].astype(np.int64)
-        dst_l = st.dst[slots].astype(np.int64)
+        src_l = st.src[slots].astype(np.int64)  # kschedlint: host-only (host numpy)
+        dst_l = st.dst[slots].astype(np.int64)  # kschedlint: host-only (host numpy)
         deg = np.bincount(src_l, minlength=n_cap) + np.bincount(dst_l, minlength=n_cap)
         if len(self._deg_hwm) < n_cap:
             self._deg_hwm = np.concatenate(
-                [self._deg_hwm, np.zeros(n_cap - len(self._deg_hwm), np.int64)])
+                [self._deg_hwm, np.zeros(n_cap - len(self._deg_hwm), np.int64)])  # kschedlint: host-only (host numpy)
         if len(self._churn_ct) < n_cap:
             self._churn_ct = np.concatenate(
-                [self._churn_ct, np.zeros(n_cap - len(self._churn_ct), np.int64)])
+                [self._churn_ct, np.zeros(n_cap - len(self._churn_ct), np.int64)])  # kschedlint: host-only (host numpy)
         # decay the mark halfway toward the live degree
         hwm = np.maximum(deg, (self._deg_hwm[:n_cap] + deg + 1) // 2)
         self._deg_hwm = hwm
         # reset the per-TYPE degree records to the live peak
-        nt = self.state.node_type[:n_cap].astype(np.int64)
+        nt = self.state.node_type[:n_cap].astype(np.int64)  # kschedlint: host-only (host numpy)
         self._type_hwm = {
             int(t): int(deg[nt == t].max()) for t in np.unique(nt[deg > 0])
         }
-        self._occ = deg.astype(np.int64)
+        self._occ = deg.astype(np.int64)  # kschedlint: host-only (host numpy)
         base = hwm.copy()
         churn = self._churn_ct[:n_cap]
         active = hwm > 0
@@ -279,8 +279,8 @@ class SlotPlanState:
         want = np.where(active, 2 + (hwm >> 2), 0)
         D = self._num_shards
         if D == 1:
-            owner = np.zeros(n_cap, np.int64)
-            need = 1 + int(base.sum())
+            owner = np.zeros(n_cap, np.int64)  # kschedlint: host-only (host numpy)
+            need = 1 + int(base.sum())  # kschedlint: disable=int32-reduce -- a host numpy sum
             self.entry_cap = max(2 * m_cap, next_pow2(need))
             if self.entry_cap - need < max(64, self.entry_cap >> 4):
                 self.entry_cap = max(
@@ -290,7 +290,7 @@ class SlotPlanState:
             surplus = self.entry_cap - need
             grantable = max(surplus - max(64, self.entry_cap >> 4), 0)
             slack = want
-            if int(want.sum()) > grantable:
+            if int(want.sum()) > grantable:  # kschedlint: disable=int32-reduce -- a host numpy sum
                 order = np.argsort(-(churn * (hwm + 1)), kind="stable")
                 fits = np.cumsum(want[order]) <= grantable
                 slack = np.zeros_like(want)
@@ -302,9 +302,9 @@ class SlotPlanState:
             # for the densest shard with full slack wants and floored at
             # (2*m_cap)/D (sharded_entry_extent)
             owner = shard_owner(np.arange(n_cap), n_cap, D)
-            full = (base + want).astype(np.int64)
+            full = (base + want).astype(np.int64)  # kschedlint: host-only (host numpy)
             shard_need = np.bincount(owner, weights=full,
-                                     minlength=D).astype(np.int64) + 1
+                                     minlength=D).astype(np.int64) + 1  # kschedlint: host-only (host numpy)
             max_need = int(shard_need.max())
             Es = next_pow2(max_need)
             if Es - max_need < max(64, Es >> 4):
@@ -313,14 +313,14 @@ class SlotPlanState:
                 Es = max(Es, (2 * m_cap) // D)
             self.block_extent = Es
             self.entry_cap = D * Es
-            base_sum = np.bincount(owner, weights=base.astype(np.float64),
-                                   minlength=D).astype(np.int64)
+            base_sum = np.bincount(owner, weights=base.astype(np.float64),  # kschedlint: host-only (host numpy)
+                                   minlength=D).astype(np.int64)  # kschedlint: host-only (host numpy)
             slack = np.zeros_like(want)
             for d in range(D):
                 sel = np.flatnonzero(owner == d)
                 grantable = max(int(Es - 1 - base_sum[d] - max(64, Es >> 4)), 0)
                 wd = want[sel]
-                if int(wd.sum()) <= grantable:
+                if int(wd.sum()) <= grantable:  # kschedlint: disable=int32-reduce -- a host numpy sum
                     slack[sel] = wd
                 else:
                     order = np.argsort(-(churn[sel] * (hwm[sel] + 1)),
@@ -331,10 +331,10 @@ class SlotPlanState:
         E = self.entry_cap
         Es = self.block_extent
         self._owner = owner
-        start = np.empty(n_cap, np.int64)
+        start = np.empty(n_cap, np.int64)  # kschedlint: host-only (host numpy)
         seg = np.zeros(E, np.int32)
         isstart = np.zeros(E, bool)
-        tail0 = np.zeros(D, np.int64)
+        tail0 = np.zeros(D, np.int64)  # kschedlint: host-only (host numpy)
         for d in range(D):
             sel = np.flatnonzero(owner == d) if D > 1 else np.arange(n_cap)
             # each block's local position 0 is its reserved dead slot:
@@ -349,7 +349,7 @@ class SlotPlanState:
             cd = caps[sel]
             sd = d * Es + 1 + np.concatenate(([0], np.cumsum(cd[:-1])))
             start[sel] = sd
-            used_d = int(cd.sum())
+            used_d = int(cd.sum())  # kschedlint: disable=int32-reduce -- a host numpy sum
             seg[d * Es + 1 : d * Es + 1 + used_d] = np.repeat(sd, cd).astype(np.int32)
             isstart[sd[cd > 0]] = True
             tail0[d] = d * Es + 1 + used_d
@@ -367,13 +367,13 @@ class SlotPlanState:
         cum_f = np.concatenate(([0], np.cumsum(counts_f)[:-1]))
         order_f = np.argsort(src_l, kind="stable")
         gsrc = src_l[order_f]
-        rank_f = np.arange(len(slots), dtype=np.int64) - cum_f[gsrc]
+        rank_f = np.arange(len(slots), dtype=np.int64) - cum_f[gsrc]  # kschedlint: host-only (host numpy)
         pos_f = start[gsrc] + rank_f
         counts_b = np.bincount(dst_l, minlength=n_cap)
         cum_b = np.concatenate(([0], np.cumsum(counts_b)[:-1]))
         order_b = np.argsort(dst_l, kind="stable")
         gdst = dst_l[order_b]
-        rank_b = np.arange(len(slots), dtype=np.int64) - cum_b[gdst]
+        rank_b = np.arange(len(slots), dtype=np.int64) - cum_b[gdst]  # kschedlint: host-only (host numpy)
         pos_b = start[gdst] + caps[gdst] - counts_b[gdst] + rank_b
         self.p_arc = np.zeros(E, np.int32)
         self.p_sign = np.zeros(E, np.int32)
@@ -739,8 +739,8 @@ class SlotPlanState:
         stay global (those tensors are replicated)."""
         D = self._num_shards
         Es = self.block_extent
-        pos = np.sort(np.fromiter(self._dirty_pos, np.int64, len(self._dirty_pos)))
-        segs = np.sort(np.fromiter(self._dirty_seg, np.int64, len(self._dirty_seg)))
+        pos = np.sort(np.fromiter(self._dirty_pos, np.int64, len(self._dirty_pos)))  # kschedlint: host-only (host numpy)
+        segs = np.sort(np.fromiter(self._dirty_seg, np.int64, len(self._dirty_seg)))  # kschedlint: host-only (host numpy)
         ents = np.sort(np.fromiter(self._dirty_inv, np.int32, len(self._dirty_inv)))
         nids = np.sort(np.fromiter(self._dirty_node, np.int32, len(self._dirty_node)))
 
@@ -912,7 +912,7 @@ class SlotPlanState:
             ), f"bwd row of slot {slot} stale"
             assert int(self.inv_order[slot]) == pf
             assert int(self.inv_order[st.m_cap + slot]) == pb
-        n_live_rows = int((self.p_sign != 0).sum())
+        n_live_rows = int((self.p_sign != 0).sum())  # kschedlint: disable=int32-reduce -- a host numpy sum
         assert n_live_rows == 2 * len(live), (
             f"{n_live_rows} live plan rows for {len(live)} live slots")
         assert self.p_sign[0] == 0, "reserved position 0 must stay dead"
@@ -925,20 +925,20 @@ class SlotPlanState:
             raise bounded_diff("plan_occupancy", self._occ[: st.n_cap], occ)
         assert (self._deg_hwm[: st.n_cap] >= occ).all(), (
             "degree high-water mark fell below live occupancy")
-        block_limits = (np.arange(self._num_shards, dtype=np.int64) + 1) * self.block_extent
+        block_limits = (np.arange(self._num_shards, dtype=np.int64) + 1) * self.block_extent  # kschedlint: host-only (host numpy)
         assert (self._tail_next <= block_limits).all(), (
             "a tail pool overran its shard block")
         # the fwd-front/bwd-back split within every region
-        fpos = np.flatnonzero(self.p_sign == 1).astype(np.int64)
-        bpos = np.flatnonzero(self.p_sign == -1).astype(np.int64)
-        maxf = np.full(st.n_cap, -1, np.int64)
+        fpos = np.flatnonzero(self.p_sign == 1).astype(np.int64)  # kschedlint: host-only (host numpy)
+        bpos = np.flatnonzero(self.p_sign == -1).astype(np.int64)  # kschedlint: host-only (host numpy)
+        maxf = np.full(st.n_cap, -1, np.int64)  # kschedlint: host-only (host numpy)
         np.maximum.at(maxf, self.p_src[fpos], fpos)
-        minb = np.full(st.n_cap, self.entry_cap, np.int64)
+        minb = np.full(st.n_cap, self.entry_cap, np.int64)  # kschedlint: host-only (host numpy)
         np.minimum.at(minb, self.p_src[bpos], bpos)
         assert (maxf < minb).all(), "a backward row precedes a forward row in its region"
         # held regions are pairwise disjoint and inside [1, tail)
-        starts = self.region_start.astype(np.int64)
-        caps64 = self.region_cap.astype(np.int64)
+        starts = self.region_start.astype(np.int64)  # kschedlint: host-only (host numpy)
+        caps64 = self.region_cap.astype(np.int64)  # kschedlint: host-only (host numpy)
         held = caps64 > 0
         order = np.argsort(starts[held], kind="stable")
         lo = starts[held][order]
@@ -958,3 +958,8 @@ class SlotPlanState:
         for node in np.flatnonzero(held):
             assert int(self.node_first[node]) == int(starts[node])
             assert int(self.node_last[node]) == int(starts[node] + caps64[node] - 1)
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(__name__, "plan_apply")

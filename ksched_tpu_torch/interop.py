@@ -27,7 +27,7 @@ def flow_problem(num_nodes: int, excess, node_type, src, dst, cap, cost,
     (copies, in the dtypes this package's export uses)."""
     return FlowProblem(
         num_nodes=int(num_nodes),
-        excess=np.array(excess, np.int64),
+        excess=np.array(excess, np.int64),  # kschedlint: host-only (host numpy)
         node_type=np.array(node_type, np.int8),
         src=np.array(src, np.int32),
         dst=np.array(dst, np.int32),
@@ -49,7 +49,7 @@ def layered_problem(supply, col_cap, cost_cm, unsched_cost: int, ec_cost: int,
         ec_cost=int(ec_cost),
         row_unsched_cost=(
             None if row_unsched_cost is None
-            else np.array(row_unsched_cost, np.int64)
+            else np.array(row_unsched_cost, np.int64)  # kschedlint: host-only (host numpy)
         ),
     )
 
@@ -136,8 +136,8 @@ def sharded_layout(plan_state) -> dict:
     count. Either package's SlotPlanState goes in; two layouts compare
     equal field by field."""
     out = {f: np.array(getattr(plan_state, f)) for f in SHARDED_LAYOUT_FIELDS}
-    out["owner"] = np.asarray(plan_state._owner, np.int64).copy()
-    out["tail_next"] = np.asarray(plan_state._tail_next, np.int64).copy()
+    out["owner"] = np.asarray(plan_state._owner, np.int64).copy()  # kschedlint: host-only (host numpy)
+    out["tail_next"] = np.asarray(plan_state._tail_next, np.int64).copy()  # kschedlint: host-only (host numpy)
     out["dead_spans"] = [[(int(s), int(c)) for s, c in spans]
                          for spans in plan_state._dead_spans]
     out["block_extent"] = int(plan_state.block_extent)

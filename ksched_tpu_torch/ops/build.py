@@ -112,6 +112,27 @@ def load(name: str, signatures: dict):
     return lib
 
 
+#: what a `ksched_<kernel>_kernel_attrs` query fills, in order
+ATTR_FIELDS = ("registers", "local_bytes", "shared_bytes", "max_threads",
+               "blocks_per_sm")
+
+
+def kernel_attrs(lib, query: str, variants) -> dict:
+    """{variant: {ATTR_FIELDS: value}} of a library's kernel
+    instantiations on the current device, from its `query(k, out)`
+    export (cudaFuncGetAttributes and the occupancy calculator)."""
+    out = {}
+    buf = (ctypes.c_int * len(ATTR_FIELDS))()
+    for k, variant in enumerate(variants):
+        rc = getattr(lib, query)(k, buf)
+        if rc != 0:
+            raise KernelError(f"{query}({k}) failed: " + (
+                "no such kernel" if rc < 0
+                else lib.ksched_cuda_error_string(rc).decode()))
+        out[variant] = dict(zip(ATTR_FIELDS, buf))
+    return out
+
+
 def check_tensor(name, t, shape, device) -> None:
     """Raise unless `t` is a contiguous int32 tensor on `device` of
     `shape` (a tuple; None matches any extent)."""

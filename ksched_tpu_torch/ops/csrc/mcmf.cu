@@ -617,6 +617,17 @@ extern "C" int ksched_mcmf_solve(const int* sign, const int* cap, const int* sc,
                                  static_cast<cudaStream_t>(stream)));
 }
 
+// Resources of kernel `k` (0: the solve without the ring, 1: with it,
+// 2: the barrier probe) into out[5] (func_attrs). Returns 0, -1 for no
+// such k, or a cudaError_t code.
+extern "C" int ksched_mcmf_kernel_attrs(int k, int* out) {
+  const void* kernels[] = {reinterpret_cast<const void*>(mcmf_kernel<false>),
+                           reinterpret_cast<const void*>(mcmf_kernel<true>),
+                           reinterpret_cast<const void*>(barrier_kernel)};
+  if (k < 0 || k >= 3) return -1;
+  return func_attrs(kernels[k], out);
+}
+
 // `n` grid barriers of `blocks` blocks; hdr: kHeadWords words of scratch
 extern "C" int ksched_mcmf_barrier_probe(int* hdr, int blocks, int n, void* stream) {
   void* params[] = {&hdr, &n};

@@ -342,4 +342,18 @@ int ksched_transport_solve(const void* w, const void* supply, const void* cap,
   return cudaGetLastError();
 }
 
+// Resources of instantiation `k` of the kernel (0: state in shared
+// memory with the probe, 1: shared, 2: global with the probe, 3: global)
+// into out[5] (func_attrs). Returns 0, -1 for no such k, or a
+// cudaError_t code.
+int ksched_transport_kernel_attrs(int k, int* out) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(transport_kernel<true, true>),
+      reinterpret_cast<const void*>(transport_kernel<true, false>),
+      reinterpret_cast<const void*>(transport_kernel<false, true>),
+      reinterpret_cast<const void*>(transport_kernel<false, false>)};
+  if (k < 0 || k >= 4) return -1;
+  return func_attrs(kernels[k], out);
+}
+
 }  // extern "C"

@@ -569,6 +569,27 @@ long long smem_budget(Kernel kernel) {
   return static_cast<long long>(optin) - static_cast<long long>(fa.sharedSizeBytes);
 }
 
+// What the loaded library holds for `kernel`, the counterpart of the
+// resource report the JAX package reads from a compiled program: out[0]
+// registers a thread, out[1] local (spill) bytes a thread, out[2] static
+// shared bytes, out[3] max threads a block, out[4] blocks an SM holds at
+// once at kThreads threads and no dynamic shared memory. Returns a
+// cudaError_t code (0 = filled).
+inline int func_attrs(const void* kernel, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = fa.maxThreadsPerBlock;
+  out[4] = blocks;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" const char* ksched_cuda_error_string(int code) {

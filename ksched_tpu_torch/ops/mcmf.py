@@ -37,7 +37,8 @@ import ctypes
 
 import torch
 
-from .build import KernelError, check_tensor, load, raise_on
+from ..analysis.marks import loop_mark
+from .build import KernelError, check_tensor, kernel_attrs as _kernel_attrs, load, raise_on
 
 _I32 = torch.int32
 _BIG = 1 << 30
@@ -68,7 +69,10 @@ _SIGNATURES = {
     "ksched_mcmf_scratch_words": ([_CI, _CI], ctypes.c_longlong),
     "ksched_mcmf_blocks_per_sm": ([], _CI),
     "ksched_mcmf_barrier_probe": ([_VP, _CI, _CI, _VP], _CI),
+    "ksched_mcmf_kernel_attrs": ([_CI, _VP], _CI),
 }
+#: the library's kernels, in `ksched_mcmf_kernel_attrs` order
+VARIANTS = ("solve", "solve+ring", "barrier_probe")
 
 
 def mega_entry_rows(num_entries: int, lanes: int = MEGA_LANES) -> int:
@@ -130,21 +134,21 @@ def _entry_tables(cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs,
     gathers mcmf_loop_pallas runs before its pallas_call. Entry 0
     always opens a segment."""
     live = e_sign != 0
-    arc = e_arc.long().clamp(0, cap.shape[0] - 1)
-    src = e_src.long().clamp(0, supply.shape[0] - 1)
+    arc = e_arc.long().clamp(0, cap.shape[0] - 1)  # kschedlint: index-only (gather index)
+    src = e_src.long().clamp(0, supply.shape[0] - 1)  # kschedlint: index-only (gather index)
     sign = e_sign.to(_I32)
     cap_e = torch.where(live, cap[arc], 0)
     sc = torch.where(live, sign * cost[arc], 0)
     sup = torch.where(live, supply[src], 0)
     f0 = torch.where(live, flow0[arc], 0)
-    partner = e_prow.long() * L + e_pcol.long()
+    partner = e_prow.long() * L + e_pcol.long()  # kschedlint: index-only (gather index)
     head = e_hs != 0
     head[0] = True
     seg = torch.cumsum(head, 0, dtype=_I32) - 1
     return sign, cap_e, sc, sup, f0, seg, partner, head
 
 
-def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
+def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,  # kschedlint: program=mega_solve
                     e_arc, e_sign, e_src, e_hs, e_he, e_prow, e_pcol, fwd_pos,
                     R: int, L: int, *, alpha: int = 8,
                     max_supersteps: int = 50_000, tighten_sweeps: int = 32,
@@ -159,7 +163,7 @@ def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
     sign, cap_e, sc, sup, f, seg, partner, head = _entry_tables(
         cap, cost, supply, flow0, e_arc, e_sign, e_src, e_hs, e_prow, e_pcol, L)
     E = R * L
-    seg = seg.long()
+    seg = seg.long()  # kschedlint: index-only (gather index)
     pseg = seg[partner]
     first = torch.nonzero(head).flatten()
     last = torch.cat([first[1:] - 1, first.new_full((1,), E - 1)])
@@ -186,13 +190,16 @@ def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
 
     # price tightening: synchronous Bellman-Ford over residual reduced costs
     r = resid(f)
-    d = torch.where(excess(f) < 0, 0, _BIG_D).to(_I32)
+    exc0 = excess(f)
+    d = torch.full_like(exc0, _BIG_D).masked_fill_(exc0 < 0, 0)
     changed, it = True, 0
     while changed and it < tighten_sweeps:
+        loop_mark("sweep")
         best = seg_reduce(torch.where(r > 0, sc + d[pseg], _BIG_D), "amin")
         d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
         changed = bool((d2 != d).any())
         d, it = d2, it + 1
+    loop_mark()
     mcmf_loop_plain.sweeps = it
     p = -torch.clamp(d, max=_BIG_D)
     f = saturate(f, p)
@@ -203,6 +210,7 @@ def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
         tel = soltel.device_ring(telemetry_cap, dev)
     eps, steps, done = int(eps_init), 0, False
     while not done and steps < max_supersteps:
+        loop_mark("superstep")
         exc = excess(f)
         if bool((exc > 0).any()):
             r = resid(f)
@@ -235,11 +243,12 @@ def mcmf_loop_plain(cap, cost, supply, flow0, eps_init,
         else:
             f = saturate(f, p)
             eps = max(1, eps // alpha)
+    loop_mark()
     converged = done and int(excess(f).abs().max()) == 0
     p_overflow = int(p.abs().max()) >= _P_GUARD
-    out = (f[fwd_pos.long()], torch.tensor(steps, dtype=_I32, device=dev),
-           torch.tensor(converged, device=dev),
-           torch.tensor(p_overflow, device=dev))
+    out = (f[fwd_pos.long()], torch.tensor(steps, dtype=_I32, device=dev),  # kschedlint: index-only (gather index)
+           torch.tensor(converged, dtype=torch.bool, device=dev),
+           torch.tensor(p_overflow, dtype=torch.bool, device=dev))
     return out + (tel,) if telemetry_cap else out
 
 
@@ -311,7 +320,7 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
         tel = torch.zeros((telemetry_cap, 8), dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ksched_mcmf_solve(
+        rc = lib.ksched_mcmf_solve(  # kschedlint: program=mega_solve
             *(t.data_ptr() for t in tables), f.data_ptr(), result.data_ptr(),
             scratch.data_ptr(), tel.data_ptr() if telemetry_cap else None, E, eps,
             alpha, max_supersteps, tighten_sweeps, blocks, chunk, telemetry_cap,
@@ -322,7 +331,7 @@ def mcmf_loop(cap, cost, supply, flow0, eps_init,
     mcmf_loop.last_inputs = (cap.data_ptr(), cost.data_ptr(), supply.data_ptr())
     mcmf_loop.last_blocks = blocks
     mcmf_loop.last_barriers = result[3]
-    out = (f[fwd_pos.long()], result[0], result[1] != 0, result[2] != 0)
+    out = (f[fwd_pos.long()], result[0], result[1] != 0, result[2] != 0)  # kschedlint: index-only (gather index)
     return out + (tel,) if telemetry_cap else out
 
 
@@ -357,6 +366,13 @@ def grid_capacity(dev) -> tuple:
     return _capacity[index]
 
 
+def kernel_attrs() -> dict:
+    """Registers, local (spill) bytes, static shared bytes, max threads
+    and blocks per SM of each VARIANTS kernel on the current device,
+    read from the loaded library (ops/build.py `kernel_attrs`)."""
+    return _kernel_attrs(load("mcmf", _SIGNATURES), "ksched_mcmf_kernel_attrs", VARIANTS)
+
+
 def barrier_probe_ms(dev, blocks: int, n: int) -> float:
     """Milliseconds (CUDA events) of one cooperative launch of `blocks`
     blocks that meets `n` of the kernel's grid barriers and does nothing
@@ -368,8 +384,13 @@ def barrier_probe_ms(dev, blocks: int, n: int) -> float:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         start.record()
-        rc = lib.ksched_mcmf_barrier_probe(hdr.data_ptr(), blocks, n, stream)
+        rc = lib.ksched_mcmf_barrier_probe(hdr.data_ptr(), blocks, n, stream)  # kschedlint: disable=unregistered-program -- a timing probe of the grid barrier alone, no solve
         end.record()
     raise_on(lib, rc, "mcmf barrier probe")
     end.synchronize()
     return start.elapsed_time(end)
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(__name__, "mega_solve")

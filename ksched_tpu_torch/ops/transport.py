@@ -62,17 +62,19 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .build import check_tensor as _check, load, raise_on
+from .build import check_tensor as _check, kernel_attrs as _kernel_attrs, load, raise_on
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "transport": {
         "ksched_transport_solve": ([_VP] * 11 + [_CI] * 7 + [_VP] * 2, _CI),
         "ksched_transport_smem_budget": ([], ctypes.c_longlong),
+        "ksched_transport_kernel_attrs": ([_CI, _VP], _CI),
     },
     "transport_tiered": {
         "ksched_transport_tiered_solve": ([_VP] * 12 + [_CI] * 6 + [_VP] * 2, _CI),
         "ksched_transport_tiered_smem_budget": ([], ctypes.c_longlong),
+        "ksched_transport_tiered_kernel_attrs": ([_CI, _VP], _CI),
     },
 }
 
@@ -86,6 +88,9 @@ GROUP = 4
 #: relabels, the phase starts (saturate, refine waves), and the whole
 #: launch
 PROBE_SLOTS = ("excess", "row", "column", "phase_start", "total")
+#: each kernel's instantiations, in its `ksched_<kind>_kernel_attrs` order:
+#: the state in shared memory or global, with the cycle probe or not
+VARIANTS = ("shared+probe", "shared", "global+probe", "global")
 
 
 def padded(n: int) -> int:
@@ -232,6 +237,14 @@ def _load(name: str):
     return load(name, _SIGNATURES[name])
 
 
+def kernel_attrs(kind: str) -> dict:
+    """Registers, local (spill) bytes, static shared bytes, max threads
+    and blocks per SM of each VARIANTS instantiation of kernel `kind`
+    ("transport" or "transport_tiered") on the current device, read from
+    its loaded library (ops/build.py `kernel_attrs`)."""
+    return _kernel_attrs(_load(kind), f"ksched_{kind}_kernel_attrs", VARIANTS)
+
+
 def _no_probe_on_cpu(cycles):
     if cycles is not None:
         raise ValueError("cycles probes the kernel: the plain version has none")
@@ -243,7 +256,7 @@ def _check_cycles(cycles, device):
     cycles of each phase."""
     if cycles is None:
         return None
-    if (not isinstance(cycles, torch.Tensor) or cycles.dtype != torch.int64
+    if (not isinstance(cycles, torch.Tensor) or cycles.dtype != torch.int64  # kschedlint: disable=dtype64 -- the cycle probe holds clock64() counts
             or tuple(cycles.shape) != (len(PROBE_SLOTS),)
             or cycles.device != device or not cycles.is_contiguous()):
         raise ValueError(f"cycles must be a contiguous int64 tensor of shape "
@@ -309,7 +322,7 @@ def transport_loop(wS, supply, col_cap, eps_init, pm0=None, *,
             "transport", C, Mp, _smem_budget(lib, "transport", dev))
         scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ksched_transport_solve(
+        rc = lib.ksched_transport_solve(  # kschedlint: program=layered_solve
             wS.data_ptr(), supply.data_ptr(), col_cap.data_ptr(),
             pm0.data_ptr() if pm0 is not None else None,
             eps_t.data_ptr() if eps_t is not None else None,
@@ -368,7 +381,7 @@ def transport_loop_tiered(wLo, wHi, R, supply, col_cap, eps_init, *,
             "transport_tiered", C, Mp, _smem_budget(lib, "transport_tiered", dev))
         scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ksched_transport_tiered_solve(
+        rc = lib.ksched_transport_tiered_solve(  # kschedlint: program=layered_solve
             wLo.data_ptr(), wHi.data_ptr(), R.data_ptr(), supply.data_ptr(),
             col_cap.data_ptr(), eps_t.data_ptr(), y.data_ptr(), pm.data_ptr(),
             result.data_ptr(), scratch.data_ptr(), plan.ctypes.data,

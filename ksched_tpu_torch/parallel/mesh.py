@@ -115,7 +115,7 @@ class ShardMesh:
         buf = x.reshape(-1).clone()
         self.counts[(kind, site)] += 1
         try:
-            dist.all_reduce(buf, op=op, group=self.group)
+            dist.all_reduce(buf, op=op, group=self.group)  # kschedlint: disable=unregistered-program -- the one collective every sharded program shares; each program is registered at its own def
         except Exception as e:  # the backend's own error types vary
             raise CollectiveError(
                 f"{kind} at {site!r} failed on rank {self.rank} of "
@@ -157,7 +157,7 @@ def global_excl_prefix(mesh: ShardMesh, local_vals: torch.Tensor,
     local_excl = local_cum - local_vals
     local_tot = local_cum[..., -1:]
     all_tot = mesh.all_gather(local_tot, site)  # [D, ..., 1]
-    mask = (torch.arange(mesh.size, device=local_vals.device) < mesh.rank)
+    mask = (torch.arange(mesh.size, dtype=_I32, device=local_vals.device) < mesh.rank)
     mask = mask.reshape((mesh.size,) + (1,) * (all_tot.ndim - 1))
     offset = torch.sum(torch.where(mask, all_tot, 0), 0, dtype=_I32)
     return local_excl + offset

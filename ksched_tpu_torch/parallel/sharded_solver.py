@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.marks import loop_mark
 from ..graph.device_export import FlowProblem
 from ..solver.base import FlowResult, FlowSolver
 from ..solver.csr_solver import _seg_max, _seg_min, _seg_sum
@@ -151,10 +152,10 @@ def build_sharded_plan(src: np.ndarray, dst: np.ndarray, num_nodes: int, num_sha
         s_sign[d, :k] = esign[ix][order]
         s_valid[d, :k] = True
         counts = np.bincount(lsrc, minlength=num_nodes)
-        row_ptr = np.zeros(num_nodes + 1, np.int64)
+        row_ptr = np.zeros(num_nodes + 1, np.int64)  # kschedlint: host-only (host numpy)
         row_ptr[1:] = np.cumsum(counts)
         s_segstart[d, :k] = row_ptr[lsrc]
-        starts = np.unique(row_ptr[lsrc]).astype(np.int64)
+        starts = np.unique(row_ptr[lsrc]).astype(np.int64)  # kschedlint: host-only (host numpy)
         s_isstart[d, starts] = True
         node_first[d] = np.minimum(row_ptr[:-1], max(e_pad - 1, 0))
         node_last[d] = np.maximum(row_ptr[1:] - 1, 0)
@@ -162,7 +163,7 @@ def build_sharded_plan(src: np.ndarray, dst: np.ndarray, num_nodes: int, num_sha
         owned[d] = node_owner_arr == d
         # arc -> local entry position (the padding position reads delta
         # 0 because padded entries are never admissible)
-        local_pos = np.arange(k, dtype=np.int64)
+        local_pos = np.arange(k, dtype=np.int64)  # kschedlint: host-only (host numpy)
         glob = ix[order]
         is_fwd = glob < m
         pos_fwd[d, earc[ix][order][is_fwd]] = local_pos[is_fwd]
@@ -193,7 +194,7 @@ def _sharded_mcmf(mesh: ShardMesh, cap, cost, supply, flow0, eps_init,
 
     dev = cap.device
     s_arc, s_src, s_dst, seg_local, node_first, node_last, pf, pb = (
-        t.long() for t in (s_arc, s_src, s_dst, seg_local, node_first,
+        t.long() for t in (s_arc, s_src, s_dst, seg_local, node_first,  # kschedlint: index-only (gather index)
                            node_last, pf, pb))
     s_sign = s_sign.to(_I32)
     isstart = isstart.to(torch.bool)
@@ -218,15 +219,18 @@ def _sharded_mcmf(mesh: ShardMesh, cap, cost, supply, flow0, eps_init,
     def tighten(flow, d0=None):
         r = residual(flow)
         if d0 is None:
-            d0 = torch.where(excess_of(flow, "tighten") < 0, 0, _BIG_D).to(_I32)
+            exc0 = excess_of(flow, "tighten")
+            d0 = torch.full_like(exc0, _BIG_D).masked_fill_(exc0 < 0, 0)
         d, changed, it = d0, True, 0
         while changed and it < tighten_sweeps:
+            loop_mark("sweep")
             cand = torch.where(r > 0, s_cost + d[s_dst], _BIG_D)
             best = _seg_min(cand, isstart, node_last, nonempty, _BIG_D)
             best = mesh.pmin(torch.where(owned, best, _BIG_D), "sweep")
             d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
             changed = bool((d2 != d).any())  # d is replicated: every rank agrees
             d, it = d2, it + 1
+        loop_mark()
         return -torch.clamp(d, max=_BIG_D)
 
     def arc_delta(delta):
@@ -281,6 +285,7 @@ def _sharded_mcmf(mesh: ShardMesh, cap, cost, supply, flow0, eps_init,
     flow = sat_full(flow0, p)
     eps, steps, done = int(eps_init), 0, False
     while not done and steps < step_cap:
+        loop_mark("superstep")
         excess = excess_of(flow, "loop")
         if bool((excess > 0).any()):  # replicated: every rank agrees
             flow, p, aux = superstep(flow, p, eps, excess)
@@ -295,12 +300,13 @@ def _sharded_mcmf(mesh: ShardMesh, cap, cost, supply, flow0, eps_init,
         else:
             flow = sat_full(flow, p)
             eps = max(1, eps // alpha)
+    loop_mark()
     converged = done and int(excess_of(flow, "final").abs().max()) == 0
     p_overflow = int(p.abs().max()) >= (1 << 30)
     return flow, p, steps, converged, p_overflow, tel
 
 
-def make_sharded_solver(mesh: ShardMesh, alpha: int, tighten_sweeps: int = 32,
+def make_sharded_solver(mesh: ShardMesh, alpha: int, tighten_sweeps: int = 32,  # kschedlint: program=sharded_solve
                         telemetry_cap: int = 0):
     """The legacy sharded solve over `mesh`: a function of (cap, cost,
     supply, flow0, eps_init, step_cap) replicated and this rank's row of
@@ -384,7 +390,7 @@ def place_sharded_plan(mesh: ShardMesh, host_tensors,
                              host_tensors):
         if kind == "sharded":
             x = x[lo:lo + block_extent]
-        out.append(torch.tensor(np.ascontiguousarray(x), device=mesh.device))
+        out.append(torch.tensor(np.ascontiguousarray(x), device=mesh.device))  # kschedlint: disable=implicit-dtype -- keeps the host plan array's dtype (int32 or bool)
     return tuple(out)
 
 
@@ -397,7 +403,7 @@ _SLOT_SOLVE_ARGS = (
 )
 
 
-def make_sharded_slot_solver(
+def make_sharded_slot_solver(  # kschedlint: program=sharded_slot_solve
     mesh: ShardMesh,
     alpha: int,
     tighten_sweeps: int = 32,
@@ -432,18 +438,18 @@ def make_sharded_slot_solver(
         # ownership re-derived from an arange: the contiguous-range
         # arithmetic of graph/slot_plan.shard_owner
         per = -(-n // D)
-        owned = torch.clamp(torch.arange(n, device=dev) // per, max=D - 1) == me
+        owned = torch.clamp(torch.arange(n, dtype=_I32, device=dev) // per, max=D - 1) == me
         # boundary statics are GLOBAL positions; translate into the local
         # block (owned nodes' regions live in this block by construction;
         # other rows are masked everywhere they feed)
-        node_first = torch.clamp(node_first_g.long() - base, 0, Es - 1)
-        node_last = torch.clamp(node_last_g.long() - base, 0, Es - 1)
+        node_first = torch.clamp(node_first_g.long() - base, 0, Es - 1)  # kschedlint: index-only (gather index)
+        node_last = torch.clamp(node_last_g.long() - base, 0, Es - 1)  # kschedlint: index-only (gather index)
         nonempty = node_nonempty.to(torch.bool) & owned
-        seg_local = torch.clamp(seg_g.long() - base, 0, Es - 1)
+        seg_local = torch.clamp(seg_g.long() - base, 0, Es - 1)  # kschedlint: index-only (gather index)
         # per-arc entry positions: the fwd/bwd halves of inv_order. A
         # position outside this block (or a freed slot's parked 0) maps
         # to the block's dead local slot 0, whose sign is 0
-        inv = inv.long()
+        inv = inv.long()  # kschedlint: index-only (gather index)
         pf_g, pb_g = inv[:m], inv[m:]
         pf = torch.where(pf_g // Es == me, pf_g - base, 0)
         pb = torch.where(pb_g // Es == me, pb_g - base, 0)
@@ -522,7 +528,7 @@ def sharded_fits_hbm(
 # ---------------------------------------------------------------------------
 
 
-def sharded_plan_apply_fn(mesh: ShardMesh):
+def sharded_plan_apply_fn(mesh: ShardMesh):  # kschedlint: program=sharded_plan_apply
     """The per-shard routed plan scatter: a round's dirty plan rows and
     relocated segment statics arrive routed to their owner shards
     (`SlotPlanState.drain_records_sharded`: block-local positions, one
@@ -533,14 +539,14 @@ def sharded_plan_apply_fn(mesh: ShardMesh):
     def apply(p_arc, p_sign, p_src, p_dst, seg, isstart, row_rec, seg_rec):
         """row_rec int32 [D, K, 5] and seg_rec int32 [D, K, 3] on the
         host; this rank uploads and applies its own [K, cols] slice."""
-        rows = torch.tensor(row_rec[mesh.rank], device=p_arc.device)
-        segs = torch.tensor(seg_rec[mesh.rank], device=p_arc.device)
-        pos = rows[:, 0].long()
+        rows = torch.tensor(row_rec[mesh.rank], dtype=_I32, device=p_arc.device)
+        segs = torch.tensor(seg_rec[mesh.rank], dtype=_I32, device=p_arc.device)
+        pos = rows[:, 0].long()  # kschedlint: index-only (gather index)
         p_arc.index_copy_(0, pos, rows[:, 1].contiguous())
         p_sign.index_copy_(0, pos, rows[:, 2].contiguous())
         p_src.index_copy_(0, pos, rows[:, 3].contiguous())
         p_dst.index_copy_(0, pos, rows[:, 4].contiguous())
-        spos = segs[:, 0].long()
+        spos = segs[:, 0].long()  # kschedlint: index-only (gather index)
         seg.index_copy_(0, spos, segs[:, 1].contiguous())
         isstart.index_copy_(0, spos, segs[:, 2] != 0)
         return rows.nbytes + segs.nbytes
@@ -548,16 +554,16 @@ def sharded_plan_apply_fn(mesh: ShardMesh):
     return apply
 
 
-def replicated_plan_apply_fn():
+def replicated_plan_apply_fn():  # kschedlint: program=replicated_plan_apply
     """The replicated remainder of a sharded plan sync: inv-order and
     node-boundary records scattered into the whole (replicated) plan
     tensors on every rank, in place. Returns the bytes uploaded."""
 
     def apply(inv, first, last, nonempty, inv_rec, node_rec):
-        inv_t = torch.tensor(inv_rec, device=inv.device)
-        node_t = torch.tensor(node_rec, device=inv.device)
-        inv.index_copy_(0, inv_t[:, 0].long(), inv_t[:, 1].contiguous())
-        nid = node_t[:, 0].long()
+        inv_t = torch.tensor(inv_rec, dtype=_I32, device=inv.device)
+        node_t = torch.tensor(node_rec, dtype=_I32, device=inv.device)
+        inv.index_copy_(0, inv_t[:, 0].long(), inv_t[:, 1].contiguous())  # kschedlint: index-only (index_copy_ positions)
+        nid = node_t[:, 0].long()  # kschedlint: index-only (gather index)
         first.index_copy_(0, nid, node_t[:, 1].contiguous())
         last.index_copy_(0, nid, node_t[:, 2].contiguous())
         nonempty.index_copy_(0, nid, node_t[:, 3] != 0)
@@ -574,13 +580,13 @@ def _block_fp(v: torch.Tensor, offset: int) -> torch.Tensor:
     below 2**63."""
     from ..runtime.integrity import _FP_ADD, _FP_MUL
 
-    x = v.reshape(-1).to(_I32).to(torch.int64)
-    i = torch.arange(x.shape[0], dtype=torch.int64, device=x.device) + offset
+    x = v.reshape(-1).to(_I32).to(torch.int64)  # kschedlint: disable=dtype64 -- int64 holds the uint32 checksum's masked products
+    i = torch.arange(x.shape[0], dtype=torch.int64, device=x.device) + offset  # kschedlint: disable=dtype64 -- int64 global-index weights of the checksum
     w = ((i * _FP_MUL + _FP_ADD) & _MASK32) | 1
-    return ((x * w) & _MASK32).sum()
+    return ((x * w) & _MASK32).sum()  # kschedlint: disable=int32-reduce -- the int64 partial sum the psum combines
 
 
-def sharded_plan_fingerprint_fn(mesh: ShardMesh):
+def sharded_plan_fingerprint_fn(mesh: ShardMesh):  # kschedlint: program=sharded_plan_fingerprint
     """Per-shard fingerprints combined into ONE comparable checksum per
     plan tensor (the integrity audit, sharded): each rank computes the
     weighted partial sum of its [Es] block with global-index weights,
@@ -875,9 +881,9 @@ class ShardedJaxSolver(FlowSolver):
             self._key_solved = plan_key
             self._prev_p = p
         objective = int(
-            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()
+            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
         ) + lower_bound_cost(problem)
-        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,
+        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,  # kschedlint: host-only (FlowResult's int64 flow)
                           iterations=spent)
 
     def solve(self, problem: FlowProblem) -> FlowResult:
@@ -887,7 +893,7 @@ class ShardedJaxSolver(FlowSolver):
             if (problem.excess > 0).any():
                 raise RuntimeError("infeasible flow problem: supply but no arcs")
             self.last_telemetry = None
-            return FlowResult(flow=np.zeros(m, dtype=np.int64), objective=0, iterations=0)
+            return FlowResult(flow=np.zeros(m, dtype=np.int64), objective=0, iterations=0)  # kschedlint: host-only (FlowResult's int64 flow)
         plan_state = getattr(problem, "plan", None) if self.slot_stable else None
         if plan_state is not None:
             return self._solve_slot_stable(problem, plan_state)
@@ -986,8 +992,21 @@ class ShardedJaxSolver(FlowSolver):
         if self.warm_start:
             self._prev = flow_np.astype(np.int32)
         objective = int(
-            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()
-            + (problem.flow_offset.astype(np.int64) * problem.cost.astype(np.int64)).sum()
+            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
+            + (problem.flow_offset.astype(np.int64) * problem.cost.astype(np.int64)).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
         )
-        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,
+        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,  # kschedlint: host-only (FlowResult's int64 flow)
                           iterations=int(steps))
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(
+    __name__,
+    "sharded_solve",
+    "sharded_slot_solve",
+    "sharded_slot_solve_warmp",
+    "sharded_plan_apply",
+    "replicated_plan_apply",
+    "sharded_plan_fingerprint",
+)

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.marks import loop_mark
+
 from ..solver.layered import (
     BIG,
     BIG_D,
@@ -95,6 +97,7 @@ def _phase_loop(mesh, supply, col_cap, C, Mloc, pr, pm, psink, eps0, alpha,
     z = torch.zeros(Mloc, dtype=_I32, device=dev)
     eps, steps, done = int(eps0), 0, False
     while not done and steps < max_supersteps:
+        loop_mark("superstep")
         e_row, e_col, e_sink = _excesses(mesh, supply, y, z)
         # every term is computed on every rank (the psum always runs),
         # so the collective sequence never depends on a short circuit
@@ -108,6 +111,7 @@ def _phase_loop(mesh, supply, col_cap, C, Mloc, pr, pm, psink, eps0, alpha,
         else:
             eps = max(1, eps // alpha)
             y, z, pr, pm, psink = next_phase(y, z, pr, pm, psink, eps)
+    loop_mark()
     e_row, e_col, e_sink = _excesses(mesh, supply, y, z)
     max_abs = torch.maximum(
         torch.maximum(e_row.abs().amax(), e_sink.abs()),
@@ -208,6 +212,7 @@ def sharded_transport_solve_tiered(mesh: ShardMesh, wLo, wHi, R, supply,
         yA = torch.minimum(y, Rl)
         yB = y - yA
         for _ in range(refine_waves):
+            loop_mark("wave")
             bound_m = torch.minimum(
                 torch.where(Rl - yA > 0, lo + pr[:, None] + eps, BIG).amin(dim=0),
                 torch.where((U - Rl) - yB > 0, hi + pr[:, None] + eps,
@@ -224,6 +229,7 @@ def sharded_transport_solve_tiered(mesh: ShardMesh, wLo, wHi, R, supply,
                 torch.where(cap - z > 0, pm2 + eps, BIG).amin(), "refine")
             psink2 = torch.clamp(torch.minimum(psink, bound_s), min=-BIG_D)
             pr, pm, psink = pr2, pm2, psink2
+        loop_mark()
         return pr, pm, psink
 
     def superstep(y, z, pr, pm, psink, eps, e_row, e_col, e_sink):

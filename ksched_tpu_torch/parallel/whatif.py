@@ -106,7 +106,7 @@ class WhatIfSolver:
         self.max_supersteps = max_supersteps
         self.device = resolve_device(device)
         self.Mp, self.n_scale = pad_geometry(num_machines, num_classes)
-        self.last_supersteps = np.zeros(0, np.int64)
+        self.last_supersteps = np.zeros(0, np.int64)  # kschedlint: host-only (host numpy)
 
     def solve_batch(
         self,
@@ -114,12 +114,12 @@ class WhatIfSolver:
         supply: np.ndarray,  # int[K, C]
         col_cap: np.ndarray,  # int[K, M]
     ) -> ScenarioBatchResult:
-        supply = np.asarray(supply, np.int64)
-        col_cap = np.asarray(col_cap, np.int64)
+        supply = np.asarray(supply, np.int64)  # kschedlint: host-only (host numpy)
+        col_cap = np.asarray(col_cap, np.int64)  # kschedlint: host-only (host numpy)
         K = supply.shape[0]
         if cost_cm.ndim == 2:
             cost_cm = np.broadcast_to(cost_cm, (K,) + cost_cm.shape)
-        cost_cm = np.asarray(cost_cm, np.int64)
+        cost_cm = np.asarray(cost_cm, np.int64)  # kschedlint: host-only (host numpy)
         assert cost_cm.shape == (K, self.C, self.M), cost_cm.shape
         assert supply.shape == (K, self.C) and col_cap.shape == (K, self.M)
 
@@ -129,7 +129,7 @@ class WhatIfSolver:
             raise OverflowError(
                 f"scaled what-if costs overflow int32: max|w|={max_w} * {self.n_scale}"
             )
-        totals = supply.sum(axis=1)
+        totals = supply.sum(axis=1)  # kschedlint: disable=int32-reduce -- a host numpy sum
         wP = np.zeros((K, self.C, self.Mp), np.int32)
         wP[:, :, : self.M] = w * self.n_scale
         capP = np.zeros((K, self.Mp), np.int32)
@@ -147,10 +147,10 @@ class WhatIfSolver:
             torch.as_tensor(supply.astype(np.int32), device=dev),
             torch.as_tensor(capP, device=dev),
             self.n_scale, self.alpha, self.max_supersteps, degenerate)
-        self.last_supersteps = steps.cpu().numpy().astype(np.int64)
-        y_np = y.cpu().numpy().astype(np.int64)[:, :, : self.M]
-        placed = y_np.sum(axis=(1, 2))
-        objective = self.unsched_cost * (totals - placed) + (
+        self.last_supersteps = steps.cpu().numpy().astype(np.int64)  # kschedlint: host-only (host numpy)
+        y_np = y.cpu().numpy().astype(np.int64)[:, :, : self.M]  # kschedlint: host-only (host numpy)
+        placed = y_np.sum(axis=(1, 2))  # kschedlint: disable=int32-reduce -- a host numpy sum
+        objective = self.unsched_cost * (totals - placed) + (  # kschedlint: disable=int32-reduce -- a host numpy sum
             (cost_cm + self.ec_cost) * y_np
         ).sum(axis=(1, 2))
         return ScenarioBatchResult(
@@ -170,12 +170,12 @@ def _cluster_snapshot(cluster):
     cluster._refresh_capacities()
     pu_free = cluster.S - cluster.pu_running
     pu_free[~np.repeat(cluster.machine_enabled, cluster.P)] = 0
-    machine_free = pu_free.reshape(M, cluster.P).sum(axis=1)
+    machine_free = pu_free.reshape(M, cluster.P).sum(axis=1)  # kschedlint: disable=int32-reduce -- a host numpy sum
     unplaced = cluster.task_live & (cluster.task_pu < 0)
     base_supply = np.bincount(cluster.task_class[unplaced], minlength=C)
     cost_cm = cluster.cost[
         cluster.a_ecm0 : cluster.a_ecm0 + C * M
-    ].reshape(C, M).astype(np.int64)
+    ].reshape(C, M).astype(np.int64)  # kschedlint: host-only (host numpy)
     return machine_free, base_supply, cost_cm
 
 
@@ -184,7 +184,7 @@ def drain_scenarios(cluster, machine_indices, device="cuda") -> ScenarioBatchRes
     cluster's current unplaced backlog PLUS machine k's displaced tasks
     with machine k's capacity removed. Returns one result per candidate
     (lower objective = cheaper drain)."""
-    machine_indices = np.asarray(machine_indices, np.int64)
+    machine_indices = np.asarray(machine_indices, np.int64)  # kschedlint: host-only (host numpy)
     K = len(machine_indices)
     C, M = cluster.C, cluster.M
     if K and (machine_indices.min() < 0 or machine_indices.max() >= M):
@@ -217,7 +217,7 @@ def surge_scenarios(cluster, extra_supply: np.ndarray,
                     device="cuda") -> ScenarioBatchResult:
     """Score admission headroom: scenario k adds extra_supply[k] (per
     class) to the current backlog against today's free capacity."""
-    extra_supply = np.asarray(extra_supply, np.int64)
+    extra_supply = np.asarray(extra_supply, np.int64)  # kschedlint: host-only (host numpy)
     K = extra_supply.shape[0]
     C, M = cluster.C, cluster.M
     assert extra_supply.shape == (K, C)

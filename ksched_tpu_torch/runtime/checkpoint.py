@@ -202,7 +202,7 @@ def save_bulk_checkpoint(cluster, path: str) -> None:
     meta = np.array(
         [cluster.M, cluster.P, cluster.S, cluster.J, cluster.C,
          cluster.unsched_cost, cluster.ec_cost, cluster.task_cap],
-        dtype=np.int64,
+        dtype=np.int64,  # kschedlint: host-only (host checkpoint payload)
     )
     arrays = {name: getattr(cluster, name) for name in _BULK_ARRAYS}
     np.savez_compressed(path, __meta__=meta, **arrays)
@@ -378,7 +378,7 @@ def load_device_checkpoint(path: str, class_cost_fn=None, device="cuda"):
         device=device,
     )
     cluster.state = DeviceClusterState(
-        **{name: torch.tensor(data[f"s_{name}"], device=cluster.device)
+        **{name: torch.tensor(data[f"s_{name}"], device=cluster.device)  # kschedlint: disable=implicit-dtype -- restores each saved array's own dtype
            for name in _DEVICE_STATE}
     )
     if cluster.grouped:
@@ -386,7 +386,7 @@ def load_device_checkpoint(path: str, class_cost_fn=None, device="cuda"):
             **{name: data[f"g_{name}"] for name in _DEVICE_GROUPS}
         )
     if cluster.hybrid_preempt and "hyb_census" in data:
-        cluster._hyb_census = torch.tensor(data["hyb_census"], device=cluster.device)
+        cluster._hyb_census = torch.tensor(data["hyb_census"], device=cluster.device)  # kschedlint: disable=implicit-dtype -- restores the saved array's own dtype
         cluster._hyb_k = int(meta.get("hyb_k", cluster.preempt_every - 1))
         cluster._hyb_kg = int(
             meta.get("hyb_kg", max(cluster.preempt_global_every - 1, 0)))

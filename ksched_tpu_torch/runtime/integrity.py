@@ -146,13 +146,13 @@ def host_weights(n: int) -> np.ndarray:
     cached = _WEIGHTS.get(n)
     if cached is not None:
         return cached
-    i = np.arange(n, dtype=np.uint64)
-    w = (i * np.uint64(_FP_MUL) + np.uint64(_FP_ADD)) & _MASK32
+    i = np.arange(n, dtype=np.uint64)  # kschedlint: host-only (host numpy)
+    w = (i * np.uint64(_FP_MUL) + np.uint64(_FP_ADD)) & _MASK32  # kschedlint: host-only (host numpy)
     # forced odd: the recurrence alone yields even weights at odd i,
     # and an even weight with k trailing zero bits makes flips of the
     # top k bits invisible mod 2**32. With w odd, w * 2**b != 0 mod
     # 2**32 for every b < 32.
-    out = (w | np.uint64(1)).astype(np.uint32)
+    out = (w | np.uint64(1)).astype(np.uint32)  # kschedlint: host-only (host numpy)
     if len(_WEIGHTS) > 64:
         _WEIGHTS.clear()
     _WEIGHTS[n] = out
@@ -165,8 +165,8 @@ def host_fingerprint(arr: np.ndarray) -> int:
     same way the device mirror upload casts them)."""
     v = np.ascontiguousarray(np.asarray(arr).astype(np.int32)).view(np.uint32)
     w = host_weights(len(v))
-    prod = (v.astype(np.uint64) * w.astype(np.uint64)) & _MASK32
-    return int(np.sum(prod, dtype=np.uint64) & _MASK32)
+    prod = (v.astype(np.uint64) * w.astype(np.uint64)) & _MASK32  # kschedlint: host-only (host numpy)
+    return int(np.sum(prod, dtype=np.uint64) & _MASK32)  # kschedlint: host-only (host numpy)
 
 
 _DEV_WEIGHTS: Dict[Tuple[int, str], torch.Tensor] = {}
@@ -177,7 +177,7 @@ def _device_weights(n: int, device: torch.device) -> torch.Tensor:
     key = (n, str(device))
     w = _DEV_WEIGHTS.get(key)
     if w is None:
-        i = torch.arange(n, dtype=torch.int64, device=device)
+        i = torch.arange(n, dtype=torch.int64, device=device)  # kschedlint: disable=dtype64 -- int64 weights of the uint32 checksum (masked products)
         w = ((i * _FP_MUL + _FP_ADD) & _MASK32) | 1
         if len(_DEV_WEIGHTS) > 64:
             _DEV_WEIGHTS.clear()
@@ -185,19 +185,19 @@ def _device_weights(n: int, device: torch.device) -> torch.Tensor:
     return w
 
 
-def _device_fp1(v: torch.Tensor) -> torch.Tensor:
+def _device_fp1(v: torch.Tensor) -> torch.Tensor:  # kschedlint: program=buffer_fingerprint
     """One tensor's checksum on its own device, as an int64 scalar in
     [0, 2**32): the same arithmetic as host_fingerprint. Each product of
     an int32 value and a weight below 2**32 fits in int64 and is masked
     to its low 32 bits, the int32 product's wrapped bits; the sum of
     those stays below 2**63 for any tensor under 2**31 elements, and
     the final mask wraps it mod 2**32."""
-    x = v.reshape(-1).to(torch.int32).to(torch.int64)
+    x = v.reshape(-1).to(torch.int32).to(torch.int64)  # kschedlint: disable=dtype64 -- int64 holds the uint32 checksum's masked products
     prod = (x * _device_weights(x.shape[0], x.device)) & _MASK32
-    return prod.sum() & _MASK32
+    return prod.sum() & _MASK32  # kschedlint: disable=int32-reduce -- the int64 sum of masked products, masked to 32 bits
 
 
-def device_fingerprints(buffers) -> np.ndarray:
+def device_fingerprints(buffers) -> np.ndarray:  # kschedlint: program=state_fingerprint
     """One uint32 checksum per tensor (one device-to-host copy for the
     lot), matching host_fingerprint."""
     fps = torch.stack([_device_fp1(b) for b in buffers])
@@ -209,7 +209,7 @@ def device_fingerprints(buffers) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def corrupt_flip(buf: torch.Tensor, idx: int, bit: int) -> torch.Tensor:
+def corrupt_flip(buf: torch.Tensor, idx: int, bit: int) -> torch.Tensor:  # kschedlint: program=corrupt_flip
     """The chaos-only poison flip: a new tensor equal to `buf` with bit
     `bit` of element `idx` flipped. It exists to prove that the
     fingerprints catch exactly this fault."""
@@ -643,3 +643,8 @@ def corrupt_wal_file(path: str, mode: str, rng) -> None:
         f.write(WAL_MAGIC)
         for fr in frames:
             f.write(fr)
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(__name__, "state_fingerprint", "buffer_fingerprint", "corrupt_flip")

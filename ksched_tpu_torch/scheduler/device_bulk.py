@@ -114,7 +114,7 @@ def _count(idx, n: int):
     """int32[n] counts of the values in idx; entries equal to n (the
     sentinel) land in a spare bucket and are dropped."""
     out = torch.zeros(n + 1, dtype=_I32, device=idx.device)
-    out.index_add_(0, idx.long(), torch.ones_like(idx, dtype=_I32))
+    out.index_add_(0, idx.long(), torch.ones_like(idx, dtype=_I32))  # kschedlint: index-only (gather index)
     return out[:n]
 
 
@@ -662,7 +662,7 @@ class DeviceBulkCluster:
             # (invalid or unplaced) land in a spare slot and are dropped
             tgt = torch.where(placed_w, idx, Tcap)
             new_pu = torch.cat([state.pu, state.pu[:1]]).scatter_(
-                0, tgt.long(), pu_abs)[:Tcap]
+                0, tgt.long(), pu_abs)[:Tcap]  # kschedlint: index-only (gather index)
         pr_idx = torch.where(placed_w, pu_abs, num_pus)
         pu_running = _count(pr_idx, num_pus) + state.pu_running
         placed_count = placed_w.sum(dtype=_I32)
@@ -817,7 +817,7 @@ class DeviceBulkCluster:
             _n_mv, idx, valid = self._window(mover, int(decode_width), window_offset)
             g_mv_w = torch.where(valid, g_t[idx.clamp(0, Tcap - 1)], Gn)
             granted_w, pu_abs_w = self.rank_match_decode(g_mv_w, rem, pu_free_mv)
-            tgt = torch.where(granted_w, idx, Tcap).long()
+            tgt = torch.where(granted_w, idx, Tcap).long()  # kschedlint: index-only (gather index)
             base_pu = torch.where(stay, state.pu, -1)
             new_pu = torch.cat([base_pu, base_pu[:1]]).scatter_(0, tgt, pu_abs_w)[:Tcap]
             granted_full = torch.zeros(Tcap + 1, dtype=torch.bool, device=dev).scatter_(
@@ -993,7 +993,7 @@ class DeviceBulkCluster:
             state.live & (state.pu >= 0)
             & (state.pu.clamp(0, self.num_pus - 1) // self.P == machine_index)
         )
-        pu_mask = torch.arange(self.num_pus, device=self.device) // self.P == machine_index
+        pu_mask = torch.arange(self.num_pus, dtype=_I32, device=self.device) // self.P == machine_index
         return state._replace(
             machine_enabled=me,
             pu=torch.where(on_machine, -1, state.pu),
@@ -1017,10 +1017,10 @@ class DeviceBulkCluster:
                                              device=self.device))
         state = self._retire(state, done)
         if self.grouped:
-            new_grp = self._arrival_map[draw_a.long()]
+            new_grp = self._arrival_map[draw_a.long()]  # kschedlint: index-only (gather index)
             state, admitted = self._occupy(
-                state, arrivals, self.groups.cls[new_grp.long()],
-                self.groups.job[new_grp.long()], new_grp)
+                state, arrivals, self.groups.cls[new_grp.long()],  # kschedlint: index-only (gather index)
+                self.groups.job[new_grp.long()], new_grp)  # kschedlint: index-only (gather index)
         else:
             state, admitted = self._occupy(state, arrivals, draw_a, draw_b)
         self.state, stats = self._bounded_round(state, window_offset)
@@ -1057,25 +1057,25 @@ class DeviceBulkCluster:
         state = self.state
         # toggles: invalid slots scatter into a pad slot, cut off after
         valid_t = torch.arange(tog_idx.shape[0], dtype=_I32, device=dev) < tog_n
-        idx_t = torch.where(valid_t, tog_idx, M).long()
+        idx_t = torch.where(valid_t, tog_idx, M).long()  # kschedlint: index-only (gather index)
         me = torch.cat([state.machine_enabled, state.machine_enabled[:1]]).scatter_(
             0, idx_t, tog_on)[:M]
         on = state.live & (state.pu >= 0)
-        evict = on & ~me[(state.pu.clamp(0, num_pus - 1) // P).long()]
+        evict = on & ~me[(state.pu.clamp(0, num_pus - 1) // P).long()]  # kschedlint: index-only (gather index)
         pu = torch.where(evict, -1, state.pu)
         on = state.live & (pu >= 0)
         state = state._replace(machine_enabled=me, pu=pu,
                                pu_running=_count(torch.where(on, pu, num_pus), num_pus))
         # completions
         valid_d = torch.arange(done_rows.shape[0], dtype=_I32, device=dev) < done_n
-        idx_d = torch.where(valid_d, done_rows, Tcap).long()
+        idx_d = torch.where(valid_d, done_rows, Tcap).long()  # kschedlint: index-only (gather index)
         done = torch.zeros(Tcap + 1, dtype=torch.bool, device=dev).index_fill_(
             0, idx_d, True)[:Tcap] & state.live
         state = self._retire(state, done)
         # admissions: row t takes source entry (its rank among the free
         # rows), clipped to the [Amax] sources
         free_rank = torch.cumsum(~state.live, 0, dtype=_I32) - 1
-        src = free_rank.clamp(0, adm_job.shape[0] - 1).long()
+        src = free_rank.clamp(0, adm_job.shape[0] - 1).long()  # kschedlint: index-only (gather index)
         state, admitted = self._occupy(state, adm_n, adm_cls[src], adm_job[src],
                                        adm_grp[src])
         self.state, stats = self._bounded_round(state, window_offset)
@@ -1148,7 +1148,7 @@ class DeviceBulkCluster:
         def _vec(name, val, cur, index_range=None):
             if val is None:
                 return cur
-            a = np.asarray(val, np.int64)
+            a = np.asarray(val, np.int64)  # kschedlint: host-only (host numpy)
             if a.shape != (self.G,):
                 raise ValueError(f"{name} must have shape ({self.G},), got {a.shape}")
             if index_range is not None:
@@ -1166,7 +1166,7 @@ class DeviceBulkCluster:
 
         pw = self.groups.pref_w
         if pref_w is not None:
-            a = np.asarray(pref_w, np.int64)
+            a = np.asarray(pref_w, np.int64)  # kschedlint: host-only (host numpy)
             if a.shape != (self.G, self.M):
                 raise ValueError(
                     f"pref_w must have shape ({self.G}, {self.M}), got {a.shape}"
@@ -1203,7 +1203,7 @@ class DeviceBulkCluster:
         self._arrival_n = int(g.size)
 
     def complete_tasks(self, rows) -> None:
-        rows = np.asarray(rows, np.int64)
+        rows = np.asarray(rows, np.int64)  # kschedlint: host-only (host numpy)
         if rows.size and ((rows < 0) | (rows >= self.Tcap)).any():
             raise ValueError(f"task rows must be in [0, {self.Tcap})")
         self.state = self.complete(self.state, torch.as_tensor(rows, device=self.device))
@@ -1296,8 +1296,8 @@ class DeviceBulkCluster:
 
     @property
     def num_live_tasks(self) -> int:
-        return int(self.state.live.sum())
+        return int(self.state.live.sum(dtype=_I32))
 
     @property
     def num_placed_tasks(self) -> int:
-        return int((self.state.live & (self.state.pu >= 0)).sum())
+        return int((self.state.live & (self.state.pu >= 0)).sum(dtype=_I32))

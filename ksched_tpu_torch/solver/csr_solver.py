@@ -42,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis.marks import loop_mark
 from ..graph.device_export import FlowProblem
 from .base import (
     FlowResult,
@@ -97,7 +98,7 @@ def build_csr_plan(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> CsrPlan:
     s_sign = np.where(order < m, 1, -1).astype(np.int32)
     inv_order = np.empty(2 * m, dtype=np.int32)
     inv_order[order] = np.arange(2 * m, dtype=np.int32)
-    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)  # kschedlint: host-only (host numpy)
     counts = np.bincount(s_src, minlength=num_nodes)
     row_ptr[1:] = np.cumsum(counts)
     s_segstart = row_ptr[s_src].astype(np.int32)
@@ -136,7 +137,7 @@ def _seg_reduce(vals, isstart, node_last, node_nonempty, identity, how):
     `isstart` opens: each node's value is the reduction over its own
     entries (what the JAX package's segmented scan holds at node_last),
     `identity` for a node without entries."""
-    seg = torch.cumsum(isstart, 0) - 1
+    seg = torch.cumsum(isstart, 0, dtype=torch.int64) - 1  # kschedlint: index-only (scatter_reduce_'s segment ids)
     per_seg = torch.full_like(vals, identity).scatter_reduce_(
         0, seg, vals, how, include_self=False)
     return torch.where(node_nonempty, per_seg[seg[node_last]], identity)
@@ -150,7 +151,7 @@ def _seg_min(vals, isstart, node_last, node_nonempty, identity):
     return _seg_reduce(vals, isstart, node_last, node_nonempty, identity, "amin")
 
 
-def _solve_mcmf(
+def _solve_mcmf(  # kschedlint: program=csr_solve
     cap, cost, supply, flow0, eps_init,
     s_arc, s_sign, s_src, s_dst, s_segstart, s_isstart, inv_order,
     node_first, node_last, node_nonempty,
@@ -185,7 +186,7 @@ def _solve_mcmf(
 
     m = cap.shape[0]
     s_arc, s_src, s_dst, s_segstart, inv_order, node_first, node_last = (
-        t.long() for t in (s_arc, s_src, s_dst, s_segstart, inv_order,
+        t.long() for t in (s_arc, s_src, s_dst, s_segstart, inv_order,  # kschedlint: index-only (gather index)
                            node_first, node_last))
     s_sign = s_sign.to(_I32)
     s_isstart = s_isstart.to(torch.bool)
@@ -218,15 +219,18 @@ def _solve_mcmf(
         entries; seeded with an explicit d0 it is the warm refit."""
         r = residual(flow[s_arc])
         if d0 is None:
-            d0 = torch.where(excess_of(flow) < 0, 0, _BIG_D).to(_I32)
+            exc0 = excess_of(flow)
+            d0 = torch.full_like(exc0, _BIG_D).masked_fill_(exc0 < 0, 0)
         d, changed, it = d0, True, 0
         while changed and it < tighten_sweeps:
+            loop_mark("sweep")
             cand = torch.where(r > 0, s_cost + d[s_dst], _BIG_D)
             best = _seg_min(cand, s_isstart, node_last, node_nonempty, _BIG_D)
             d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
             changed = bool((d2 != d).any())
             _solve_mcmf.reads += 1
             d, it = d2, it + 1
+        loop_mark()
         return -torch.clamp(d, max=_BIG_D)
 
     def superstep(flow, p, eps, excess):
@@ -270,6 +274,7 @@ def _solve_mcmf(
     flow = saturate(flow0, p)  # mop up any residual violations
     eps, steps, done = int(eps_init), 0, False
     while not done and steps < max_supersteps:
+        loop_mark("superstep")
         excess = excess_of(flow)
         _solve_mcmf.reads += 1
         if bool((excess > 0).any()):
@@ -284,12 +289,14 @@ def _solve_mcmf(
         else:
             flow = saturate(flow, p)
             eps = max(1, eps // alpha)
+    loop_mark()
     converged = done and int(excess_of(flow).abs().max()) == 0
     p_overflow = int(p.abs().max()) >= _P_GUARD
     _solve_mcmf.reads += 1 + done
     out = (
         flow, p, torch.tensor(steps, dtype=_I32, device=dev),
-        torch.tensor(converged, device=dev), torch.tensor(p_overflow, device=dev),
+        torch.tensor(converged, dtype=torch.bool, device=dev),
+        torch.tensor(p_overflow, dtype=torch.bool, device=dev),
     )
     return out + (tel,) if telemetry_cap else out
 
@@ -346,7 +353,7 @@ def _solve_stacked(
     L, m = cap.shape
     dev = cap.device
     s_arc, s_src, s_dst, s_segstart, inv_order, node_first, node_last = (
-        t.long() for t in (s_arc, s_src, s_dst, s_segstart, inv_order,
+        t.long() for t in (s_arc, s_src, s_dst, s_segstart, inv_order,  # kschedlint: index-only (gather index)
                            node_first, node_last))
     s_sign = s_sign.to(_I32)
     s_isstart = s_isstart.to(torch.bool)
@@ -356,7 +363,7 @@ def _solve_stacked(
     fwd_pos = inv_order[:, :m]
     cap_src = s_src.gather(1, fwd_pos)
     cap_dst = s_dst.gather(1, fwd_pos)
-    seg_id = torch.cumsum(s_isstart, 1) - 1
+    seg_id = torch.cumsum(s_isstart, 1, dtype=torch.int64) - 1  # kschedlint: index-only (scatter_reduce_'s segment ids)
     seg_of_last = seg_id.gather(1, node_last)
 
     def seg_sum(vals):
@@ -382,11 +389,13 @@ def _solve_stacked(
     def tighten(flow, d0=None):
         r = residual(flow.gather(1, s_arc))
         if d0 is None:
-            d0 = torch.where(excess_of(flow) < 0, 0, _BIG_D).to(_I32)
+            exc0 = excess_of(flow)
+            d0 = torch.full_like(exc0, _BIG_D).masked_fill_(exc0 < 0, 0)
         d = d0
         changed = torch.ones(L, dtype=torch.bool, device=dev)
         it = torch.zeros(L, dtype=_I32, device=dev)
         while True:
+            loop_mark("sweep")
             live = changed & (it < tighten_sweeps)
             _solve_stacked.reads += 1
             if not bool(live.any()):
@@ -397,6 +406,7 @@ def _solve_stacked(
             changed = torch.where(live, (d2 != d).any(1), changed)
             d = torch.where(live[:, None], d2, d)
             it = it + live.to(_I32)
+        loop_mark()
         return -torch.clamp(d, max=_BIG_D)
 
     def superstep(flow, p, eps, excess):
@@ -426,7 +436,7 @@ def _solve_stacked(
         )
         return new_flow, new_p, aux
 
-    lanes = torch.arange(L, device=dev)
+    lanes = torch.arange(L, dtype=torch.int64, device=dev)  # kschedlint: index-only (the ring's lane index)
     tel = (torch.zeros((L, telemetry_cap, soltel.SOLTEL_WIDTH), dtype=_I32,
                        device=dev) if telemetry_cap else None)
     if use_warm_p:
@@ -438,6 +448,7 @@ def _solve_stacked(
     steps = torch.zeros(L, dtype=_I32, device=dev)
     done = torch.zeros(L, dtype=torch.bool, device=dev)
     while True:
+        loop_mark("superstep")
         live = ~done & (steps < max_supersteps)
         _solve_stacked.reads += 1
         if not bool(live.any()):
@@ -457,10 +468,11 @@ def _solve_stacked(
                 eps, torch.sum(excess > 0, 1, dtype=_I32),
                 torch.sum(excess.clamp(min=0), 1, dtype=_I32), *aux,
                 torch.zeros_like(eps)], 1)
-            slot = (steps % telemetry_cap).long()
+            slot = (steps % telemetry_cap).long()  # kschedlint: index-only (gather index)
             tel[lanes, slot] = torch.where(push[:, None], row, tel[lanes, slot])
         steps = steps + push.to(_I32)
         eps = torch.where(rescale, torch.clamp(eps // alpha, min=1), eps)
+    loop_mark()
     converged = done & (excess_of(flow).abs().amax(1) == 0)
     p_overflow = p.abs().amax(1) >= _P_GUARD
     out = (flow, p, steps, converged, p_overflow)
@@ -471,7 +483,7 @@ def _solve_stacked(
 _solve_stacked.reads = 0
 
 
-def stacked_solve_fn(
+def stacked_solve_fn(  # kschedlint: program=stacked_solve
     *,
     alpha: int = 8,
     max_supersteps: int = 4096,
@@ -620,7 +632,7 @@ class CsrSolver(FlowSolver):
             return None if a is None else np.asarray(a, np.int32)
 
         def dev(a):
-            return None if a is None else torch.tensor(a, device=self.device)
+            return None if a is None else torch.tensor(a, dtype=_I32, device=self.device)
 
         self._prev = host("prev")
         self._prev_p = dev(host("prev_p"))
@@ -757,7 +769,7 @@ class CsrSolver(FlowSolver):
         problem, out, rest = pending
         if out is None:
             self.last_telemetry = None
-            return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),
+            return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),  # kschedlint: host-only (FlowResult's int64 flow)
                               objective=0, iterations=0)
         args, eps_cold, warm, slot_stable, resident, reads0, tel_cap, budget1 = rest
         m = len(problem.src)
@@ -825,10 +837,23 @@ class CsrSolver(FlowSolver):
             self._key_solved = getattr(problem, "plan_key", None)
             self._prev_p = p
         objective = int(
-            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()
+            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
         ) + lower_bound_cost(problem)
-        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,
+        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,  # kschedlint: host-only (FlowResult's int64 flow)
                           iterations=spent)
 
     def solve(self, problem: FlowProblem) -> FlowResult:
         return self.complete(self.solve_async(problem))
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(
+    __name__,
+    "csr_solve",
+    "csr_solve_warmp",
+    "csr_solve_slot",
+    "csr_refit_slot",
+    "stacked_solve",
+    "stacked_solve_warmp",
+)

@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis.marks import loop_mark
 from ..graph.device_export import FlowProblem
 from .base import (
     FlowResult,
@@ -90,7 +91,7 @@ def build_ell_plan(
 ) -> EllPlan:
     n = num_nodes
     m = len(src)
-    node = np.concatenate([src, dst]).astype(np.int64)
+    node = np.concatenate([src, dst]).astype(np.int64)  # kschedlint: host-only (host numpy)
     peer = np.concatenate([dst, src]).astype(np.int32)
     arc = np.concatenate([np.arange(m), np.arange(m)]).astype(np.int32)
     sign = np.concatenate(
@@ -99,9 +100,9 @@ def build_ell_plan(
     deg = np.bincount(node, minlength=n)
     # in-node rank of every doubled entry, via stable node sort
     order = np.argsort(node, kind="stable")
-    row_ptr = np.zeros(n + 1, np.int64)
+    row_ptr = np.zeros(n + 1, np.int64)  # kschedlint: host-only (host numpy)
     row_ptr[1:] = np.cumsum(deg)
-    rank = np.empty(2 * m, np.int64)
+    rank = np.empty(2 * m, np.int64)  # kschedlint: host-only (host numpy)
     rank[order] = np.arange(2 * m) - row_ptr[node[order]]
 
     is_hub_node = deg > w_small
@@ -109,15 +110,15 @@ def build_ell_plan(
     hub_ids = np.nonzero(is_hub_node)[0]
     ns = max(len(small_ids), 1)
     hn = max(len(hub_ids), 1)
-    small_slot = np.full(n, 0, np.int64)
+    small_slot = np.full(n, 0, np.int64)  # kschedlint: host-only (host numpy)
     small_slot[small_ids] = np.arange(len(small_ids))
-    hub_slot = np.full(n, 0, np.int64)
+    hub_slot = np.full(n, 0, np.int64)  # kschedlint: host-only (host numpy)
     hub_slot[hub_ids] = np.arange(len(hub_ids))
 
     # hub row allocation: ceil(deg/w_hub) consecutive rows per hub
-    hub_deg = deg[hub_ids] if len(hub_ids) else np.zeros(0, np.int64)
+    hub_deg = deg[hub_ids] if len(hub_ids) else np.zeros(0, np.int64)  # kschedlint: host-only (host numpy)
     rows_per_hub = (hub_deg + w_hub - 1) // w_hub
-    hub_row_start = np.zeros(len(hub_ids) + 1, np.int64)
+    hub_row_start = np.zeros(len(hub_ids) + 1, np.int64)  # kschedlint: host-only (host numpy)
     hub_row_start[1:] = np.cumsum(rows_per_hub)
     rh = max(int(hub_row_start[-1]), 1)
     kmax = max(int(rows_per_hub.max()) if len(rows_per_hub) else 0, 1)
@@ -154,7 +155,7 @@ def build_ell_plan(
     h_peer[hrow, hcol] = peer[e_hub]
 
     # flat position of every doubled entry in concat([small, hub]) order
-    flat = np.empty(2 * m, np.int64)
+    flat = np.empty(2 * m, np.int64)  # kschedlint: host-only (host numpy)
     flat[e_small] = srow * w_small + scol
     flat[e_hub] = ns * w_small + hrow * w_hub + hcol
 
@@ -188,10 +189,10 @@ def build_ell_plan(
 def _take(table, idx):
     """table[idx] with idx clamped into range, as XLA's gather clamps:
     every out-of-range read here is discarded by a select."""
-    return table[idx.long().clamp(0, table.shape[0] - 1)]
+    return table[idx.long().clamp(0, table.shape[0] - 1)]  # kschedlint: index-only (gather index)
 
 
-def _solve_mcmf_ell(
+def _solve_mcmf_ell(  # kschedlint: program=ell_solve
     cap, cost, supply, flow0, eps_init,
     s_node, s_arc, s_sign, s_peer,
     h_node, h_arc, h_sign, h_peer, h_rowhub, h_rowk,
@@ -211,8 +212,8 @@ def _solve_mcmf_ell(
     from ..obs import soltel
     kmax = hub_rows.shape[1]
     hub_rows_valid = hub_rows_valid.to(torch.bool)
-    a_src, a_dst = a_src.long(), a_dst.long()
-    s_nodel, h_nodel = s_node.long(), h_node.long()
+    a_src, a_dst = a_src.long(), a_dst.long()  # kschedlint: index-only (gather index)
+    s_nodel, h_nodel = s_node.long(), h_node.long()  # kschedlint: index-only (gather index)
     sc_s = s_sign * _take(cost, s_arc)  # signed cost per small entry
     sc_h = h_sign * _take(cost, h_arc)
     cap_s = _take(cap, s_arc)
@@ -255,15 +256,17 @@ def _solve_mcmf_ell(
     def tighten(flow):
         excess0 = excess_of(flow)
         r_s, r_h = residuals(flow)
-        d = torch.where(excess0 < 0, 0, _BIG_D).to(_I32)
+        d = torch.full_like(excess0, _BIG_D).masked_fill_(excess0 < 0, 0)
         changed, it = True, 0
         while changed and it < tighten_sweeps:
+            loop_mark("sweep")
             cand_s = torch.where(r_s > 0, sc_s + _take(d, s_peer), _BIG_D)
             cand_h = torch.where(r_h > 0, sc_h + _take(d, h_peer), _BIG_D)
             best = per_node(i32min(cand_s, 1), i32min(cand_h, 1), i32min, _BIG_D)
             d2 = torch.clamp(torch.minimum(d, best), min=-_BIG_D)
             changed = bool((d2 != d).any())
             d, it = d2, it + 1
+        loop_mark()
         return -torch.clamp(d, max=_BIG_D)
 
     def superstep(flow, p, eps, excess):
@@ -283,7 +286,7 @@ def _solve_mcmf_ell(
         row_tot = i32sum(ra_h, 1)
         hub_row_tot = torch.where(hub_rows_valid, _take(row_tot, hub_rows), 0)
         hub_excl = torch.cumsum(hub_row_tot, 1, dtype=_I32) - hub_row_tot
-        row_off = _take(hub_excl.reshape(-1), h_rowhub.long() * kmax + h_rowk.long())
+        row_off = _take(hub_excl.reshape(-1), h_rowhub.long() * kmax + h_rowk.long())  # kschedlint: index-only (gather index)
         pre_h = (torch.cumsum(ra_h, 1, dtype=_I32) - ra_h) + row_off[:, None]
         d_s = torch.minimum(torch.clamp(e_s[:, None] - pre_s, min=0), ra_s)
         d_h = torch.minimum(torch.clamp(e_h[:, None] - pre_h, min=0), ra_h)
@@ -314,6 +317,7 @@ def _solve_mcmf_ell(
     flow = saturate(flow0, p)
     eps, steps, done = int(eps_init), 0, False
     while not done and steps < max_supersteps:
+        loop_mark("superstep")
         excess = excess_of(flow)
         if bool((excess > 0).any()):
             flow, p, aux = superstep(flow, p, eps, excess)
@@ -327,11 +331,13 @@ def _solve_mcmf_ell(
         else:
             flow = saturate(flow, p)
             eps = max(1, eps // alpha)
+    loop_mark()
     converged = done and int(excess_of(flow).abs().max()) == 0
     p_overflow = int(p.abs().max()) >= _P_GUARD
     out = (
         flow, p, torch.tensor(steps, dtype=_I32, device=dev),
-        torch.tensor(converged, device=dev), torch.tensor(p_overflow, device=dev),
+        torch.tensor(converged, dtype=torch.bool, device=dev),
+        torch.tensor(p_overflow, dtype=torch.bool, device=dev),
     )
     return out + (tel,) if telemetry_cap else out
 
@@ -463,7 +469,7 @@ class EllSolver(FlowSolver):
         problem, out, rest, resident = pending
         if out is None:
             self.last_telemetry = None
-            return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),
+            return FlowResult(flow=np.zeros(len(problem.src), dtype=np.int64),  # kschedlint: host-only (FlowResult's int64 flow)
                               objective=0, iterations=0)
         dev_args, plan_dev, eps_cold, tel_cap = rest
         flow, p, steps, converged, p_overflow, *ring = out
@@ -499,10 +505,15 @@ class EllSolver(FlowSolver):
             self._prev_src_dev = problem.d_src if resident else None
             self._prev_dst_dev = problem.d_dst if resident else None
         objective = int(
-            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()
+            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
         ) + lower_bound_cost(problem)
-        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,
+        return FlowResult(flow=flow_np.astype(np.int64), objective=objective,  # kschedlint: host-only (FlowResult's int64 flow)
                           iterations=int(steps))
 
     def solve(self, problem: FlowProblem) -> FlowResult:
         return self.complete(self.solve_async(problem))
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(__name__, "ell_solve")

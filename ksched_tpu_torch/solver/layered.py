@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.marks import loop_mark
 from ..ops.build import KernelError
 
 #: sentinel magnitudes; the CUDA kernel (ops/csrc/transport.cu) uses
@@ -57,7 +58,7 @@ def validate_job_unsched_cost(job_unsched_cost, num_jobs: int):
     through)."""
     if job_unsched_cost is None:
         return None
-    out = np.asarray(job_unsched_cost, np.int64)
+    out = np.asarray(job_unsched_cost, np.int64)  # kschedlint: host-only (host numpy)
     if out.shape != (num_jobs,):
         raise ValueError(
             f"job_unsched_cost must have shape ({num_jobs},), got {out.shape}"
@@ -172,10 +173,10 @@ def solve_row_constant_np(v, supply, col_cap):
     machine split assigned in (row-order, machine-order) interval
     overlaps. v int32[G]; supply int32[G]; col_cap int32[Mp1] (last =
     escape). Returns y int64[G, Mp1] with the escape column filled."""
-    cap_real = col_cap[:-1].astype(np.int64)
-    cap_total = int(cap_real.sum())
+    cap_real = col_cap[:-1].astype(np.int64)  # kschedlint: host-only (host numpy)
+    cap_total = int(cap_real.sum())  # kschedlint: disable=int32-reduce -- a host numpy sum
     order = np.argsort(v, kind="stable")
-    sup_s = supply[order].astype(np.int64)
+    sup_s = supply[order].astype(np.int64)  # kschedlint: host-only (host numpy)
     take_s = np.where(v[order] < 0, sup_s, 0)
     excl = np.cumsum(take_s) - take_s
     q_s = np.clip(cap_total - excl, 0, take_s)
@@ -187,7 +188,7 @@ def solve_row_constant_np(v, supply, col_cap):
     y_s = np.maximum(hi - lo, 0)
     y_real = np.empty_like(y_s)
     y_real[order] = y_s
-    esc = supply.astype(np.int64) - y_real.sum(axis=1)
+    esc = supply.astype(np.int64) - y_real.sum(axis=1)  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
     return np.concatenate([y_real, esc[:, None]], axis=1)
 
 
@@ -195,7 +196,7 @@ def solve_single_class_np(w: np.ndarray, supply: int, col_cap: np.ndarray) -> np
     """EXACT closed form for one transportation row: sort columns by
     cost and greedily fill strictly-profitable capacity (ties at w == 0
     are objective-neutral and left unscheduled)."""
-    take = np.where(w < 0, col_cap, 0).astype(np.int64)
+    take = np.where(w < 0, col_cap, 0).astype(np.int64)  # kschedlint: host-only (host numpy)
     order = np.argsort(w, kind="stable")
     take_s = take[order]
     excl = np.cumsum(take_s) - take_s
@@ -356,6 +357,7 @@ def _price_refine(wS, U, col_cap, y, z, pr, pm, psink, eps: int, waves: int):
     finishing."""
     for _ in range(waves):
         # fwd residual row->col (U-y>0): pm <= wS + pr + eps
+        loop_mark("wave")
         bound_m = torch.where(U - y > 0, wS + pr[:, None] + eps, BIG).amin(dim=0)
         pm2 = torch.clamp(torch.minimum(pm, bound_m), min=-BIG_D)
         # sink->col residual (z>0): pm <= psink + eps
@@ -367,6 +369,7 @@ def _price_refine(wS, U, col_cap, y, z, pr, pm, psink, eps: int, waves: int):
         bound_s = torch.where(col_cap - z > 0, pm2 + eps, BIG).amin()
         psink2 = torch.clamp(torch.minimum(psink, bound_s), min=-BIG_D)
         pr, pm, psink = pr2, pm2, psink2
+    loop_mark()
     return pr, pm, psink
 
 
@@ -463,6 +466,7 @@ def _transport_loop(wS, U, supply, col_cap, eps_init, alpha: int,
     steps = 0
     done = False
     while not done and steps < max_supersteps:
+        loop_mark("superstep")
         e_row, e_col, e_sink = _excesses(supply, y, z)
         if bool((e_row > 0).any() | (e_col > 0).any() | (e_sink > 0)):
             y, z, pr, pm, psink, *stats = transport_superstep(
@@ -494,6 +498,7 @@ def _transport_loop(wS, U, supply, col_cap, eps_init, alpha: int,
                 )
             else:
                 y, z = transport_saturate(wS, U, col_cap, y, z, pr, pm, psink)
+    loop_mark()
     e_row, e_col, e_sink = _excesses(supply, y, z)
     balanced = ~((e_row != 0).any() | (e_col != 0).any() | (e_sink != 0))
     converged = balanced & done
@@ -567,6 +572,7 @@ def _price_refine_tiered(wLo, wHi, R, U, col_cap, y, z, pr, pm, psink,
     yA = torch.minimum(y, R)
     yB = y - yA
     for _ in range(waves):
+        loop_mark("wave")
         bound_m = torch.minimum(
             torch.where(R - yA > 0, wLo + pr[:, None] + eps, BIG).amin(dim=0),
             torch.where((U - R) - yB > 0, wHi + pr[:, None] + eps, BIG).amin(dim=0),
@@ -581,6 +587,7 @@ def _price_refine_tiered(wLo, wHi, R, U, col_cap, y, z, pr, pm, psink,
         bound_s = torch.where(col_cap - z > 0, pm2 + eps, BIG).amin()
         psink2 = torch.clamp(torch.minimum(psink, bound_s), min=-BIG_D)
         pr, pm, psink = pr2, pm2, psink2
+    loop_mark()
     return pr, pm, psink
 
 
@@ -670,6 +677,7 @@ def _transport_loop_tiered(wLo, wHi, R, U, supply, col_cap, eps_init,
     steps = 0
     done = False
     while not done and steps < max_supersteps:
+        loop_mark("superstep")
         e_row, e_col, e_sink = _excesses(supply, y, z)
         if bool((e_row > 0).any() | (e_col > 0).any() | (e_sink > 0)):
             y, z, pr, pm, psink = transport_superstep_tiered(
@@ -691,6 +699,7 @@ def _transport_loop_tiered(wLo, wHi, R, U, supply, col_cap, eps_init,
                 wLo, wHi, R, U, col_cap, y, z, pr, pm, psink,
                 eps if refine_waves else 0,
             )
+    loop_mark()
     e_row, e_col, e_sink = _excesses(supply, y, z)
     balanced = ~((e_row != 0).any() | (e_col != 0).any() | (e_sink != 0))
     converged = balanced & done
@@ -783,7 +792,7 @@ def _attempts(run, eps0, eps_full, num_supersteps: int, eps0_budget,
     return y2, pm2, s1 + s2, conv2, None
 
 
-def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,
+def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,  # kschedlint: program=layered_solve
                    eps0=None, class_degenerate: bool = False,
                    refine_waves: int = 0, eps0_budget: Optional[int] = None,
                    eps0_retry: bool = True):
@@ -825,7 +834,7 @@ def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,
                      eps0_retry, wS.device)
 
 
-def transport_fori_tiered(wLo, wHi, R, supply, col_cap, num_supersteps: int,
+def transport_fori_tiered(wLo, wHi, R, supply, col_cap, num_supersteps: int,  # kschedlint: program=layered_solve
                           alpha: int = 8, eps0=None, refine_waves: int = 0):
     """Bounded tiered transport solve — the preemption-on twin of
     transport_fori: the exact closed form for a single row, else
@@ -864,25 +873,25 @@ def solve_layered_host(lp: LayeredProblem, *, pad, solve,
     -> (y, steps, converged), with int32 tensors on `device` and a
     Python int eps_init."""
     C, M = lp.cost_cm.shape
-    supply = lp.supply.astype(np.int64)
-    total = int(supply.sum())
+    supply = lp.supply.astype(np.int64)  # kschedlint: host-only (host numpy)
+    total = int(supply.sum())  # kschedlint: disable=int32-reduce -- a host numpy sum
     if total == 0:
         return LayeredResult(
-            y=np.zeros((C, M), np.int64), num_unsched=0, objective=0, supersteps=0
+            y=np.zeros((C, M), np.int64), num_unsched=0, objective=0, supersteps=0  # kschedlint: host-only (host numpy)
         )
     # Shifted per-unit cost: placing costs (e + cost[c,m]), leaving
     # unscheduled costs u (per row when row_unsched_cost is set);
     # subtract u so the unsched column is 0 for every row.
     if lp.row_unsched_cost is not None:
-        u_row = np.asarray(lp.row_unsched_cost, np.int64)
+        u_row = np.asarray(lp.row_unsched_cost, np.int64)  # kschedlint: host-only (host numpy)
         assert u_row.shape == (C,), f"row_unsched_cost must be [{C}]"
     else:
-        u_row = np.full(C, int(lp.unsched_cost), np.int64)
-    w = lp.cost_cm.astype(np.int64) + int(lp.ec_cost) - u_row[:, None]
+        u_row = np.full(C, int(lp.unsched_cost), np.int64)  # kschedlint: host-only (host numpy)
+    w = lp.cost_cm.astype(np.int64) + int(lp.ec_cost) - u_row[:, None]  # kschedlint: host-only (host numpy)
     Mp, n_scale = pad(M, C)
-    wP = np.zeros((C, Mp), np.int64)
+    wP = np.zeros((C, Mp), np.int64)  # kschedlint: host-only (host numpy)
     wP[:, :M] = w
-    col_cap = np.zeros(Mp, np.int64)
+    col_cap = np.zeros(Mp, np.int64)  # kschedlint: host-only (host numpy)
     col_cap[:M] = lp.col_cap
     col_cap[-1] = total
 
@@ -915,7 +924,7 @@ def solve_layered_host(lp: LayeredProblem, *, pad, solve,
         sup = torch.as_tensor(supply.astype(np.int32), device=device)
         cap = torch.as_tensor(col_cap.astype(np.int32), device=device)
         eps_full = int(max(1, max_w * n_scale))
-        eps0 = choose_eps0(n_scale, eps_full, total, int(lp.col_cap.sum()))
+        eps0 = choose_eps0(n_scale, eps_full, total, int(lp.col_cap.sum()))  # kschedlint: disable=int32-reduce -- a host numpy sum
         attempts = [eps0]
         if eps0 != eps_full:
             attempts.append(eps_full)
@@ -934,12 +943,12 @@ def solve_layered_host(lp: LayeredProblem, *, pad, solve,
                 f"layered transport solve did not converge in "
                 f"{max_supersteps} supersteps"
             )
-        y_np = y.cpu().numpy().astype(np.int64)
+        y_np = y.cpu().numpy().astype(np.int64)  # kschedlint: host-only (host numpy)
     y_real = y_np[:, :M]
-    placed = int(y_real.sum())
-    unplaced_row = supply - y_real.sum(axis=1)
-    objective = int((u_row * unplaced_row).sum()) + int(
-        ((lp.cost_cm.astype(np.int64) + int(lp.ec_cost)) * y_real).sum()
+    placed = int(y_real.sum())  # kschedlint: disable=int32-reduce -- a host numpy sum
+    unplaced_row = supply - y_real.sum(axis=1)  # kschedlint: disable=int32-reduce -- a host numpy sum
+    objective = int((u_row * unplaced_row).sum()) + int(  # kschedlint: disable=int32-reduce -- a host numpy sum
+        ((lp.cost_cm.astype(np.int64) + int(lp.ec_cost)) * y_real).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
     )
     return LayeredResult(
         y=y_real,
@@ -1030,3 +1039,8 @@ class LayeredTransportSolver:
         self.last_supersteps = res.supersteps
         self.last_telemetry = decode_last()
         return res
+
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(__name__, "layered_solve")

@@ -109,7 +109,7 @@ def build_mega_plan(plan: CsrPlan, lanes: Optional[int] = None) -> MegaPlan:
 
     # partner permutation: entry (u, v) of arc a pairs with (v, u) —
     # the fwd entry's twin is original entry a + m, and vice versa
-    ppos = np.arange(E, dtype=np.int64)
+    ppos = np.arange(E, dtype=np.int64)  # kschedlint: host-only (host numpy)
     ppos[:m2] = plan.inv_order[
         np.where(plan.s_sign > 0, plan.s_arc + m, plan.s_arc)
     ]
@@ -340,7 +340,7 @@ class MegaSolver(FlowSolver):
         if out is None:
             self.last_telemetry = None
             return FlowResult(
-                flow=np.zeros(len(problem.src), dtype=np.int64),
+                flow=np.zeros(len(problem.src), dtype=np.int64),  # kschedlint: host-only (FlowResult's int64 flow)
                 objective=0, iterations=0,
             )
         args, plan_dev, RL, (f0_cold, eps_cold), resident, tel_cap = rest
@@ -378,10 +378,10 @@ class MegaSolver(FlowSolver):
             self._prev_src_dev = problem.d_src if keep else None
             self._prev_dst_dev = problem.d_dst if keep else None
         objective = int(
-            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()
+            (flow_np.astype(np.int64) * problem.cost.astype(np.int64)).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 sums on the host
         ) + lower_bound_cost(problem)
         return FlowResult(
-            flow=flow_np.astype(np.int64), objective=objective,
+            flow=flow_np.astype(np.int64), objective=objective,  # kschedlint: host-only (FlowResult's int64 flow)
             iterations=int(steps),
         )
 

@@ -76,7 +76,7 @@ class NativeSolver(FlowSolver):
         def p64(a):
             return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
-        rc = self._lib.ksched_mcmf_solve(
+        rc = self._lib.ksched_mcmf_solve(  # kschedlint: disable=unregistered-program -- the host C++ solver, not a device program
             self._ctx,
             self._algorithm,
             n,

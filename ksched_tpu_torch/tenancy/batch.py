@@ -582,7 +582,7 @@ class LaneSolver(FlowSolver):
         m0 = len(orig.src)
         flow_out = flow_np[:m0]
         objective = int(
-            (flow_out.astype(np.int64) * orig.cost.astype(np.int64)).sum()  # kschedlint: host-only (int64 objective math on host)
+            (flow_out.astype(np.int64) * orig.cost.astype(np.int64)).sum()  # kschedlint: disable=dtype64,int32-reduce -- int64 objective on the host
         ) + lower_bound_cost(orig)
         return FlowResult(flow=flow_out.astype(np.int64), objective=objective, iterations=spent)  # kschedlint: host-only (FlowResult contract is int64)
 
@@ -590,6 +590,7 @@ class LaneSolver(FlowSolver):
         return self.complete(self.solve_async(problem))
 
 
-# The JAX package declares its stacked program to analysis/'s program
-# registry here; the port's registry is ROADMAP item 14, and until it is
-# ported there is nothing to declare to.
+
+from ..analysis.program_registry import declare_programs as _declare_programs  # noqa: E402
+
+_declare_programs(__name__, "stacked_solve")

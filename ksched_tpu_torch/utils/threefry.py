@@ -59,14 +59,14 @@ def prng_key(seed: int):
     """PRNGKey(seed) with 64-bit types off (the JAX default), on the
     host: the seed as an int32 word, its bits the key's low word, the
     high word 0."""
-    return np.array([0, int(seed) & _M], np.int64)
+    return np.array([0, int(seed) & _M], np.int64)  # kschedlint: host-only (the key words on the host)
 
 
 def _hash_iota(key, n: int):
     """threefry over the counters 0..n-1 (high word 0, low word i) under
     key [..., 2]: two words of shape [..., n]."""
-    lo = (torch.arange(n, dtype=torch.int64, device=key.device) if _is_torch(key)
-          else np.arange(n, dtype=np.int64))
+    lo = (torch.arange(n, dtype=torch.int64, device=key.device) if _is_torch(key)  # kschedlint: disable=dtype64 -- threefry's 64-bit counter words, masked to 32 bits
+          else np.arange(n, dtype=np.int64))  # kschedlint: host-only (the host twin of the counters)
     return threefry2x32(key[..., 0:1], key[..., 1:2], 0, lo)
 
 

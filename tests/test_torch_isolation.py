@@ -19,13 +19,16 @@ FORBIDDEN = ("jax", "jaxlib", "ksched_tpu")
 
 
 #: modules the port must hold (the cost models, DIMACS and tenancy; the
-#: multi-device rung)
+#: multi-device rung; the static-analysis suite)
 REQUIRED = ("costmodels/simple.py", "costmodels/net.py", "costmodels/coco.py",
             "graph/dimacs.py", "tenancy/__init__.py", "tenancy/batch.py",
             "tenancy/manager.py", "tenancy/service.py", "drivers/multitenant.py",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_solver.py",
             "parallel/sharded_transport.py", "parallel/whatif.py", "parallel/launch.py",
-            "drivers/sharded_scale.py", "drivers/parallel_scenarios.py")
+            "drivers/sharded_scale.py", "drivers/parallel_scenarios.py",
+            "analysis/__init__.py", "analysis/__main__.py", "analysis/ast_rules.py",
+            "analysis/baseline.py", "analysis/engine.py", "analysis/marks.py",
+            "analysis/op_contracts.py", "analysis/program_registry.py")
 
 
 def _port_sources():
