@@ -188,9 +188,10 @@ no result line):
    its own class), the one-shot and a churn round through "auto" on the
    card, every round's values equal to the JAX package's
    (tests/torch_policy_reference.py); the transport and mcmf solves they
-   launch counted and re-solved by the plain versions with the same
-   bits (Random's two transport solves; the others stay on the dense
-   rung's closed form, as in the JAX package);
+   launch counted (Random's two transport solves; the others stay on
+   the dense rung's closed form, as in the JAX package) and re-solved
+   by the plain versions with the same bits, but for Random's
+   (PLAIN_RESOLVE_CUT: ≈90 s plain);
 22. tenancy (tenancy/, the stacked scan-CSR lane solve in plain
    PyTorch): bench.py's multitenant at its own arguments (16 cells of 3
    sizes, 4 + 24 rounds, both arms, each cell's placements equal across
@@ -223,16 +224,43 @@ no result line):
    rows) on that cluster through the transport kernel (one launch a
    scenario), equal to the JAX package's; the two longest solves
    re-solved by the plain version with the same bits and timed;
+26. the device soak (drivers/soak.py, tools/soak.py's default mode):
+   20,000 tasks on 500 machines with CoCo costs, --preempt (incremental
+   rounds on the transport kernel, re-solves on the tiered one), 512
+   rounds in chunks of 128 with machines toggled out and back, a device
+   checkpoint round trip every 2 chunks and the soak continuing on the
+   restored cluster; the invariants every chunk, and every chunk's line
+   equal to the JAX tool's;
+27. tails (ksched_tpu_torch/tools/tail_repro.py): whare (20k x 1k, the
+   transport kernel), coco-preempt (20k x 1k, the tiered kernel) and
+   quincy (group mode) captured round by round at the tool's sizes, the
+   capture line and the npz arrays equal to the JAX tool's; the replays
+   (whare over alpha {2, 8} x refine {8, 32}, coco-preempt over its eps0
+   starts x refine {0, 8}, quincy over the grouped strategies) with every
+   point equal to the JAX tool's, each replayed solve's kernel ms and
+   supersteps, and per capture the cheapest replayed solve re-solved by
+   the plain version with the same bits and timed beside its bound;
+28. profile_round (ksched_tpu_torch/tools/profile_round.py) at 10k x 1k
+   x 4 x 4: the launch floor, one synchronize's round trip and the
+   sustained steady round, each an obs span; the timed chains' stats
+   equal to the JAX package's; the trace rendered by tools/obs_report.py;
+29. shard smoke (ksched_tpu_torch/tools/shard_smoke.py) at the Makefile's
+   arguments on 2 gloo ranks sharing the card: the scan-CSR, sharded and
+   chaos arms equal on both ranks and to the JAX tool's arms;
    then the `kernels` line and the result line. The transport kernel's
-   entry there covers six paths, each counted from 0 just before it
+   entry there covers nine paths, each counted from 0 just before it
    ran: Scenario W(1000, 10000) (phase 4), gtrace12k-coco (phase 7e),
    the Whare-Map service (phase 16, sync and pipelined), the policies
-   (phase 21), sharded-layered's single-card arm (phase 24) and the
-   what-if batches (phase 25). Its `launches` is the sum of their
+   (phase 21), sharded-layered's single-card arm (phase 24), the
+   what-if batches (phase 25), the device soak (phase 26), the tails'
+   captures and replays (phase 27) and profile_round (phase 28, none
+   there: the closed form). Its `launches` is the sum of their
    launches, and its `ms`, `plain_ms` and `bound_ms` sum the solves
    timed on them: W's two, gtrace12k-coco's longest at [4, 12,544], the
    Whare-Map service's sync run's two and the two longest what-if
-   solves. The mcmf kernel's entry covers
+   solves. The tiered kernel's entry adds the device soak's and the
+   tails' launches to those of phase 7 (its times stay phase 8's). The
+   mcmf kernel's entry covers
    W-mega (phase 10), W-mega-resident (phase 13) and the policies
    (phase 21, none there) the same way: `launches` sums them, and `ms`,
    `plain_ms` and `bound_ms` sum W-mega's timed solves and
@@ -1065,6 +1093,248 @@ REF_PARALLEL = {'sharded': {'args': {'burst_every': 8,
                       'objective': [0, 60, 192, 640, 3072, 10572, 290512, 904912],
                       'y_sha256': 'b379ef7d9042771faa5f4ec7bd84d02d2472ef53bab453fdc6ca188b19cbaa47'}}}
 
+# The tool phases' values, as produced by ksched_tpu's tools on the CPU
+# (tests/torch_tools_reference.py): tools/soak.py's chunk lines at the
+# smoke's device-soak arguments; tools/tail_repro.py's capture line, npz
+# arrays' sha256 and replay lines per capture; each timed chain's stats
+# sha256 for tools/profile_round.py's round sequence; tools/shard_smoke.py's
+# arms on 2 virtual devices.
+REF_TOOLS = {'args': {'profile': {'J': 10,
+                      'M': 1000,
+                      'P': 4,
+                      'R': 64,
+                      'S': 4,
+                      'T': 10000,
+                      'Tcap': 16384,
+                      'reps': 7},
+          'shard': {'devices': 2,
+                    'machines': 6,
+                    'rounds': 24,
+                    'seed': 7,
+                    'tasks': 48,
+                    'warmup': 4},
+          'soak': ['--tasks',
+                   '20000',
+                   '--machines',
+                   '500',
+                   '--preempt',
+                   '--rounds',
+                   '512',
+                   '--chunk',
+                   '128',
+                   '--checkpoint-every',
+                   '2'],
+          'tails': {'coco-preempt': {'refine': '0,8',
+                                     'replay': 'replay-tiered',
+                                     'rounds': 4,
+                                     'threshold': 5000},
+                    'quincy': {'replay': 'replay-grouped',
+                               'rounds': 4,
+                               'strategies': 'two:1:256,two:n4:1024,full:n4:2,full:n:2',
+                               'threshold': 280},
+                    'whare': {'alpha': '2,8',
+                              'refine': '8,32',
+                              'replay': 'replay',
+                              'rounds': 60,
+                              'threshold': 40}}},
+ 'profile': ['1029bdfdbc59accf16efae04dd5d3656b1115fe32f1ec4496d1ad7bbec5ad473',
+             '41f9ae950a2ebf57e08c71729ab1a50854f0bacefafd1247ab34ffa86153fc39',
+             'df2ac9f2f5bed1a8ac048ae5b78fa34b49a36f412a78539617b91d9f690fc486',
+             '7173b7df2f7d4b01282d9809748229c130d11eb4b848fe0781209b748ca2f746',
+             'b472e1cad9cec126825f1ee4dc1c0b3755401564b96156d06d6c90a5356748a6',
+             '90e44bb874d04084acab0bc1f10447c88d6fb5a3c478b457589835fe70f994f4',
+             'ea0e9da8828da2bd0951654de03275e089765dbe672c30026b1a49d7feecb591'],
+ 'shard': {'chaos': {'degradations': 10,
+                     'faults': {'solver_exception': 2,
+                                'solver_nan_cost': 3,
+                                'solver_nonconverge': 5},
+                     'placements_sha256': ['66e0c1dcb5c6024d519ef8a36cd93898cb2b292090f37c0ad21b1639604ef0f1',
+                                           '642b7f3ff99dddd0cc92577a8026b1037d6cf0d54643233f3914dbc4c61ad095',
+                                           'd52d669faccf35b8850ff6d3587561b85a9c264e99c5d954be6d60737e448e04',
+                                           '7c28574cef29416ea730776d4bcaf4151da8cd13220fc8a7eeb94e90d4ad477c',
+                                           '0bd342f5e81bfee1125cf3db8f7e8f3fb0d34642ece452131867a67a523f5228',
+                                           '5a1d0a2795f3dc63e6657d32c36e9f0e8e051b7a4bea0c9df84cff387cfdfce4',
+                                           '4696dc93d8293bbc948784304d04873ea4c974d639b2385e2744f74a74c9db12',
+                                           '41a9269f0b8d3738cd82dbf38f77502bac98c1712f3ff13fc8ac54c465fd1c36',
+                                           '58b78fc3acba6661ad0042ee00d5ee6b7d8c74c3f1869238d99dad7e7c3a979c',
+                                           '18102d136984cf9b0a4c9dc1878d2d1ca9db2b9275bd1d550dbdbfb418233273',
+                                           '663ffbeed26122c376c8491bfb3ad8549308b6ff6eb95b0b31dcc9c531926a88',
+                                           '30ccfd556023ce5529dbeabb3e8ad55e3bebcfbdfd0f5779c28aeb32ce7705fd',
+                                           '65d0a5cc7a09df246387256047b2620b1ca42d9fd5e40112c190825da6384918',
+                                           '3be769e319cfe2e7b3370d278f561dc5047e0aff8cb80adc81e73e7f74c9e279',
+                                           '05ce34b50309b99dc44c75ce9c0416220cebca6fe27b2f74cd32fb6157cd267a',
+                                           '7b5be2e0da7efb0f93a78124b8772c6103230dd5df7065c0a0af621c0beccb15',
+                                           '5471e5037e4f38c43af8e3d03c9498905d1635fa75e16c62db85fb47d947ade7',
+                                           '3eb47927c9570655b17a98ed5f59e4a7a28d053c0cd519d92dac97f0c7cddd51',
+                                           '5bb49b562a488b5a8a8dfbf439fd3b6112d30cd706882ee5d5d8b007ec4b4deb',
+                                           'e638b4875ea141d99c1b90d37750c090fe5d7eb639027552c77183c9626fae74',
+                                           '9d42f53b370003fd06b6de64297e4d4ff23ddcc8644b266fbd4c1997b65633d4',
+                                           '118f7cc003143220d66c41465d274dde907868ff959fb20747bb2c3439aeaf3a',
+                                           '299f33ad3659613ec3750947a1c89714147b32b951c401838fd7d8944939a7fc',
+                                           '87927b59639730366e7c87c88ac7d63a05d464dbb08b6724effb23257c2c2fd5'],
+                     'rungs': {'jax': 10, 'sharded': 14}},
+           'scan_csr': {'kinds': {'delta': 19},
+                        'placements_sha256': ['66e0c1dcb5c6024d519ef8a36cd93898cb2b292090f37c0ad21b1639604ef0f1',
+                                              '642b7f3ff99dddd0cc92577a8026b1037d6cf0d54643233f3914dbc4c61ad095',
+                                              'd52d669faccf35b8850ff6d3587561b85a9c264e99c5d954be6d60737e448e04',
+                                              '7c28574cef29416ea730776d4bcaf4151da8cd13220fc8a7eeb94e90d4ad477c',
+                                              '0bd342f5e81bfee1125cf3db8f7e8f3fb0d34642ece452131867a67a523f5228',
+                                              '5a1d0a2795f3dc63e6657d32c36e9f0e8e051b7a4bea0c9df84cff387cfdfce4',
+                                              '4696dc93d8293bbc948784304d04873ea4c974d639b2385e2744f74a74c9db12',
+                                              '41a9269f0b8d3738cd82dbf38f77502bac98c1712f3ff13fc8ac54c465fd1c36',
+                                              '58b78fc3acba6661ad0042ee00d5ee6b7d8c74c3f1869238d99dad7e7c3a979c',
+                                              '18102d136984cf9b0a4c9dc1878d2d1ca9db2b9275bd1d550dbdbfb418233273',
+                                              '663ffbeed26122c376c8491bfb3ad8549308b6ff6eb95b0b31dcc9c531926a88',
+                                              '30ccfd556023ce5529dbeabb3e8ad55e3bebcfbdfd0f5779c28aeb32ce7705fd',
+                                              '65d0a5cc7a09df246387256047b2620b1ca42d9fd5e40112c190825da6384918',
+                                              '3be769e319cfe2e7b3370d278f561dc5047e0aff8cb80adc81e73e7f74c9e279',
+                                              '05ce34b50309b99dc44c75ce9c0416220cebca6fe27b2f74cd32fb6157cd267a',
+                                              '7b5be2e0da7efb0f93a78124b8772c6103230dd5df7065c0a0af621c0beccb15',
+                                              '5471e5037e4f38c43af8e3d03c9498905d1635fa75e16c62db85fb47d947ade7',
+                                              '3eb47927c9570655b17a98ed5f59e4a7a28d053c0cd519d92dac97f0c7cddd51',
+                                              '5bb49b562a488b5a8a8dfbf439fd3b6112d30cd706882ee5d5d8b007ec4b4deb',
+                                              'e638b4875ea141d99c1b90d37750c090fe5d7eb639027552c77183c9626fae74',
+                                              '9d42f53b370003fd06b6de64297e4d4ff23ddcc8644b266fbd4c1997b65633d4',
+                                              '118f7cc003143220d66c41465d274dde907868ff959fb20747bb2c3439aeaf3a',
+                                              '299f33ad3659613ec3750947a1c89714147b32b951c401838fd7d8944939a7fc',
+                                              '87927b59639730366e7c87c88ac7d63a05d464dbb08b6724effb23257c2c2fd5']},
+           'sharded': {'kinds': {'delta': 19},
+                       'placements_sha256': ['66e0c1dcb5c6024d519ef8a36cd93898cb2b292090f37c0ad21b1639604ef0f1',
+                                             '642b7f3ff99dddd0cc92577a8026b1037d6cf0d54643233f3914dbc4c61ad095',
+                                             'd52d669faccf35b8850ff6d3587561b85a9c264e99c5d954be6d60737e448e04',
+                                             '7c28574cef29416ea730776d4bcaf4151da8cd13220fc8a7eeb94e90d4ad477c',
+                                             '0bd342f5e81bfee1125cf3db8f7e8f3fb0d34642ece452131867a67a523f5228',
+                                             '5a1d0a2795f3dc63e6657d32c36e9f0e8e051b7a4bea0c9df84cff387cfdfce4',
+                                             '4696dc93d8293bbc948784304d04873ea4c974d639b2385e2744f74a74c9db12',
+                                             '41a9269f0b8d3738cd82dbf38f77502bac98c1712f3ff13fc8ac54c465fd1c36',
+                                             '58b78fc3acba6661ad0042ee00d5ee6b7d8c74c3f1869238d99dad7e7c3a979c',
+                                             '18102d136984cf9b0a4c9dc1878d2d1ca9db2b9275bd1d550dbdbfb418233273',
+                                             '663ffbeed26122c376c8491bfb3ad8549308b6ff6eb95b0b31dcc9c531926a88',
+                                             '30ccfd556023ce5529dbeabb3e8ad55e3bebcfbdfd0f5779c28aeb32ce7705fd',
+                                             '65d0a5cc7a09df246387256047b2620b1ca42d9fd5e40112c190825da6384918',
+                                             '3be769e319cfe2e7b3370d278f561dc5047e0aff8cb80adc81e73e7f74c9e279',
+                                             '05ce34b50309b99dc44c75ce9c0416220cebca6fe27b2f74cd32fb6157cd267a',
+                                             '7b5be2e0da7efb0f93a78124b8772c6103230dd5df7065c0a0af621c0beccb15',
+                                             '5471e5037e4f38c43af8e3d03c9498905d1635fa75e16c62db85fb47d947ade7',
+                                             '3eb47927c9570655b17a98ed5f59e4a7a28d053c0cd519d92dac97f0c7cddd51',
+                                             '5bb49b562a488b5a8a8dfbf439fd3b6112d30cd706882ee5d5d8b007ec4b4deb',
+                                             'e638b4875ea141d99c1b90d37750c090fe5d7eb639027552c77183c9626fae74',
+                                             '9d42f53b370003fd06b6de64297e4d4ff23ddcc8644b266fbd4c1997b65633d4',
+                                             '118f7cc003143220d66c41465d274dde907868ff959fb20747bb2c3439aeaf3a',
+                                             '299f33ad3659613ec3750947a1c89714147b32b951c401838fd7d8944939a7fc',
+                                             '87927b59639730366e7c87c88ac7d63a05d464dbb08b6724effb23257c2c2fd5']}},
+ 'soak': ['round    128: live=19977 placed/round=200.0 supersteps mean=273 max=8221 down=0 '
+          'full=9 migrated=174489 preempted=0',
+          'round    256: live=20160 placed/round=200.6 supersteps mean=301 max=6176 down=5 '
+          'full=10 migrated=194301 preempted=0',
+          'round    256: checkpoint round-trip OK (soak continues on the restored cluster)',
+          'round    384: live=20146 placed/round=200.0 supersteps mean=329 max=7454 down=0 '
+          'full=10 migrated=195527 preempted=0',
+          'round    512: live=19935 placed/round=201.5 supersteps mean=281 max=6252 down=5 '
+          'full=10 migrated=194237 preempted=0',
+          'round    512: checkpoint round-trip OK (soak continues on the restored cluster)'],
+ 'tails': {'coco-preempt': {'capture': 'rounds=4 supersteps p50=5384 p90=7658 p99=7673 '
+                                       'max=7675 tails>=5000: 2',
+                            'npz_sha256': {'Mp': 'c51265ddabbdce236a39a59abd7573b162b83a1e5122ccf193f32776058dd8eb',
+                                           'colcap_0': '206629ffe1a68d057804bd6cfe8b998aa705e3e7d31b771bff22147dd341317b',
+                                           'colcap_1': '206629ffe1a68d057804bd6cfe8b998aa705e3e7d31b771bff22147dd341317b',
+                                           'discount': '4c2306da2ed72d266aaec21ec11681d5f0bb5fe93f4e8b4ee49c3f54d66e09fd',
+                                           'n': '3d542c565a8cf404b353c49a40c7e2175943338ab69b45b07e5572ba19a9345b',
+                                           'n_scale': 'c51265ddabbdce236a39a59abd7573b162b83a1e5122ccf193f32776058dd8eb',
+                                           'preempt': '12ceaa6bd0c061443528cc7e9f37fdb11e6ad3806f9d321ca8935dbdc50b1e72',
+                                           'residents_0': '449656ce044a850064655808beda481b9378b557f3566305bc3dd20faff2382e',
+                                           'residents_1': 'ff645deda42ac6706fdc28487fb9a238cb8fe7f3a7d561a538e656109da660bd',
+                                           'ss_0': 'cd3ed6b4dd81cde92b9c2dfd6e89cc6d8e80a954fef63daa8ba0d1c2324a1f29',
+                                           'ss_1': '6e6421007f948903a45041990c9225f5a8ce3412ac46d5cd257017d4358f04b7',
+                                           'supply_0': '9f9d51b6caad95cc5caabeaa66fe458d55ec1b6e1be96f6ad0c1ce7d59971c25',
+                                           'supply_1': 'f61920a48c16b58c4cbb738694751f99708693e54c8a12687e9b63d3bec60867',
+                                           'w_0': 'e06e2756b3acd092b88948f788848900ae97b2f3076d1dac9e09614193cfbe9a',
+                                           'w_1': '6a214de75f311c6d2f17e8a4454e3eac9091ab3d7140a5d10c59fb9c6c6fc808'},
+                            'replay': ['inst 0: C=4 total=20000 residents=19800 cap=32000 '
+                                       'orig_ss=7617',
+                                       '  eps0=full  refine= 0: ss=57569 conv=True',
+                                       '  eps0=full  refine= 8: ss=4934 conv=True',
+                                       '  eps0=n     refine= 0: ss=16080 conv=True',
+                                       '  eps0=n     refine= 8: ss=7617 conv=True',
+                                       '  eps0=n/4   refine= 0: ss=35002 conv=True',
+                                       '  eps0=n/4   refine= 8: ss=22650 conv=True',
+                                       '  eps0=n/16  refine= 0: ss=89568 conv=True',
+                                       '  eps0=n/16  refine= 8: ss=84465 conv=True',
+                                       'inst 1: C=4 total=20000 residents=19800 cap=32000 '
+                                       'orig_ss=7675',
+                                       '  eps0=full  refine= 0: ss=47031 conv=True',
+                                       '  eps0=full  refine= 8: ss=7197 conv=True',
+                                       '  eps0=n     refine= 0: ss=20025 conv=True',
+                                       '  eps0=n     refine= 8: ss=7675 conv=True',
+                                       '  eps0=n/4   refine= 0: ss=25377 conv=True',
+                                       '  eps0=n/4   refine= 8: ss=20344 conv=True',
+                                       '  eps0=n/16  refine= 0: ss=78255 conv=True',
+                                       '  eps0=n/16  refine= 8: ss=75533 conv=True']},
+           'quincy': {'capture': 'rounds=4 supersteps p50=282 p90=287 p99=287 max=287 '
+                                 'tails>=280: 2',
+                      'npz_sha256': {'Mp': 'c51265ddabbdce236a39a59abd7573b162b83a1e5122ccf193f32776058dd8eb',
+                                     'active_cap': 'e6a09f376781f14729455ae1cf2e05d8fbc76edd9e23671605939c376d24732c',
+                                     'free_0': 'c200602eb8fd26871843a731c1e1983179234ea7f21bbe263a8e75a2f868282e',
+                                     'free_1': 'ab9803d8e7c7c441d788cb30d575003e7ee2f66e4bcc4a87be7c37b8bb8ca90d',
+                                     'g_e': '47d2543f576cf9e03801e71168536029133c394a48ae0c5a316fe25dd87f1c0e',
+                                     'g_pref': '57aee1efdb70506c82c65292fa72c9891c07edc019920a4131dee23b1c8a48fe',
+                                     'g_u': '18bcc55dc0ad029d53660f3da523127450a1c07873c35cf5556b7124f68aed65',
+                                     'grouped': '12ceaa6bd0c061443528cc7e9f37fdb11e6ad3806f9d321ca8935dbdc50b1e72',
+                                     'n': '3d542c565a8cf404b353c49a40c7e2175943338ab69b45b07e5572ba19a9345b',
+                                     'n_scale': 'b418762a97348dded7db1c5f761dad977ea3e782b54ea2b9bafe58a7b04a9343',
+                                     'ss_0': '05eeff6a9da4a839e0fceba038da189627ac0767ed73f7dc8f4dc702d538e7f3',
+                                     'ss_1': '05eeff6a9da4a839e0fceba038da189627ac0767ed73f7dc8f4dc702d538e7f3',
+                                     'supply_0': '7a5e4a2188f735ded7b915440c85ffda8c598e6d6c349d8db96049305ceab9dd',
+                                     'supply_1': '2755df39f7ebca28faef87dbf427db122bc69e16d2f3aeacc9dc5dd7d6eb6d3f'},
+                      'replay': ['inst 0: rows=94 total=100 free=6100 two_stage_ok=True '
+                                 'orig_ss=287',
+                                 '  two:1:256     : ss=287',
+                                 '  two:n4:1024   : ss=121',
+                                 '  full:n4:2     : ss=115',
+                                 '  full:n:2      : ss=31',
+                                 'inst 1: rows=89 total=100 free=6100 two_stage_ok=True '
+                                 'orig_ss=287',
+                                 '  two:1:256     : ss=287',
+                                 '  two:n4:1024   : ss=121',
+                                 '  full:n4:2     : ss=115',
+                                 '  full:n:2      : ss=31']},
+           'whare': {'capture': 'rounds=60 supersteps p50=19 p90=19 p99=51 max=61 tails>=40: 3',
+                     'npz_sha256': {'Mp': 'c51265ddabbdce236a39a59abd7573b162b83a1e5122ccf193f32776058dd8eb',
+                                    'colcap_0': '993bf710d5f5b7cae79728ac1abe39723300e16d9f9e3876f6006555812388f8',
+                                    'colcap_1': '605901d8e0a9b5940cb6e0085e0f1447b47c13e2a3c12e8ecd9a9649b9c32c36',
+                                    'colcap_2': 'da297bd07d51c83269f73625f493006229bd2e3a5a8cbc0d8bb0dd44d450caeb',
+                                    'discount': '12ceaa6bd0c061443528cc7e9f37fdb11e6ad3806f9d321ca8935dbdc50b1e72',
+                                    'n': '556dffc4bb2f17c8d57345cc40fe77e4d572c1590acec9b560654f4ddfdda88e',
+                                    'n_scale': 'c51265ddabbdce236a39a59abd7573b162b83a1e5122ccf193f32776058dd8eb',
+                                    'preempt': '3e2a673ae9594b60e56b7004349ef5706cb53e6686a2b494e5accfce12f684e6',
+                                    'ss_0': '1cb13bde8e48a5df803e7bb9cd21bcb3049cda8beda59b32acd6465397353311',
+                                    'ss_1': 'd5eb4361c0f34fa0e7668f6df28bfba62d18068c09673e8f5fd47fef08f22fdf',
+                                    'ss_2': '779f279bb43b90d658b524739ac78e9cd2be48dea0b43c8fbe3cfebdf04f7ded',
+                                    'supply_0': '1d4adf259fd355c615a7601a007fecb7e7b4d0e04fb29e116076e87317f25d48',
+                                    'supply_1': '6e87acbb7a824451233f2e4848a74325c6330cc880e6fac45e5ad488a6e7f2c2',
+                                    'supply_2': 'efcb18468c80df8b9110dfe86b4d639d66cdaea66eb47bcb9c5422eb8be30fff',
+                                    'w_0': '315f1d1275ef46f47e085a2dcd7c76c998f646ceb9c7805c80fce6c69db7ffbe',
+                                    'w_1': '99b7055bd1393464577f360cae37ac43c64c4459fc50455a96a916118286b071',
+                                    'w_2': '9bbf907418eebbb1b51cf3f7895929e872106d898d688588301456a14cef8582'},
+                     'replay': ['instance 0: C=4 M=1000 supply=[53, 42, 51, 54] '
+                                'cap_total=12200 orig_ss=41',
+                                '  alpha=2 refine=8: ss=41 conv=True obj=-485311',
+                                '  alpha=2 refine=32: ss=41 conv=True obj=-485311',
+                                '  alpha=8 refine=8: ss=41 conv=True obj=-485311',
+                                '  alpha=8 refine=32: ss=41 conv=True obj=-485311',
+                                'instance 1: C=4 M=1000 supply=[40, 64, 49, 47] '
+                                'cap_total=12200 orig_ss=61',
+                                '  alpha=2 refine=8: ss=61 conv=True obj=-484874',
+                                '  alpha=2 refine=32: ss=61 conv=True obj=-484874',
+                                '  alpha=8 refine=8: ss=61 conv=True obj=-484874',
+                                '  alpha=8 refine=32: ss=61 conv=True obj=-484874',
+                                'instance 2: C=4 M=1000 supply=[58, 52, 37, 53] '
+                                'cap_total=12200 orig_ss=44',
+                                '  alpha=2 refine=8: ss=44 conv=True obj=-484439',
+                                '  alpha=2 refine=32: ss=44 conv=True obj=-484439',
+                                '  alpha=8 refine=8: ss=44 conv=True obj=-484439',
+                                '  alpha=8 refine=32: ss=44 conv=True obj=-484439']}}}
+
 CLI_TENANTS = ["--tenants", "4", "--podgen", "20000", "-nm", "1000", "--pus-per-core", "4",
                "-mt", "4"]
 #: the Makefile's tenant-smoke
@@ -1832,6 +2102,22 @@ def phase_steady(dev, cluster, tasks):
         check_occupancy(cluster, f"steady chunk {chunk}")
 
 
+def tiered_bound(c):
+    """(bytes bound, operations bound) in ms of a captured tiered solve:
+    the bytes moved once (wLo, wHi, R, supply, col_cap, eps in; y, pm,
+    steps, converged out) against the int32 operations this data needs."""
+    wLo, _wHi, _R, _supply, _col_cap, eps = c["args"]
+    kw = c["kw"]
+    C, Mp = wLo.shape
+    steps = int(c["out"][2])
+    nbytes = 4 * (4 * C * Mp + C + 2 * Mp + 3)
+    phases = eps_phases(eps, kw.get("alpha", 8))
+    per_phase = (OPS_PER_CELL_PHASE_TIERED
+                 + OPS_PER_CELL_WAVE_TIERED * kw.get("refine_waves", 0))
+    return bound_ms(
+        nbytes, C * Mp * (OPS_PER_CELL_STEP_TIERED * steps + per_phase * phases))
+
+
 def phase_timing_tiered(calls, picked, plain_ms, reps=5, extra=(2,)):
     """The tiered kernel's time at the picked captured solves (CUDA
     events), beside its plain version's (measured at the re-solve) and
@@ -1847,14 +2133,7 @@ def phase_timing_tiered(calls, picked, plain_ms, reps=5, extra=(2,)):
         kw = c["kw"]
         C, Mp = wLo.shape
         steps = int(c["out"][2])
-        # bound: bytes moved once (wLo, wHi, R, supply, col_cap, eps in;
-        # y, pm, steps, converged out) vs int32 operations this data needs
-        nbytes = 4 * (4 * C * Mp + C + 2 * Mp + 3)
-        phases = eps_phases(eps, kw.get("alpha", 8))
-        per_phase = (OPS_PER_CELL_PHASE_TIERED
-                     + OPS_PER_CELL_WAVE_TIERED * kw.get("refine_waves", 0))
-        b_bytes, b_ops = bound_ms(
-            nbytes, C * Mp * (OPS_PER_CELL_STEP_TIERED * steps + per_phase * phases))
+        b_bytes, b_ops = tiered_bound(c)
         k_ms = timed_ms(lambda: transport_loop_tiered(*c["args"], **kw), reps)
         say(f"timing tiered solve {i} [{C},{Mp}] steps={steps}: kernel_ms={k_ms:.4f} "
             f"plain_ms={plain_ms.get(i, float('nan')):.3f} "
@@ -3200,6 +3479,13 @@ def phase_native(dev):
     run_service_checked(dev, "native")
 
 
+#: policies whose transport solves are not re-solved by the plain
+#: version: policy-random's two take ≈90 s plain on the card (35,568 and
+#: 15,676 supersteps at [186, 128] and [96, 128]), the first cut that
+#: keeps the smoke within its time
+PLAIN_RESOLVE_CUT = ("policy-random",)
+
+
 def phase_policies(dev):
     """One service run per host cost model beyond Trivial, Quincy and
     Whare-Map (drivers/service.py POLICY_CONFIGS: BASELINE's round and one round
@@ -3207,8 +3493,9 @@ def phase_policies(dev):
     the card): every round's bound count, placements' sha256, AutoSolver
     path and solver work equal to the JAX package's, its RoundRecord
     phases printed; the transport and mcmf solves they launch counted
-    and re-solved by the plain versions with the same bits. Returns
-    (transport launches, mcmf launches, max_abs_err)."""
+    and re-solved by the plain versions with the same bits, but for the
+    policies in PLAIN_RESOLVE_CUT. Returns (transport launches, mcmf
+    launches, max_abs_err)."""
     import ksched_tpu_torch.ops as ops
     from ksched_tpu_torch.drivers.service import POLICY_CONFIGS, package, run_service
     from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
@@ -3233,6 +3520,10 @@ def phase_policies(dev):
         check(n1 == len(rec1.calls) and n3 == len(rec3.calls),
               f"{name}: launches {n1}/{n3} != solves {len(rec1.calls)}/{len(rec3.calls)}")
         b1, b3 = b1 + n1, b3 + n3
+        if name in PLAIN_RESOLVE_CUT:
+            say(f"{name}: the plain re-solves of its {len(rec1.calls)} transport solves are "
+                "cut (their values are held against the JAX package's above)")
+            rec1.calls = []
         for i, c in enumerate(rec1.calls):
             err, _ms = resolve_plain(f"{name} transport solve {i}", c, False)
             worst = max(worst, err)
@@ -3730,6 +4021,222 @@ def phase_whatif(dev, cluster):
 
 
 # ---------------------------------------------------------------------------
+# the operator tools: drivers/soak.py's device soak, ksched_tpu_torch/tools/
+# ---------------------------------------------------------------------------
+
+#: the smoke's tool arguments (tests/torch_tools_reference.py's, read back
+#: from REF_TOOLS["args"] and held equal there)
+TOOL_SOAK = ["--tasks", "20000", "--machines", "500", "--preempt", "--rounds", "512",
+             "--chunk", "128", "--checkpoint-every", "2"]
+
+
+def reset_transport_launches():
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+
+    transport_loop.launches = 0
+    transport_loop_tiered.launches = 0
+
+
+def transport_launches():
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+
+    return transport_loop.launches, transport_loop_tiered.launches
+
+
+def phase_device_soak(dev):
+    """drivers/soak.py's device soak at tools/soak.py's 20,000 tasks on
+    500 machines, --preempt, 512 rounds in chunks of 128 with a
+    checkpoint round trip every 2 chunks (the soak continues on the
+    restored cluster): every chunk's line equal to the JAX tool's, the
+    wall per round, and the launches of B1 (incremental rounds) and B2
+    (tiered re-solves). Returns (B1 launches, B2 launches)."""
+    from ksched_tpu_torch.drivers.soak import bulk_soak_summary, parse_args, run_bulk_soak
+
+    check(REF_TOOLS["args"]["soak"] == TOOL_SOAK, "REF_TOOLS is for other soak arguments")
+    args = parse_args(TOOL_SOAK + ["--device", dev.type])
+    reset_transport_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_bulk_soak(args, lambda *a, **k: say("  device soak:", *a))
+    wall = time.perf_counter() - t0
+    b1, b2 = transport_launches()
+    got = bulk_soak_summary(res)
+    for i, (a, b) in enumerate(zip(got, REF_TOOLS["soak"])):
+        check(a == b, f"device soak line {i}: {a!r} != the JAX tool's {b!r}")
+    check(len(got) == len(REF_TOOLS["soak"]), f"device soak: {len(got)} lines")
+    check(b1 >= 1 and b2 >= 1, f"device soak launches B1 {b1} B2 {b2}")
+    say(f"device soak: {res['rounds']} rounds, {res['checkpoints']} checkpoint round "
+        f"trips, {wall:.3f} s wall, {1e3 * wall / res['rounds']:.3f} ms a round (the "
+        f"invariant fetches and round trips included); launches B1 {b1}, B2 {b2}; "
+        f"every chunk equal to the JAX tool's")
+    return b1, b2
+
+
+#: the smoke's captures (tools/tail_repro.py's full configs): rounds and
+#: thresholds that keep two or three tails, and each capture's replay
+TOOL_TAILS = {
+    "whare": dict(rounds=60, threshold=40, replay="replay", alpha="2,8", refine="8,32"),
+    "coco-preempt": dict(rounds=4, threshold=5000, replay="replay-tiered", refine="0,8"),
+    "quincy": dict(rounds=4, threshold=280, replay="replay-grouped",
+                   strategies="two:1:256,two:n4:1024,full:n4:2,full:n:2"),
+}
+
+
+def npz_sha256(path) -> dict:
+    """sha256 of each array of an npz, by key (dtype and shape included)."""
+    data = np.load(path)
+    return {k: hashlib.sha256(
+        f"{data[k].dtype}{data[k].shape}".encode() + np.ascontiguousarray(data[k]).tobytes()
+    ).hexdigest() for k in sorted(data.files)}
+
+
+def phase_tails(dev):
+    """tools/tail_repro.py on the card: for whare (B1), coco-preempt (B2)
+    and quincy (group mode, B1) at the tool's full sizes, the capture loop
+    (each round driven from the host, its pre-solve instance kept when
+    its supersteps reach the threshold), the capture line and every npz
+    array equal to the JAX tool's; then the capture's replay (`replay`
+    over alpha x refine, `replay-tiered` over eps0 x refine,
+    `replay-grouped` over its strategies), every point's line equal to
+    the JAX tool's, each replayed solve's supersteps and kernel ms
+    printed, and the cheapest replayed solve re-solved by the plain
+    version with the same bits and timed beside its bound. Returns (B1
+    launches, B2 launches, max_abs_err, per kernel [kernel ms, plain ms,
+    bound ms] of the re-solved solves)."""
+    import argparse
+    import os
+    import tempfile
+
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch.tools import tail_repro
+
+    check(REF_TOOLS["args"]["tails"] == TOOL_TAILS, "REF_TOOLS is for other captures")
+    replays = {"replay": tail_repro.replay, "replay-tiered": tail_repro.replay_tiered,
+               "replay-grouped": tail_repro.replay_grouped}
+    b1 = b2 = worst = 0
+    timing = {"transport": [0.0, 0.0, 0.0], "transport_tiered": [0.0, 0.0, 0.0]}
+    with tempfile.TemporaryDirectory() as td:
+        for name, spec in TOOL_TAILS.items():
+            want = REF_TOOLS["tails"][name]
+            reset_transport_launches()
+            t0 = time.perf_counter()
+            cluster, tasks, groups = tail_repro.build_config(name, device=dev)
+            insts, ss_all = tail_repro.capture_rounds(cluster, tasks, spec["rounds"],
+                                                      spec["threshold"], groups=groups)
+            torch.cuda.synchronize()
+            cap_s = time.perf_counter() - t0
+            line = tail_repro.capture_summary(ss_all, spec["threshold"], len(insts))
+            say(f"tails {name} capture: {line} in {cap_s:.3f} s "
+                f"({1e3 * cap_s / spec['rounds']:.3f} ms a captured round, the build, "
+                f"fill and host churn included); launches {transport_launches()}")
+            check(line == want["capture"], f"tails {name}: {line!r} != {want['capture']!r}")
+            path = os.path.join(td, f"{name}.npz")
+            np.savez_compressed(path, **tail_repro.instances_npz(cluster, insts,
+                                                                 groups is not None))
+            check(npz_sha256(path) == want["npz_sha256"],
+                  f"tails {name}: the npz differs from the JAX tool's")
+            c1, c2 = transport_launches()
+            tiered = spec["replay"] == "replay-tiered"
+            entry = "transport_solve_tiered" if tiered else "transport_solve"
+            kw = {k: v for k, v in spec.items() if k in ("alpha", "refine", "strategies")}
+            lines = []
+            reset_transport_launches()
+            with Recorder(ops, entry) as rec:
+                t0 = time.perf_counter()
+                replays[spec["replay"]](argparse.Namespace(inst=path, device=str(dev), **kw),
+                                        lambda s, **k: lines.append(s))
+                torch.cuda.synchronize()
+                rep_s = time.perf_counter() - t0
+            r1, r2 = transport_launches()
+            for i, (a, b) in enumerate(zip(lines, want["replay"])):
+                check(a == b, f"tails {name} {spec['replay']} line {i}: {a!r} != {b!r}")
+            check(len(lines) == len(want["replay"]), f"tails {name}: {len(lines)} lines")
+            check(len(rec.calls) == r1 + r2 >= 1, f"tails {name}: launches {r1} {r2}")
+            for ln in lines:
+                say(f"  tails {name} {spec['replay']}: {ln.strip()}")
+            say(f"tails {name} {spec['replay']}: {len(rec.calls)} solves in {rep_s:.3f} s, "
+                "kernel ms / supersteps: "
+                + ", ".join(f"{c['events'][0].elapsed_time(c['events'][1]):.3f}/"
+                            f"{int(c['out'][2])}" for c in rec.calls))
+            b1, b2 = b1 + c1 + r1, b2 + c2 + r2
+            i = min(range(len(rec.calls)), key=lambda j: int(rec.calls[j]["out"][2]))
+            c = rec.calls[i]
+            err, p_ms = resolve_plain(f"tails {name} replayed solve {i}", c, tiered)
+            worst = max(worst, err)
+            b_bytes, b_ops = tiered_bound(c) if tiered else transport_bound(c)
+            k_ms = timed_ms(lambda: getattr(ops, entry)(*c["args"], **c["kw"]), 5)
+            steps = int(c["out"][2])
+            say(f"timing tails {name} solve {i} {list(c['args'][0].shape)} steps={steps}: "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
+                f"bound_ms={max(b_bytes, b_ops):.6f} (bytes {b_bytes:.6f}, operations "
+                f"{b_ops:.6f}) kernel_us_per_step={1e3 * k_ms / max(steps, 1):.3f}")
+            t = timing["transport_tiered" if tiered else "transport"]
+            t[0], t[1], t[2] = t[0] + k_ms, t[1] + p_ms, t[2] + max(b_bytes, b_ops)
+    return b1, b2, worst, timing
+
+
+def phase_profile_round(dev):
+    """tools/profile_round.py on the card at its 10k tasks x 1k machines x
+    4 PUs x 4 slots: the launch floor (64 trivial launches and one
+    synchronize), one synchronize's round trip and the sustained steady
+    round (64 chained rounds over their wall), each an obs span; each
+    timed chain's stats equal to the JAX package's for the same round
+    sequence; the session's Chrome trace rendered by tools/obs_report.py.
+    Returns (B1 launches, B2 launches)."""
+    import os
+    import tempfile
+
+    from ksched_tpu_torch.tools import obs_report, profile_round
+
+    reset_transport_launches()
+    out = profile_round.profile(str(dev), log=say)
+    launches = transport_launches()
+    check(out["converged"], "profile_round: a chained round did not converge")
+    check(out["chunks_sha256"] == REF_TOOLS["profile"],
+          "profile_round: the timed chains' stats differ from the JAX package's")
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "profile_round_trace.json")
+        out["tracer"].dump(path)
+        lines = []
+        obs_report.load_and_report(path, log=lambda *a, **k: lines.append(" ".join(a)))
+    for ln in lines:
+        say(f"  profile_round trace: {ln}")
+    check(any(ln.startswith("steady_chunk ") for ln in lines), "obs_report: no steady_chunk")
+    say(f"profile_round: launch floor {out['launch_us']:.3f} us a launch, one synchronize's "
+        f"round trip {1e3 * out['sync_round_trip_ms']:.3f} us, steady round "
+        f"{out['steady_round_us']:.3f} us ({out['steady_chunk_ms']:.3f} ms a chain of "
+        f"{out['rounds']}); launches B1 {launches[0]}, B2 {launches[1]}")
+    return launches
+
+
+def phase_shard_smoke(dev):
+    """ksched_tpu_torch/tools/shard_smoke.py at the Makefile's arguments on
+    SHARD_RANKS gloo ranks sharing the card: the scan-CSR reference, the
+    sharded arm (placements equal every round, delta-sized plan syncs
+    after warm-up) and chaos containment on the sharded -> jax -> cpu_ref
+    ladder (twin runs alike), each arm's placements, plan syncs,
+    degradations, fault snapshot and landing rungs equal on both ranks
+    and to the JAX tool's arms on 2 virtual devices."""
+    from ksched_tpu_torch.parallel.launch import run_ranks
+    from ksched_tpu_torch.tools.shard_smoke import MAKEFILE
+
+    check(REF_TOOLS["args"]["shard"] == dict(MAKEFILE, devices=SHARD_RANKS),
+          "REF_TOOLS is for other shard-smoke arguments")
+    got = run_ranks("ksched_tpu_torch.tools.shard_smoke:rank_smoke", SHARD_RANKS,
+                    dict(MAKEFILE, verbose=False, device=str(dev)), deadline_s=600,
+                    timeout_s=300)
+    for r, g in enumerate(got):
+        check(g["backend"] == "gloo", f"rank {r} on {g['backend']}")
+        for arm in ("scan_csr", "sharded", "chaos"):
+            check(g[arm] == REF_TOOLS["shard"][arm],
+                  f"shard smoke rank {r} {arm}: {g[arm]} != the JAX tool's")
+    for ln in got[0]["log"]:
+        say(f"  shard smoke: {ln}")
+    say(f"shard smoke: {SHARD_RANKS} ranks equal to each other and to the JAX tool's "
+        f"arms; rank walls {[round(g['wall_s'], 3) for g in got]} s")
+
+
+# ---------------------------------------------------------------------------
 # the static-analysis suite on the card
 # ---------------------------------------------------------------------------
 
@@ -3906,15 +4413,27 @@ def main() -> int:
     wi_b1, wi_err, wi_k, wi_p, wi_b, _wi_by = phase_whatif(dev, w_cluster)
     lap("whatif")
     say(f"transport launches: sharded-layered single-card arm {sl_b1}, whatif {wi_b1}")
+    so_b1, so_b2 = phase_device_soak(dev)
+    lap("device soak")
+    ta_b1, ta_b2, ta_err, ta_timing = phase_tails(dev)
+    lap("tails")
+    pr_b1, pr_b2 = phase_profile_round(dev)
+    lap("profile_round")
+    phase_shard_smoke(dev)
+    lap("shard smoke")
+    say(f"launches on the tool paths: device soak B1 {so_b1} B2 {so_b2}, tails B1 {ta_b1} "
+        f"B2 {ta_b2}, profile_round B1 {pr_b1} B2 {pr_b2}; the re-solved tail solves "
+        f"[kernel ms, plain ms, bound ms]: {json.dumps(ta_timing)}")
 
     kernels = [{
         "name": "transport",
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/transport.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:59",
-        "launches": launches + g_b1 + s_launches + pol_b1 + sl_b1 + wi_b1,
+        "launches": (launches + g_b1 + s_launches + pol_b1 + sl_b1 + wi_b1 + so_b1 + ta_b1
+                     + pr_b1),
         "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err, s_err,
-                           pol_err, wi_err),
+                           pol_err, wi_err, ta_err),
         "ms": k_ms + g_k + s_k + wi_k,
         "plain_ms": p_ms + g_p + s_p + wi_p,
         "bound_ms": b_ms + g_b + s_b + wi_b,
@@ -3925,8 +4444,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/transport_tiered.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:233",
-        "launches": t_launches,
-        "max_abs_err": max(t_err, t_main_err, tier_err),
+        "launches": t_launches + so_b2 + ta_b2 + pr_b2,
+        "max_abs_err": max(t_err, t_main_err, tier_err, ta_err),
         "ms": tk_ms,
         "plain_ms": tp_ms,
         "bound_ms": tb_ms,

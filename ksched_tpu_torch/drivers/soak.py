@@ -1,19 +1,36 @@
-"""The event-path chaos soak: the SchedulerService under a seeded fault
-schedule (runtime/chaos.py) — control-plane outages, dropped binding
-POSTs, machine heartbeat flaps, forced solver faults (non-convergence,
-backend exceptions, NaN'd costs) — with mid-soak kill-and-restore from
-a service checkpoint. It asserts, every chunk: zero scheduler crashes
-(any exception fails the soak), supply/binding/capacity invariants,
-and at the end that every injected fault is accounted for in the
-per-round RoundRecord counters. The acceptance arms (`chaos_main`):
-determinism (two runs, identical placements and fault totals),
-recovery (device bit flips audited every round and kill-and-restores
-through the warm manifest, against a clean control run) and loop
-parity (sync, pipelined, pipelined + device-resident).
+"""The soaks of ksched_tpu's tools/soak.py, on the port.
 
-Run: python -m ksched_tpu_torch.drivers.soak --rounds 96 --chunk 32 \
-         --seed 0 --machines 6 --slots 8 --chaos-restore-every 48 \
-         --verify-determinism [--device cpu]
+**The device soak** (`run_bulk_soak`, the default mode): thousands of
+chained DeviceBulkCluster rounds at 20k tasks with churn and elastic
+machine membership, the state invariants checked at every chunk. It
+catches what the short chains cannot: slow state drift (pu_running
+against the placements), convergence decay as the class mix wanders,
+and accounting leaks across enable/disable cycles. `--preempt` runs it
+in stability-aware preemption mode (incremental rounds on the transport
+kernel, tiered re-solves on the tiered one); `--checkpoint-every N`
+round-trips the cluster through save/load_device_checkpoint every N
+chunks and the soak CONTINUES on the restored cluster, so a
+reconstruction defect surfaces as drift in later chunks:
+
+    python -m ksched_tpu_torch.drivers.soak --rounds 1024 --preempt \
+         --checkpoint-every 4 [--device cpu]
+
+**The event-path chaos soak** (`--chaos`): the SchedulerService under a
+seeded fault schedule (runtime/chaos.py) — control-plane outages,
+dropped binding POSTs, machine heartbeat flaps, forced solver faults
+(non-convergence, backend exceptions, NaN'd costs) — with mid-soak
+kill-and-restore from a service checkpoint. It asserts, every chunk:
+zero scheduler crashes (any exception fails the soak), supply/binding/
+capacity invariants, and at the end that every injected fault is
+accounted for in the per-round RoundRecord counters. The acceptance
+arms (`chaos_main`): determinism (two runs, identical placements and
+fault totals), recovery (device bit flips audited every round and
+kill-and-restores through the warm manifest, against a clean control
+run) and loop parity (sync, pipelined, pipelined + device-resident).
+
+Run: python -m ksched_tpu_torch.drivers.soak --chaos --rounds 96 \
+         --chunk 32 --seed 0 --machines 6 --slots 8 \
+         --chaos-restore-every 48 --verify-determinism [--device cpu]
 
 The multi-tenant soak (`run_tenant_soak`, --tenants N): one warm
 process serves N cells of mixed sizes with chaos on one of them; zero
@@ -23,8 +40,8 @@ placements and solver work equal to the same tenant run alone:
     python -m ksched_tpu_torch.drivers.soak --tenants 16 --rounds 40 \
          --seed 0 --chaos-tenant 0 [--device cpu]
 
-Port of the chaos and tenant soaks of ksched_tpu's tools/soak.py (its
-device-bulk soak is not ported). The soak's solves run on
+Port of ksched_tpu's tools/soak.py, its three modes and their flags
+(`--device` in place of `--cpu`). The soaks' solves run on
 ``args.device`` ("cuda" by default, "cpu" for the plain versions).
 """
 
@@ -581,6 +598,10 @@ def _chaos_soak_body(args, reg, server, log=print) -> dict:
         "device_flips": injector.counters.get("device_bit_flip", 0),
         "recovery_strict": recovery_strict,
         "recovery_latencies_s": recovery_latencies,
+        # the run's observers, for the obs artifacts a caller renders
+        "tracer": tracer,
+        "span_tracer": span_tracer,
+        "service": svc,
     }
 
 
@@ -910,45 +931,213 @@ def tenant_soak_summary(res: dict) -> dict:
             "quarantines": meta["quarantines"], "checked": res["checked"]}
 
 
-def main(argv=None) -> int:
+# ---------------------------------------------------------------------------
+# the device soak: long chains of DeviceBulkCluster rounds
+# ---------------------------------------------------------------------------
+
+
+def build_bulk_soak(args):
+    """The device soak's cluster, as tools/soak.py builds it: CoCo costs
+    over `default_rng(0)` penalties, 4 PUs x 16 slots a machine, 16
+    jobs, 4 classes, `args.tasks` tasks added and one fill round run.
+    Returns (cluster, cost_fn, rng): the soak goes on drawing the
+    membership toggles from `rng`."""
+    from ..costmodels.device_costs import coco_device_cost_fn
+    from ..scheduler.device_bulk import DeviceBulkCluster
+    from ..utils.ids import next_pow2
+
+    rng = np.random.default_rng(0)
+    pen = rng.integers(0, 40, (args.machines, 4)).astype(np.int64)
+    cost_fn = coco_device_cost_fn(pen)
+    preempt_kw = {}
+    if args.preempt:
+        preempt_kw = dict(
+            preemption=True,
+            continuation_discount=8,
+            preempt_every=16,
+            preempt_drift=max(100, args.tasks // 5),
+        )
+    dev = DeviceBulkCluster(
+        num_machines=args.machines,
+        pus_per_machine=4,
+        slots_per_pu=16,
+        num_jobs=16,
+        num_task_classes=4,
+        task_capacity=next_pow2(args.tasks + 4096),
+        class_cost_fn=cost_fn,
+        supersteps=1 << 17,
+        unsched_cost=2500,
+        ec_cost=0,
+        decode_width=2048,
+        device=args.device,
+        **preempt_kw,
+    )
+    dev.add_tasks(
+        args.tasks,
+        rng.integers(0, 16, args.tasks).astype(np.int32),
+        rng.integers(0, 4, args.tasks).astype(np.int32),
+    )
+    dev.fetch_stats(dev.round())
+    return dev, cost_fn, rng
+
+
+def check_bulk_invariants(dev, got: dict, rounds_done: int) -> None:
+    """The device soak's four invariants after a chunk whose fetched
+    stats are `got`: every round converged, pu_running equals the
+    recount of the placements, no PU over its slots, and no task on a
+    disabled machine."""
+    assert got["converged"].all(), f"non-convergence by round {rounds_done}"
+    st = dev.fetch_state()
+    live = st["live"]
+    pu = st["pu"]
+    placed_mask = live & (pu >= 0)
+    recount = np.bincount(pu[placed_mask], minlength=dev.num_pus)
+    pr = st["pu_running"]
+    assert (recount == pr).all(), (
+        f"pu_running drift at round {rounds_done}: "
+        f"max|delta|={np.abs(recount - pr).max()}"
+    )
+    assert (pr <= dev.S).all(), f"slot overflow at round {rounds_done}"
+    enabled = st["machine_enabled"]
+    on_disabled = placed_mask & ~np.repeat(enabled, dev.P)[
+        np.clip(pu, 0, dev.num_pus - 1)
+    ]
+    assert not on_disabled.any(), f"task on disabled machine at {rounds_done}"
+
+
+def _checkpoint_round_trip(dev, cost_fn, device, rounds_done: int):
+    """save_device_checkpoint, load_device_checkpoint on `device`, every
+    state tensor equal; returns the restored cluster."""
+    from ..runtime.checkpoint import load_device_checkpoint, save_device_checkpoint
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "soak.npz")
+        save_device_checkpoint(dev, path)
+        restored = load_device_checkpoint(path, class_cost_fn=cost_fn, device=device)
+    before = dev.fetch_state()
+    after = restored.fetch_state()
+    for k in before:
+        assert np.array_equal(before[k], after[k]), (
+            f"checkpoint round-trip drift in {k} at round {rounds_done}"
+        )
+    return restored
+
+
+def run_bulk_soak(args, log=print) -> dict:
+    """tools/soak.py's device soak on ``args.device``: chunks of
+    `args.chunk` steady rounds (`run_steady_rounds(chunk, 0.01,
+    tasks // 100, seed=100 + chunk_i)`, the JAX package's draws), every
+    other chunk a random slice of machines out of service and back in
+    the next (`rng.choice`, as there), the invariants checked after
+    every chunk, and with `args.checkpoint_every` a checkpoint round
+    trip every N chunks, the soak continuing on the restored cluster.
+    Logs tools/soak.py's lines; returns one record a chunk, the rounds,
+    the checkpoints, the wall and the final cluster."""
+    dev, cost_fn, rng = build_bulk_soak(args)
+    churn_n = max(1, args.tasks // 100)
+    t_start = time.perf_counter()
+    rounds_done = 0
+    down: list = []
+    chunk_i = 0
+    chunks = []
+    checkpoints = 0
+    while rounds_done < args.rounds:
+        # elastic membership: every other chunk, toggle a random slice
+        # of machines out of / back into service
+        if down:
+            for m in down:
+                dev.set_machine_enabled(int(m), True)
+            down = []
+        elif chunk_i % 2 == 1:
+            n_down = min(max(1, args.machines // 100), args.machines - 1)
+            down = rng.choice(args.machines, n_down, replace=False).tolist()
+            for m in down:
+                dev.set_machine_enabled(int(m), False)
+        chunk_i += 1
+
+        this_chunk = min(args.chunk, args.rounds - rounds_done)
+        stats = dev.run_steady_rounds(this_chunk, 0.01, churn_n, seed=100 + chunk_i)
+        got = dev.fetch_stats(stats)
+        rounds_done += this_chunk
+        check_bulk_invariants(dev, got, rounds_done)
+        rec = {
+            "round": rounds_done,
+            "live": int(got["live"][-1]),
+            "placed": int(np.sum(got["placed"], dtype=np.int64)),
+            "rounds": this_chunk,
+            "supersteps": int(np.sum(got["supersteps"], dtype=np.int64)),
+            "supersteps_max": int(got["supersteps"].max()),
+            "down": len(down),
+        }
+        if args.preempt and "full_round" in got:
+            for key, name in (("full", "full_round"), ("migrated", "migrated"),
+                              ("preempted", "preempted")):
+                rec[key] = int(np.sum(got[name], dtype=np.int64))
+        rec["checkpoint"] = bool(args.checkpoint_every
+                                 and chunk_i % args.checkpoint_every == 0)
+        chunks.append(rec)
+        log(bulk_soak_line(rec), flush=True)
+        if rec["checkpoint"]:
+            dev = _checkpoint_round_trip(dev, cost_fn, args.device, rounds_done)
+            checkpoints += 1
+            log(f"round {rounds_done:6d}: checkpoint round-trip OK "
+                "(soak continues on the restored cluster)", flush=True)
+
+    dt = time.perf_counter() - t_start
+    log(
+        f"SOAK OK: {rounds_done} rounds in {dt:.1f}s "
+        f"({dt / rounds_done * 1e3:.2f} ms/round incl verification fetches)"
+    )
+    return {"chunks": chunks, "rounds": rounds_done, "checkpoints": checkpoints,
+            "wall_s": dt, "cluster": dev}
+
+
+def bulk_soak_line(rec: dict) -> str:
+    """tools/soak.py's line for one chunk's record."""
+    extra = ""
+    if "full" in rec:
+        extra = (f" full={rec['full']} migrated={rec['migrated']}"
+                 f" preempted={rec['preempted']}")
+    return (
+        f"round {rec['round']:6d}: live={rec['live']} "
+        f"placed/round={rec['placed'] / rec['rounds']:.1f} "
+        f"supersteps mean={rec['supersteps'] / rec['rounds']:.0f} "
+        f"max={rec['supersteps_max']} "
+        f"down={rec['down']}" + extra
+    )
+
+
+def bulk_soak_summary(res: dict) -> list:
+    """What a device soak is held to across packages and devices: each
+    chunk's line as tools/soak.py prints it, and after a checkpoint
+    round trip its line too."""
+    lines = []
+    for rec in res["chunks"]:
+        lines.append(bulk_soak_line(rec))
+        if rec["checkpoint"]:
+            lines.append(f"round {rec['round']:6d}: checkpoint round-trip OK "
+                         "(soak continues on the restored cluster)")
+    return lines
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """tools/soak.py's command line (`--device` in place of `--cpu`),
+    with the per-mode `--machines` default filled in."""
     ap = argparse.ArgumentParser(prog="python -m ksched_tpu_torch.drivers.soak")
-    ap.add_argument("--rounds", type=int, default=512)
-    ap.add_argument("--chunk", type=int, default=128)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--machines", type=int, default=10)
-    ap.add_argument("--slots", type=int, default=16,
-                    help="task slots per PU")
-    ap.add_argument("--chaos-backend", default="jax",
-                    help="configured solver backend (first ladder rung)")
-    ap.add_argument("--chaos-restore-every", type=int, default=128, metavar="N",
-                    help="kill-and-restore from a service checkpoint every "
-                    "N rounds (0 = never)")
+    ap.add_argument("--rounds", type=int, default=4096)
+    ap.add_argument("--tasks", type=int, default=20_000)
+    ap.add_argument("--machines", type=int, default=None,
+                    help="default: 500 (device soak), 10 (chaos mode)")
+    ap.add_argument("--chunk", type=int, default=256)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--verify-determinism", action="store_true",
-                    help="run twice, require identical placements + fault "
-                    "totals")
-    ap.add_argument("--loop", choices=["sync", "pipelined"], default="sync")
-    ap.add_argument("--device-resident", action="store_true")
-    ap.add_argument("--corruption", action="store_true",
-                    help="inject seeded device-tensor bit flips (implies "
-                    "--device-resident and --audit-every 1)")
-    ap.add_argument("--wal-chaos", type=float, default=0.0, metavar="P",
-                    help="corruption mode: probability a kill-point "
-                    "checkpoint's warm manifest is damaged")
-    ap.add_argument("--audit-every", type=int, default=0, metavar="N")
-    ap.add_argument("--verify-recovery", action="store_true",
-                    help="corruption faults + mid-soak kills vs a clean "
-                    "control run")
-    ap.add_argument("--verify-loop-parity", action="store_true",
-                    help="sync, pipelined and pipelined + device-resident "
-                    "loops must place alike")
-    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
-                    help="serve live Prometheus text during the soak and "
-                    "reconcile the scrape against the RoundRecords at exit")
-    ap.add_argument("--obs-out", metavar="PATH", default=None)
-    ap.add_argument("--flight-dir", metavar="DIR", default=None)
-    ap.add_argument("--assert-stall-flight", action="store_true")
-    ap.add_argument("--solver-outage-prob", type=float, default=None, metavar="P")
+    ap.add_argument("--preempt", action="store_true",
+                    help="stability-aware preemption mode (hybrid rounds)")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                    help="save+load+verify a device checkpoint every N "
+                    "chunks and continue on the RESTORED cluster")
+    ap.add_argument("--chaos", action="store_true",
+                    help="event-path SchedulerService soak under a seeded "
+                    "fault schedule (see the module docstring)")
     ap.add_argument("--tenants", type=int, default=0, metavar="N",
                     help="multi-tenant soak: serve N synthetic cells (mixed "
                     "sizes) from ONE warm batched-solver process, chaos on "
@@ -958,13 +1147,58 @@ def main(argv=None) -> int:
     ap.add_argument("--chaos-tenant", type=int, default=0, metavar="I",
                     help="tenant index the multi-tenant soak injects chaos "
                     "into (-1 = no chaos)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--slots", type=int, default=16,
+                    help="chaos mode: task slots per PU")
+    ap.add_argument("--chaos-backend", default="jax",
+                    help="chaos mode: configured solver backend (first "
+                    "ladder rung)")
+    ap.add_argument("--chaos-restore-every", type=int, default=128, metavar="N",
+                    help="chaos mode: kill-and-restore from a service "
+                    "checkpoint every N rounds (0 = never)")
+    ap.add_argument("--verify-determinism", action="store_true",
+                    help="chaos mode: run twice, require identical "
+                    "placements + fault totals")
+    ap.add_argument("--loop", choices=["sync", "pipelined"], default="sync")
+    ap.add_argument("--device-resident", action="store_true")
+    ap.add_argument("--corruption", action="store_true",
+                    help="chaos mode: inject seeded device-tensor bit flips "
+                    "(implies --device-resident and --audit-every 1)")
+    ap.add_argument("--wal-chaos", type=float, default=0.0, metavar="P",
+                    help="corruption mode: probability a kill-point "
+                    "checkpoint's warm manifest is damaged")
+    ap.add_argument("--audit-every", type=int, default=0, metavar="N")
+    ap.add_argument("--verify-recovery", action="store_true",
+                    help="chaos mode: corruption faults + mid-soak kills vs "
+                    "a clean control run")
+    ap.add_argument("--verify-loop-parity", action="store_true",
+                    help="chaos mode: sync, pipelined and pipelined + "
+                    "device-resident loops must place alike")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="chaos mode: serve live Prometheus text during the "
+                    "soak and reconcile the scrape against the RoundRecords "
+                    "at exit")
+    ap.add_argument("--obs-out", metavar="PATH", default=None)
+    ap.add_argument("--flight-dir", metavar="DIR", default=None)
+    ap.add_argument("--assert-stall-flight", action="store_true")
+    ap.add_argument("--solver-outage-prob", type=float, default=None, metavar="P")
     args = ap.parse_args(argv)
+    if args.machines is None:  # per-mode default (device soak vs chaos)
+        args.machines = 10 if args.chaos else 500
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if args.tenants:
         from .multitenant import package
 
         run_tenant_soak(package(args.device), args)
         return 0
-    chaos_main(args)
+    if args.chaos:
+        chaos_main(args)
+        return 0
+    run_bulk_soak(args)
     return 0
 
 

@@ -187,8 +187,8 @@ class SolveTelemetry:
         return [[int(v) for v in row] for row in self.rows[-k:]]
 
     def to_dict(self) -> dict:
-        """JSON-able form; `obs_report.py` renders it as a convergence
-        table (the `solver_telemetry` dump kind)."""
+        """JSON-able form; ksched_tpu_torch/tools/obs_report.py renders
+        it as a convergence table (the `solver_telemetry` dump kind)."""
         return {
             "backend": self.backend,
             "steps": self.steps,

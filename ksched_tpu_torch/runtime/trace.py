@@ -51,7 +51,8 @@ class RoundRecord:
     machines_lost: int = 0  # heartbeat-expired machines this sweep
     tasks_failed: int = 0  # heartbeat-expired tasks this sweep
     #: owning cell in a multi-tenant service ("" = single-tenant): the
-    #: per-tenant soak/obs_report group round records on this, and the
+    #: per-tenant soak and ksched_tpu_torch/tools/obs_report.py's
+    #: per-tenant view group round records on this, and the
     #: zero-cross-tenant-interference check relies on fault/degradation
     #: counters landing ONLY in the chaos tenant's records
     tenant: str = ""

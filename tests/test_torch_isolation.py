@@ -15,11 +15,11 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "ksched_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ksched_tpu", "tools")
 
 
 #: modules the port must hold (the cost models, DIMACS and tenancy; the
-#: multi-device rung; the static-analysis suite)
+#: multi-device rung; the static-analysis suite; the operator tools)
 REQUIRED = ("costmodels/simple.py", "costmodels/net.py", "costmodels/coco.py",
             "graph/dimacs.py", "tenancy/__init__.py", "tenancy/batch.py",
             "tenancy/manager.py", "tenancy/service.py", "drivers/multitenant.py",
@@ -28,7 +28,10 @@ REQUIRED = ("costmodels/simple.py", "costmodels/net.py", "costmodels/coco.py",
             "drivers/sharded_scale.py", "drivers/parallel_scenarios.py",
             "analysis/__init__.py", "analysis/__main__.py", "analysis/ast_rules.py",
             "analysis/baseline.py", "analysis/engine.py", "analysis/marks.py",
-            "analysis/op_contracts.py", "analysis/program_registry.py")
+            "analysis/op_contracts.py", "analysis/program_registry.py",
+            "drivers/soak.py", "tools/__init__.py", "tools/tail_repro.py",
+            "tools/superstep_trace.py", "tools/obs_report.py", "tools/profile_round.py",
+            "tools/shard_smoke.py")
 
 
 def _port_sources():
@@ -127,3 +130,23 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     assert make_backend("auto", device="cpu").device.type == "cpu"
     assert MultiTenantService(device="cpu").device.type == "cpu"
     assert make_backend("mega", device="cpu").device.type == "cpu"
+
+
+#: the operator tools' entry points, each run on the card by default
+TOOL_ENTRIES = {
+    "soak": ("ksched_tpu_torch.drivers.soak", ["--rounds", "8"]),
+    "soak-chaos": ("ksched_tpu_torch.drivers.soak", ["--chaos", "--rounds", "8"]),
+    "tail_repro": ("ksched_tpu_torch.tools.tail_repro", ["capture", "--rounds", "1"]),
+    "profile_round": ("ksched_tpu_torch.tools.profile_round", ["--trace-out", ""]),
+    "shard_smoke": ("ksched_tpu_torch.tools.shard_smoke", []),
+}
+
+
+@pytest.mark.parametrize("tool", list(TOOL_ENTRIES))
+def test_tool_entry_points_raise_without_a_card(monkeypatch, tool):
+    import importlib
+
+    mod_name, argv = TOOL_ENTRIES[tool]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(mod_name).main(argv)

@@ -120,6 +120,6 @@ def test_chaos_soak_determinism_and_loop_parity():
 
 
 def test_soak_cli(capsys):
-    assert tsoak.main(["--rounds", "8", "--chunk", "8", "--machines", "4", "--slots", "4",
-                       "--chaos-restore-every", "4", "--device", "cpu"]) == 0
+    assert tsoak.main(["--chaos", "--rounds", "8", "--chunk", "8", "--machines", "4",
+                       "--slots", "4", "--chaos-restore-every", "4", "--device", "cpu"]) == 0
     assert "CHAOS SOAK OK" in capsys.readouterr().out

@@ -270,6 +270,23 @@ def test_the_port_is_lint_clean():
                                            repo_root=str(ROOT))] == []
 
 
+def test_the_lint_covers_the_tools():
+    """The operator tools and the device soak are library files the lint
+    and the coverage sweep read (device modules where they import torch)."""
+    from ksched_tpu_torch.analysis.ast_rules import build_context, iter_py_files
+
+    files = set(iter_py_files(["ksched_tpu_torch"], repo_root=str(ROOT)))
+    tools = {f"ksched_tpu_torch/tools/{n}.py" for n in (
+        "__init__", "tail_repro", "superstep_trace", "obs_report", "profile_round",
+        "shard_smoke")} | {"ksched_tpu_torch/drivers/soak.py"}
+    assert tools <= files
+    device = {rel for rel in tools
+              if build_context(rel, (ROOT / rel).read_text()).device_bound}
+    assert device == {"ksched_tpu_torch/tools/tail_repro.py",
+                      "ksched_tpu_torch/tools/profile_round.py",
+                      "ksched_tpu_torch/tools/shard_smoke.py"}
+
+
 def test_the_port_coverage_is_total():
     cov = program_coverage(["ksched_tpu_torch"], repo_root=str(ROOT))
     assert cov["unaudited"] == [] and cov["unannotated_registered"] == []
