@@ -74,12 +74,13 @@ no result line):
    package's;
 7e. trace replay at 12,500 machines: gtrace12k, gtrace12k-burst (the
    closed form) and gtrace12k-coco (the transport kernel at [4, 12,544]
-   every window), each trace staged on the host and its first 1,024
-   windows replayed in 4 chunks of 256 (seeds 1-4): per chunk its wall
+   every window), each trace staged on the host and its first 512
+   windows replayed in 2 chunks of 256 (seeds 1-2; drivers/gtrace.py
+   CHUNKS): per chunk its wall
    and per-window times, supersteps, evictions, launches, host reads and
-   decode time, its summed stats, per-window convergence and the sha256
-   of all its stats equal to the JAX package's, the final placements'
-   sha256 too; gtrace12k-coco's longest solve of its first chunk
+   decode time, its summed stats, per-window convergence, the sha256
+   of all its stats and of the placements after it equal to the JAX
+   package's; gtrace12k-coco's longest solve of its first chunk
    re-solved by the plain version with the same bits and timed beside
    its bound;
 7f. gtrace12k-host: the host BulkCluster's replay, 60 rounds through
@@ -247,22 +248,33 @@ no result line):
 29. shard smoke (ksched_tpu_torch/tools/shard_smoke.py) at the Makefile's
    arguments on 2 gloo ranks sharing the card: the scan-CSR, sharded and
    chaos arms equal on both ranks and to the JAX tool's arms;
+30. bench (`python -m ksched_tpu_torch.bench`'s path, bench.run_config
+   in-process): the headline 10kx1k at bench.py's defaults (512 rounds
+   in chunks of 64, the closed form), coco50k (B1) and coco50k-preempt
+   (B1 and B2, the two-regime latency fit) at their own budgets (128
+   rounds in chunks of 32) and mcmf-mega at 2 solves a backend (B3, CSR,
+   ELL), each record's p50, chunk walls and latency model printed and
+   its non-timing values equal to bench.py's on the CPU
+   (tests/torch_bench_reference.py); coco50k's longest B1 solve and a
+   B3 cold solve of mcmf-mega's graph re-solved plain with the same bits;
    then the `kernels` line and the result line. The transport kernel's
    entry there covers nine paths, each counted from 0 just before it
    ran: Scenario W(1000, 10000) (phase 4), gtrace12k-coco (phase 7e),
    the Whare-Map service (phase 16, sync and pipelined), the policies
    (phase 21), sharded-layered's single-card arm (phase 24), the
    what-if batches (phase 25), the device soak (phase 26), the tails'
-   captures and replays (phase 27) and profile_round (phase 28, none
-   there: the closed form). Its `launches` is the sum of their
+   captures and replays (phase 27), profile_round (phase 28, none
+   there: the closed form) and the bench's coco50k and coco50k-preempt
+   (phase 30). Its `launches` is the sum of their
    launches, and its `ms`, `plain_ms` and `bound_ms` sum the solves
    timed on them: W's two, gtrace12k-coco's longest at [4, 12,544], the
    Whare-Map service's sync run's two and the two longest what-if
-   solves. The tiered kernel's entry adds the device soak's and the
-   tails' launches to those of phase 7 (its times stay phase 8's). The
-   mcmf kernel's entry covers
-   W-mega (phase 10), W-mega-resident (phase 13) and the policies
-   (phase 21, none there) the same way: `launches` sums them, and `ms`,
+   solves. The tiered kernel's entry adds the device soak's, the
+   tails' and the bench's coco50k-preempt launches to those of phase 7
+   (its times stay phase 8's). The mcmf kernel's entry covers
+   W-mega (phase 10), W-mega-resident (phase 13), the policies
+   (phase 21, none there) and the bench's mcmf-mega (phase 30) the same
+   way: `launches` sums them, and `ms`,
    `plain_ms` and `bound_ms` sum W-mega's timed solves and
    W-mega-resident's round 2 solve. The other paths' launches are
    printed before the line.
@@ -459,10 +471,10 @@ REF_MEGA = {
 # Trace replay (drivers/gtrace.py, the card branch of bench.py's gtrace
 # cells at 1,024 windows), as produced by the JAX package on the CPU
 # (tests/torch_replay_reference.py): the staging counts and the fixed
-# widths [Amax, Dmax, Emax]; per chunk of 256 windows (seeds 1-4) its
+# widths [Amax, Dmax, Emax]; per chunk of 256 windows (seeds 1-2) its
 # stats summed, supersteps max and p50, whether every window converged,
 # `live` after its last window and the sha256 of all its stats stacked
-# as int32 in key order; the `pu` sha256 after the four chunks.
+# as int32 in key order; the `pu` sha256 after each chunk.
 REF_REPLAY = {
     "gtrace12k": {
         "rounds": 1644,
@@ -473,10 +485,11 @@ REF_REPLAY = {
         "chunks": [
             {"placed": 25753, "evicted": 48, "admitted": 25706, "completed": 14921, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 10785, "stats_sha256": "66eea00cfeb6c962c468be899994ef4a255422e83befc65a476dbe7ee9ed2115"},
             {"placed": 25630, "evicted": 96, "admitted": 25534, "completed": 24341, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 11978, "stats_sha256": "b8be4c625587fc896d7633b87ed738e7b55c2ac99991440c4bfbf48ee81df536"},
-            {"placed": 25680, "evicted": 96, "admitted": 25584, "completed": 25505, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 12057, "stats_sha256": "ce7acef064adadeb9af22225203f44a59baeb2b16d7757d5a85b996a3f308c63"},
-            {"placed": 25592, "evicted": 16, "admitted": 25576, "completed": 25528, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 12105, "stats_sha256": "a6ab200d2477fa7526dc7de051245dbda22f00e8464dca90515e953fd1c17584"},
         ],
-        "pu_sha256": "893920d86d9c508b23457b63c99b2ddd4af529f5871b66c843ac22861ab021f4",
+        "chunk_pu_sha256": [
+            "bb747b62241882e777ca7f755efe1dd62e4bfdf93dfd27392757b56fefa5a9cc",
+            "f1a3549f37ed9e062e0902f5ecc21b201b732d895e0f37db72d215e23933bd42",
+        ],
     },
     "gtrace12k-burst": {
         "rounds": 1657,
@@ -487,10 +500,11 @@ REF_REPLAY = {
         "chunks": [
             {"placed": 16411, "evicted": 152, "admitted": 16260, "completed": 9531, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 6729, "stats_sha256": "0584a29d31f6f458a7532cbeb46538061d5b53f201ae06f99839fb99a16b8564"},
             {"placed": 28842, "evicted": 152, "admitted": 28691, "completed": 17984, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 17436, "stats_sha256": "4c38f8c78f91585bef9b91dc299429cf95b9a07058c78fee696d16822877d0df"},
-            {"placed": 29459, "evicted": 739, "admitted": 28721, "completed": 30330, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 15827, "stats_sha256": "3d15084b151faaca0ce5fa46836575d69a0247b4dd22f08c322de07a84a35775"},
-            {"placed": 28746, "evicted": 18, "admitted": 28728, "completed": 31667, "unscheduled": 0, "supersteps_max": 0, "supersteps_p50": 0, "converged": True, "live_last": 12888, "stats_sha256": "0054006891e07aef28353871f873a4a305b179bc543d7bcbcab678e408953338"},
         ],
-        "pu_sha256": "8971c71b5ca8776fc01c826395c0a3185c2029965a6e54be0249197d031e2050",
+        "chunk_pu_sha256": [
+            "75b7dd68ec62bc490ad26e3070236373bbe95eedb48cf35cc2d4fe4b71159662",
+            "5022f6a9266d6710aa91f044a158c7a2a50620f23e7134d2de907fb0d2a04a0b",
+        ],
     },
     "gtrace12k-coco": {
         "rounds": 1698,
@@ -501,10 +515,11 @@ REF_REPLAY = {
         "chunks": [
             {"placed": 40958, "evicted": 54, "admitted": 40905, "completed": 23763, "unscheduled": 0, "supersteps_max": 3316, "supersteps_p50": 36, "converged": True, "live_last": 17142, "stats_sha256": "ff335497c5efdf531ddce35872eec0326723c098a2d3df1c377271589aa1df43"},
             {"placed": 41093, "evicted": 140, "admitted": 40953, "completed": 39085, "unscheduled": 0, "supersteps_max": 301, "supersteps_p50": 104, "converged": True, "live_last": 19010, "stats_sha256": "b899a0e3bdc438f03f3a9b62dcc8b25f1d678ea61b7ea37977889f9cf8258295"},
-            {"placed": 41114, "evicted": 155, "admitted": 40960, "completed": 40605, "unscheduled": 0, "supersteps_max": 338, "supersteps_p50": 122, "converged": True, "live_last": 19365, "stats_sha256": "6da17c2534a00dbd314a2bd8a524957a7be755f5cab71e82dfbbbe1ddef479d8"},
-            {"placed": 41051, "evicted": 29, "admitted": 41022, "completed": 41236, "unscheduled": 0, "supersteps_max": 341, "supersteps_p50": 121, "converged": True, "live_last": 19151, "stats_sha256": "330b073ab279b415718759831ee321caafe2c0d260bf4266ea8459a88dc9b182"},
         ],
-        "pu_sha256": "d47263d2c3b4bcd670c24717604b80d8a3205ecf096f850213a5d9cd2bbc927f",
+        "chunk_pu_sha256": [
+            "d0f95f9ae0e15d8275d5a2d5a4109b90a656bb1cc95d66d9ee69c526b055faff",
+            "5851e97a13d1154ee681948a82d3af62d86726ae8c39849ef0f31e0c42272cad",
+        ],
     },
 }
 # gtrace12k-host (TraceReplayDriver on LayeredTransportSolver, 60 rounds
@@ -1334,6 +1349,120 @@ REF_TOOLS = {'args': {'profile': {'J': 10,
                                 '  alpha=2 refine=32: ss=44 conv=True obj=-484439',
                                 '  alpha=8 refine=8: ss=44 conv=True obj=-484439',
                                 '  alpha=8 refine=32: ss=44 conv=True obj=-484439']}}}
+
+#: the bench phase's values, from bench.py's functions on the CPU with
+#: the same arguments (tests/torch_bench_reference.py): per run its
+#: metric up to the platform and every detail field but the chunk walls
+#: and the latency model (mcmf-mega: the graph and each backend's
+#: supersteps)
+REF_BENCH = {'10kx1k': {'detail': {'floor_bar_ms': 0.0,
+                       'live_final': 9993,
+                       'placed_per_round_mean': 100.0,
+                       'rounds_per_chunk': 64,
+                       'supersteps_max': 0,
+                       'supersteps_p50': 0,
+                       'supersteps_p99': 0,
+                       'top_rounds': [{'round': 511, 'supersteps': 0},
+                                      {'round': 510, 'supersteps': 0},
+                                      {'round': 509, 'supersteps': 0},
+                                      {'round': 508, 'supersteps': 0},
+                                      {'round': 507, 'supersteps': 0},
+                                      {'round': 506, 'supersteps': 0},
+                                      {'round': 505, 'supersteps': 0},
+                                      {'round': 504, 'supersteps': 0}]},
+            'metric': 'p50 scheduling-round latency, 10000 tasks x 1000 machines, trivial '
+                      'cost model, 1% churn, device-resident rounds (64-round chains), '
+                      'backend=device'},
+ 'args': {'10kx1k': {'chunk': 64, 'config': '10kx1k', 'override': [], 'rounds': 512},
+          'coco50k': {'chunk': 64, 'config': 'coco50k', 'override': [], 'rounds': 512},
+          'coco50k-preempt': {'chunk': 64,
+                              'config': 'coco50k-preempt',
+                              'override': [],
+                              'rounds': 512},
+          'mcmf-mega': {'chunk': 64,
+                        'config': 'mcmf-mega',
+                        'override': ['solves=2'],
+                        'rounds': 512}},
+ 'coco50k': {'detail': {'floor_bar_ms': 0.0,
+                        'live_final': 50033,
+                        'placed_per_round_mean': 500.0,
+                        'rounds_per_chunk': 32,
+                        'supersteps_max': 1113,
+                        'supersteps_p50': 206,
+                        'supersteps_p99': 866,
+                        'top_rounds': [{'round': 10, 'supersteps': 1113},
+                                       {'round': 12, 'supersteps': 869},
+                                       {'round': 14, 'supersteps': 860},
+                                       {'round': 15, 'supersteps': 846},
+                                       {'round': 11, 'supersteps': 828},
+                                       {'round': 17, 'supersteps': 775},
+                                       {'round': 7, 'supersteps': 671},
+                                       {'round': 8, 'supersteps': 661}]},
+             'metric': 'p50 scheduling-round latency, 50000 tasks x 1000 machines, CoCo '
+                       'interference cost model (4 classes), 1% churn, device-resident '
+                       'rounds (32-round chains), backend=device'},
+ 'coco50k-preempt': {'detail': {'escalated_rounds': 0,
+                                'floor_bar_ms': 0.0,
+                                'full_rounds': 17,
+                                'global_rounds': 2,
+                                'live_final': 50012,
+                                'placed_per_round_mean': 500.0,
+                                'rounds_per_chunk': 32,
+                                'rounds_total': 224,
+                                'supersteps_global_max': 4126,
+                                'supersteps_max': 4126,
+                                'supersteps_p50': 40,
+                                'supersteps_p99': 1482,
+                                'supersteps_scoped_max': 1477,
+                                'supersteps_scoped_p99': 1458,
+                                'top_rounds': [{'census_drift': 10015,
+                                                'round': 63,
+                                                'supersteps': 4126,
+                                                'tier': 'global'},
+                                               {'census_drift': 5240,
+                                                'round': 191,
+                                                'supersteps': 2420,
+                                                'tier': 'global'},
+                                               {'census_drift': 8770,
+                                                'round': 47,
+                                                'supersteps': 1484,
+                                                'tier': 'incremental'},
+                                               {'census_drift': 10105,
+                                                'round': 35,
+                                                'supersteps': 1477,
+                                                'tier': 'scoped'},
+                                               {'census_drift': 10054,
+                                                'round': 99,
+                                                'supersteps': 1344,
+                                                'tier': 'scoped'},
+                                               {'census_drift': 10351,
+                                                'round': 7,
+                                                'supersteps': 1278,
+                                                'tier': 'scoped'},
+                                               {'census_drift': 10173,
+                                                'round': 21,
+                                                'supersteps': 1267,
+                                                'tier': 'scoped'},
+                                               {'census_drift': 10331,
+                                                'round': 185,
+                                                'supersteps': 1154,
+                                                'tier': 'scoped'}]},
+                     'metric': 'p50 scheduling-round latency, 50000 tasks x 1000 machines, '
+                               'CoCo interference cost model (4 classes), preemption ON '
+                               '(three-tier: budgeted incremental rounds escalating to '
+                               'scoped re-solves over drifted columns every 16 or on '
+                               'census drift + global re-solve every 128), 1% churn, '
+                               'device-resident rounds (32-round chains), backend=device'},
+ 'mcmf-mega': {'detail': {'arcs': 65536,
+                          'csr': 4,
+                          'ell': 4,
+                          'entries': 131072,
+                          'mega': 4,
+                          'nodes': 32768,
+                          'solves': 2},
+               'metric': 'p50 cold-solve latency, general-graph MCMF megakernel vs scan '
+                         'backends, 10000 tasks x 1000 machines (32768 nodes, 65536 arcs), '
+                         'backend=mega'}}
 
 CLI_TENANTS = ["--tenants", "4", "--podgen", "20000", "-nm", "1000", "--pus-per-core", "4",
                "-mt", "4"]
@@ -2419,19 +2548,20 @@ def phase_suite_bulk(dev):
 
 def run_gtrace(dev, config):
     """A gtrace cell (drivers/gtrace.py) on the card: the trace staged on
-    the host, then its first 1,024 windows replayed as replay_chunks
-    replays them (4 chunks of 256, seeds 1-4), every count set to 0 just
-    before each chunk and read just after it. Per chunk its wall (host
+    the host, then its first CHUNKS chunks of windows replayed by
+    replay_chunks (chunks of 256, seeds 1, 2), every count set to 0 just before each chunk and read just
+    after it. Per chunk its wall (host
     clock, a synchronize on each side), the per-window p50 and p99 (wall
     / windows, and CUDA events around each window), supersteps,
     evictions, transport launches and kernel ms, host reads and decode
-    ms; its values against the JAX package's; the final placements'
-    sha256. Returns the transport solve with the most supersteps of each
-    chunk that ran one, and the launches."""
+    ms; its values and the placements' sha256 after it against the JAX
+    package's. Returns the transport solve with the most supersteps of
+    each chunk that ran one, and the launches."""
     import ksched_tpu_torch.ops as ops
     import ksched_tpu_torch.scheduler.device_bulk as device_bulk
     from ksched_tpu_torch.drivers.gtrace import (
         CHUNK_WINDOWS,
+        CHUNKS,
         WINDOW_S,
         chunk_summary,
         gtrace_driver,
@@ -2499,14 +2629,15 @@ def run_gtrace(dev, config):
                 n_chunks += 1
                 if calls:
                     worst.append(max(calls, key=lambda x: int(x["out"][2])))
+                sha = pu_sha256(cluster)
+                check(sha == ref["chunk_pu_sha256"][c], f"{config} chunk {c}: placements "
+                      "differ from the JAX package's")
                 first, t0 = start()
     finally:
         device_bulk.transport_fori = solver
         del cluster.rank_match_decode, cluster.replay_round
-    check(n_chunks == len(ref["chunks"]), f"{config}: {n_chunks} chunks replayed")
-    sha = pu_sha256(cluster)
-    say(f"{config}: final pu sha256 {sha}; transport launches {launches}")
-    check(sha == ref["pu_sha256"], f"{config}: final placements differ from the JAX package's")
+    check(n_chunks == CHUNKS, f"{config}: {n_chunks} chunks replayed")
+    say(f"{config}: pu sha256 after chunk {n_chunks - 1} {sha}; transport launches {launches}")
     check_occupancy(cluster, config)
     return worst, launches
 
@@ -2517,11 +2648,14 @@ def phase_gtrace(dev):
     cell's solve with the most supersteps in its first chunk re-solved
     by the plain version with the same bits, and timed beside its
     bound."""
+    from ksched_tpu_torch.drivers.gtrace import CHUNK_WINDOWS, CHUNKS
+
     for config in ("gtrace12k", "gtrace12k-burst"):
         _w, n = run_gtrace(dev, config)
         check(n == 0, f"{config} launched a kernel (expected the closed form)")
     worst, n = run_gtrace(dev, "gtrace12k-coco")
-    check(n >= 1024, f"gtrace12k-coco: {n} transport launches for 1,024 windows")
+    windows = CHUNKS * CHUNK_WINDOWS
+    check(n >= windows, f"gtrace12k-coco: {n} transport launches for {windows} windows")
     pick = worst[0]
     check(tuple(pick["args"][0].shape) == (4, 12_544), "gtrace12k-coco's solve is not [4, 12544]")
     err, plain_ms = resolve_plain("gtrace12k-coco solve", pick, False)
@@ -4237,6 +4371,114 @@ def phase_shard_smoke(dev):
 
 
 # ---------------------------------------------------------------------------
+# python -m ksched_tpu_torch.bench: the timed protocol on the card
+# ---------------------------------------------------------------------------
+
+#: the bench phase's runs, (config, --rounds, --chunk, --override), as
+#: tests/torch_bench_reference.py runs bench.py: the headline at its
+#: defaults, coco50k and coco50k-preempt at their own budgets (128
+#: rounds in chunks of 32; --rounds does not govern them), mcmf-mega at 2
+#: timed solves a backend
+BENCH_RUNS = (("10kx1k", 512, 64, []), ("coco50k", 512, 64, []),
+              ("coco50k-preempt", 512, 64, []), ("mcmf-mega", 512, 64, ["solves=2"]))
+#: the kernel each run must launch (transport, transport_tiered, mcmf),
+#: and the one it must not
+BENCH_KERNELS = {"10kx1k": (), "coco50k": ("transport",),
+                 "coco50k-preempt": ("transport", "transport_tiered"), "mcmf-mega": ("mcmf",)}
+#: a record's timed detail fields: the chunk walls and their fit
+BENCH_TIMED = ("chunks_wall_ms", "latency_model")
+
+
+def bench_untimed(rec):
+    """A bench record's values that do not depend on the clock, as
+    tests/torch_bench_reference.py reads them."""
+    metric = rec["metric"].rsplit("/", 1)[0]
+    d = rec["detail"]
+    if rec.get("config") == "mcmf-mega":
+        keep = {k: d[k] for k in ("nodes", "arcs", "entries", "solves")}
+        keep.update({b: d[b]["supersteps"] for b in ("mega", "csr", "ell") if b in d})
+        return {"metric": metric, "detail": keep}
+    return {"metric": metric, "detail": {k: v for k, v in d.items() if k not in BENCH_TIMED}}
+
+
+def phase_bench(dev):
+    """`python -m ksched_tpu_torch.bench`'s configs in-process on the card
+    (bench.run_config, the CLI's path): the headline 10kx1k (the closed
+    form: no kernel), coco50k (B1), coco50k-preempt (B1 and B2, the
+    two-regime latency fit) and mcmf-mega (B3, CSR and ELL cold solves);
+    per run its wall, p50, chunk walls and latency model printed, every
+    count set to 0 just before it; its non-timing values equal to
+    bench.py's (REF_BENCH); coco50k's longest B1 solve and a B3 cold
+    solve of mcmf-mega's graph (launched after the counts were read)
+    re-solved by the plain versions with the same bits.
+    Returns ((B1, B2, B3) launches over the phase, max_abs_err)."""
+    import ksched_tpu_torch.ops as ops
+    from ksched_tpu_torch import bench
+    from ksched_tpu_torch.ops.mcmf import mcmf_loop, mcmf_loop_plain
+    from ksched_tpu_torch.ops.transport import transport_loop, transport_loop_tiered
+
+    check(REF_BENCH is not None and REF_BENCH["args"] == {
+        name: dict(config=name, rounds=r, chunk=c, override=ov)
+        for name, r, c, ov in BENCH_RUNS}, "REF_BENCH is for other bench runs")
+    total = [0, 0, 0]
+    worst = 0
+    for name, rounds, chunk, ov in BENCH_RUNS:
+        transport_loop.launches = transport_loop_tiered.launches = mcmf_loop.launches = 0
+        # coco50k's B1 solves are captured as they run (a [4, 1024]
+        # clone a round); mcmf-mega's timed solves run uncaptured
+        with Recorder(ops, "transport_solve") as rec1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = bench.run_config(name, rounds, chunk, ov, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = (transport_loop.launches, transport_loop_tiered.launches,
+                  mcmf_loop.launches)
+        d = out["detail"]
+        lm = d.get("latency_model", {})
+        say(f"bench {name}: {wall:.2f} s, p50 {out['value']} ms, chunks "
+            f"{d.get('chunks_wall_ms')} ms of {d.get('rounds_per_chunk')} rounds, "
+            f"latency model {json.dumps(lm)}; launches B1 {counts[0]} B2 {counts[1]} "
+            f"B3 {counts[2]}; {out['metric']}")
+        if name == "mcmf-mega":
+            say("bench mcmf-mega: " + ", ".join(
+                f"{b} {d[b]['p50_ms']} ms ({d[b]['supersteps']} supersteps)"
+                for b in ("mega", "csr", "ell")) + f"; mega vs csr {d['mega_vs_csr_speedup']}x")
+        check(out["metric"].endswith("backend=device/cuda")
+              or out["metric"].endswith("backend=mega/cuda"), f"bench {name}: not on the card")
+        check(bench_untimed(out) == REF_BENCH[name],
+              f"bench {name}: {bench_untimed(out)} != bench.py's {REF_BENCH[name]}")
+        want = BENCH_KERNELS[name]
+        for k, n in zip(("transport", "transport_tiered", "mcmf"), counts):
+            check((n > 0) == (k in want), f"bench {name}: {n} {k} launches")
+        if name == "coco50k":
+            pick = max(rec1.calls, key=lambda c: int(c["out"][2]))
+            err, _ms = resolve_plain("bench coco50k longest B1 solve", pick, False)
+            k_ms = pick["events"][0].elapsed_time(pick["events"][1])
+            say(f"  (kernel_ms of that solve in the run: {k_ms:.4f}, "
+                f"{1e3 * k_ms / max(int(pick['out'][2]), 1):.3f} us a superstep)")
+            worst = max(worst, err)
+        if name == "mcmf-mega":
+            # one more cold solve of the run's graph, captured, after the
+            # counts were read
+            from ksched_tpu_torch.tools.mega_bench import build_problem, launchers
+
+            launch, _s, _c = launchers(build_problem(), 4096, ("mega",), dev)["mega"]
+            with Recorder(ops, "mcmf_solve") as rec3:
+                launch()
+            c = rec3.calls[0]
+            plain = mcmf_loop_plain(*c["args"], **c["kw"])
+            torch.cuda.synchronize()
+            err = max_abs_diff(c["out"], plain)
+            say(f"bench mcmf-mega B3 solve: R={c['args'][13]} steps={int(c['out'][1])} "
+                f"max_abs_err={err} vs plain")
+            check(same_bits(c["out"], plain), "bench mcmf-mega: kernel != plain")
+            worst = max(worst, err)
+        total = [a + b for a, b in zip(total, counts)]
+    return tuple(total), worst
+
+
+# ---------------------------------------------------------------------------
 # the static-analysis suite on the card
 # ---------------------------------------------------------------------------
 
@@ -4421,6 +4663,9 @@ def main() -> int:
     lap("profile_round")
     phase_shard_smoke(dev)
     lap("shard smoke")
+    (be_b1, be_b2, be_b3), be_err = phase_bench(dev)
+    lap("bench")
+    say(f"launches on the bench path: B1 {be_b1}, B2 {be_b2}, B3 {be_b3}")
     say(f"launches on the tool paths: device soak B1 {so_b1} B2 {so_b2}, tails B1 {ta_b1} "
         f"B2 {ta_b2}, profile_round B1 {pr_b1} B2 {pr_b2}; the re-solved tail solves "
         f"[kernel ms, plain ms, bound ms]: {json.dumps(ta_timing)}")
@@ -4431,9 +4676,9 @@ def main() -> int:
         "source": "ksched_tpu_torch/ops/csrc/transport.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:59",
         "launches": (launches + g_b1 + s_launches + pol_b1 + sl_b1 + wi_b1 + so_b1 + ta_b1
-                     + pr_b1),
+                     + pr_b1 + be_b1),
         "max_abs_err": max(parity_err, main_err, tier_err, q_err, g_err, mb_err, s_err,
-                           pol_err, wi_err, ta_err),
+                           pol_err, wi_err, ta_err, be_err),
         "ms": k_ms + g_k + s_k + wi_k,
         "plain_ms": p_ms + g_p + s_p + wi_p,
         "bound_ms": b_ms + g_b + s_b + wi_b,
@@ -4444,7 +4689,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/transport_tiered.cu",
         "replaces": "ksched_tpu/ops/transport_pallas.py:233",
-        "launches": t_launches + so_b2 + ta_b2 + pr_b2,
+        "launches": t_launches + so_b2 + ta_b2 + pr_b2 + be_b2,
         "max_abs_err": max(t_err, t_main_err, tier_err, ta_err),
         "ms": tk_ms,
         "plain_ms": tp_ms,
@@ -4456,8 +4701,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ksched_tpu_torch/ops/csrc/mcmf.cu",
         "replaces": "ksched_tpu/ops/mcmf_pallas.py:108",
-        "launches": m_launches + mr_launches + pol_b3,
-        "max_abs_err": max(m_err, m_main_err, mr_err, pol_err),
+        "launches": m_launches + mr_launches + pol_b3 + be_b3,
+        "max_abs_err": max(m_err, m_main_err, mr_err, pol_err, be_err),
         "ms": mk_ms + mr_k,
         "plain_ms": mp_ms + mr_p,
         "bound_ms": mb_ms + mr_b,

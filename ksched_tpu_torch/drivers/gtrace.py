@@ -49,8 +49,10 @@ SEED = 11
 MACHINE_CHURN = 0.02
 MEAN_RUNTIME_S = 120.0
 NUM_JOBS = 64
-#: the replayed windows: CHUNKS calls of CHUNK_WINDOWS windows each
-CHUNKS, CHUNK_WINDOWS = 4, 256
+#: the replayed windows: CHUNKS calls of CHUNK_WINDOWS windows each (the
+#: first 512 of the staged windows: a cut that keeps the smoke's three
+#: cells inside its time)
+CHUNKS, CHUNK_WINDOWS = 2, 256
 #: the stats a chunk summary sums
 SUMMARY = ("placed", "evicted", "admitted", "completed", "unscheduled")
 
@@ -73,40 +75,48 @@ HOST_REPLAY = dict(window_s=5.0, max_rounds=60)
 HOST_SLOTS = 8
 
 
-def trace_args(config: str) -> dict:
-    """synthesize_trace's arguments for a gtrace config at N_WINDOWS
-    windows, as bench.py derives them from its window count
-    (bench.py:2303-2320)."""
-    rate, kw = GTRACE[config]
-    duration_s = N_WINDOWS * WINDOW_S
-    out = dict(num_machines=N_MACHINES, num_tasks=int(duration_s * rate),
+def trace_args(config: str, n_windows: int = N_WINDOWS, n_machines: int = N_MACHINES,
+               rate=None) -> dict:
+    """synthesize_trace's arguments for a gtrace config at `n_windows`
+    windows on `n_machines` machines (N_WINDOWS and N_MACHINES by
+    default) at `rate` arrivals a second (the config's by default), as
+    bench.py derives them (bench.py:2303-2320)."""
+    rate0, kw = GTRACE[config]
+    rate = rate0 if rate is None else rate
+    duration_s = n_windows * WINDOW_S
+    out = dict(num_machines=n_machines, num_tasks=int(duration_s * rate),
                duration_s=duration_s, mean_runtime_s=MEAN_RUNTIME_S, seed=SEED,
                machine_churn=MACHINE_CHURN)
     if kw.get("burst"):
-        out.update(burst_spike=6.0, burst_count=max(2, N_WINDOWS // 340),
-                   burst_s=30.0 if N_WINDOWS > 512 else 4.0,
-                   correlated_outages=4, outage_block=max(8, N_MACHINES // 50))
+        out.update(burst_spike=6.0, burst_count=max(2, n_windows // 340),
+                   burst_s=30.0 if n_windows > 512 else 4.0,
+                   correlated_outages=4, outage_block=max(8, n_machines // 50))
     return out
 
 
-def driver_args(config: str) -> tuple:
+def driver_args(config: str, n_machines: int = N_MACHINES, **over) -> tuple:
     """(DeviceTraceReplayDriver arguments without the cost function and
-    the device, and the CoCo penalties or None) for a gtrace config."""
+    the device, and the CoCo penalties for `n_machines` machines or
+    None) for a gtrace config; `over` replaces slots_per_machine,
+    task_capacity or decode_width (bench.py's --override knobs)."""
     _rate, kw = GTRACE[config]
     kw = dict(kw, num_jobs_hint=NUM_JOBS)
     kw.pop("burst", None)
     penalties = None
     if kw.pop("cost", None) == "coco":
-        penalties = np.random.default_rng(7).integers(0, 40, (N_MACHINES, 4)).astype(np.int64)
+        penalties = np.random.default_rng(7).integers(0, 40, (n_machines, 4)).astype(np.int64)
         kw.update(unsched_cost=coco.UNSCHEDULED_COST, supersteps=1 << 17)
+    kw.update(over)
     return kw, penalties
 
 
-def gtrace_driver(config: str, device="cuda") -> tuple:
+def gtrace_driver(config: str, device="cuda", n_windows: int = N_WINDOWS,
+                  n_machines: int = N_MACHINES, rate=None, **over) -> tuple:
     """(DeviceTraceReplayDriver of a gtrace config on `device`, the
-    trace's task events)."""
-    machines, events = synthesize_trace(**trace_args(config))
-    kw, penalties = driver_args(config)
+    trace's task events); the keywords as trace_args and driver_args
+    take them."""
+    machines, events = synthesize_trace(**trace_args(config, n_windows, n_machines, rate))
+    kw, penalties = driver_args(config, n_machines, **over)
     cost_fn = None if penalties is None else coco_device_cost_fn(penalties)
     return DeviceTraceReplayDriver(machines, class_cost_fn=cost_fn, device=device,
                                    **kw), events

@@ -267,9 +267,12 @@ def test_restores_on_pow2_growth_rounds_match_the_jax_package():
     repairs, restores) and holds the strict delta-kind asserts on as
     many recovery rounds, none; so the recovery arm's check fails in
     the port as it does in the JAX package's tools/soak.py."""
-    import soak as jsoak  # tools/, put on sys.path by torch_service_reference
-    from ksched_tpu_torch.drivers import soak as tsoak
+    # torch_service_reference puts tools/ on sys.path: import it first,
+    # so that the JAX tool `soak` imports when this test runs alone
     from torch_service_reference import soak_args
+
+    import soak as jsoak
+    from ksched_tpu_torch.drivers import soak as tsoak
 
     quiet = lambda *a, **k: None  # noqa: E731
     kw = dict(rounds=128, chunk=32, seed=11, machines=6, slots=8, chaos_restore_every=64,

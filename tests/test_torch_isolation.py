@@ -15,11 +15,12 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "ksched_tpu", "tools")
+FORBIDDEN = ("jax", "jaxlib", "ksched_tpu", "tools", "bench", "__graft_entry__")
 
 
 #: modules the port must hold (the cost models, DIMACS and tenancy; the
-#: multi-device rung; the static-analysis suite; the operator tools)
+#: multi-device rung; the static-analysis suite; the operator tools; the
+#: bench and the tools that read it)
 REQUIRED = ("costmodels/simple.py", "costmodels/net.py", "costmodels/coco.py",
             "graph/dimacs.py", "tenancy/__init__.py", "tenancy/batch.py",
             "tenancy/manager.py", "tenancy/service.py", "drivers/multitenant.py",
@@ -31,7 +32,10 @@ REQUIRED = ("costmodels/simple.py", "costmodels/net.py", "costmodels/coco.py",
             "analysis/op_contracts.py", "analysis/program_registry.py",
             "drivers/soak.py", "tools/__init__.py", "tools/tail_repro.py",
             "tools/superstep_trace.py", "tools/obs_report.py", "tools/profile_round.py",
-            "tools/shard_smoke.py")
+            "tools/shard_smoke.py", "bench.py", "tools/coco_anatomy.py",
+            "tools/mega_bench.py", "tools/csr_bench.py", "tools/primitives_bench.py",
+            "tools/model_check.py", "tools/assemble_model_check.py",
+            "tools/bench_compare.py")
 
 
 def _port_sources():
@@ -139,6 +143,13 @@ TOOL_ENTRIES = {
     "tail_repro": ("ksched_tpu_torch.tools.tail_repro", ["capture", "--rounds", "1"]),
     "profile_round": ("ksched_tpu_torch.tools.profile_round", ["--trace-out", ""]),
     "shard_smoke": ("ksched_tpu_torch.tools.shard_smoke", []),
+    "bench": ("ksched_tpu_torch.bench", ["--small"]),
+    "bench-config": ("ksched_tpu_torch.bench", ["--config", "mcmf-mega"]),
+    "coco_anatomy": ("ksched_tpu_torch.tools.coco_anatomy", []),
+    "mega_bench": ("ksched_tpu_torch.tools.mega_bench", []),
+    "csr_bench": ("ksched_tpu_torch.tools.csr_bench", []),
+    "primitives_bench": ("ksched_tpu_torch.tools.primitives_bench", []),
+    "model_check": ("ksched_tpu_torch.tools.model_check", ["--inst", "missing.npz"]),
 }
 
 

@@ -9,10 +9,10 @@ Runs, on the CPU, through the JAX package:
   synthesize_trace with the same arguments), staged by the JAX
   package's DeviceTraceReplayDriver with the config's arguments, then
   its first staged windows replayed in chunks as gtrace.replay_chunks
-  replays them (4 calls of 256 windows, seeds 1-4): per chunk
+  replays them (2 calls of 256 windows, seeds 1-2): per chunk
   (gtrace.chunk_summary) the sha256 of all its stats
   stacked as int32 in key order, whether every window converged, and a
-  summary; the staging metadata and the `pu` sha256 after the chunks;
+  summary, and the `pu` sha256 after it; the staging metadata;
 - ``gtrace12k-host``: the JAX package's TraceReplayDriver on its
   LayeredTransportSolver, 60 rounds of 5 s windows: per round placed,
   unscheduled and evicted counts (`record_rounds`), the totals, the
@@ -27,7 +27,7 @@ Runs, on the CPU, through the JAX package:
 
 Each prints one JSON object: chip_smoke.py's REF_REPLAY, REF_HOST and
 REF_MULTIBLOCK constants. On the CPU (each line ends with its
-`cpu_seconds`): 103 s for gtrace12k, 175 s for gtrace12k-burst, 157 s
+`cpu_seconds`): 76 s for gtrace12k, 116 s for gtrace12k-burst, 100 s
 for gtrace12k-coco, 2-3 s for gtrace12k-host, 362-384 s for
 quincy10k-multiblock.
 """
@@ -62,9 +62,11 @@ def replay_reference(config: str) -> dict:
     sch = driver.stage(events, window_s=gtrace.WINDOW_S)
     out = {k: int(sch[k]) for k in ("rounds", "submitted", "finished", "dropped")}
     out["widths"] = [int(sch[k].shape[1]) for k in ("adm_job", "done_rows", "tog_idx")]
-    out["chunks"] = [gtrace.chunk_summary(driver.cluster.fetch_stats(stats))
-                     for _c, stats in gtrace.replay_chunks(driver, sch)]
-    out["pu_sha256"] = sha256(np.asarray(driver.cluster.fetch_state()["pu"], np.int32))
+    out["chunks"], out["chunk_pu_sha256"] = [], []
+    for _c, stats in gtrace.replay_chunks(driver, sch):
+        out["chunks"].append(gtrace.chunk_summary(driver.cluster.fetch_stats(stats)))
+        out["chunk_pu_sha256"].append(
+            sha256(np.asarray(driver.cluster.fetch_state()["pu"], np.int32)))
     return out
 
 
