@@ -1634,6 +1634,15 @@ def tiered_from(seed, inst):
 PLAN_EDGES = [((4, 1024), False), ((6, 1021), False), ((31, 777), False),
               ((33, 64), False), ((3, 4), False), ((4, 1024), True), ((6, 1021), True)]
 
+#: the B1/B2 parity phases' plain solves of at most HOST_CELLS cells (C x
+#: Mp) run on the CPU, on HOST_WORKERS processes, while the wider ones run
+#: on the card. A plain solve is bound by its launches on the host: about
+#: 1.2 ms a superstep on the card, and on one CPU core 0.4-0.6 ms below
+#: ~8k cells and 0.9-1.8 ms up to ~32k, so the host's cores share out
+#: what one process would queue on the card.
+HOST_CELLS = 32_768
+HOST_WORKERS = 4
+
 
 class GlobalState:
     """Inside the block, the transport kernels' layout keeps nothing in
@@ -1679,20 +1688,36 @@ def same_bits(a, b):
     )
 
 
+def plain_on_host(job):
+    """One parity case's plain solve on the CPU, in a worker of
+    check_parity's pool: (function name in solver/layered.py, its
+    positional arguments with arrays as numpy, keyword arguments) ->
+    its outputs as numpy arrays."""
+    import ksched_tpu_torch.solver.layered as layered
+
+    name, args, kw = job
+    torch.set_num_threads(1)
+    args = [torch.as_tensor(x) if isinstance(x, np.ndarray) else x for x in args]
+    return [o.numpy() for o in getattr(layered, name)(*args, **kw)]
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 
 def phase_parity(dev):
+    """The transport kernel against its plain version, both to
+    convergence: seeded instances at the main shapes and at the row
+    plan's edges, refine 0 and 2, from zero prices and from the prices
+    a cold solve carries into a perturbed instance."""
     from ksched_tpu_torch.ops.transport import transport_loop
-    from ksched_tpu_torch.solver.layered import _solve_transport
 
-    worst = 0
     cases = [((C, Mp), False, random_instance_m(100 + i, C, Mp)) for i, (C, Mp)
              in enumerate([(2, 128), (4, 1024), (16, 1152), (64, 4096)])]
     cases += [(shape, glob, edge_instance(150 + i, *shape))
               for i, (shape, glob) in enumerate(PLAN_EDGES)]
+    rows = []  # (label, kernel's outputs, the plain solve's job)
     for shape_i, ((C, Mp), glob, inst) in enumerate(cases):
         wS, supply, col_cap, n_scale, _M = inst
         eps_full = int(max(1, np.abs(wS).max()))
@@ -1705,25 +1730,62 @@ def phase_parity(dev):
         a2 = on(dev, wS, supply2, cap2)
         where = " global" if glob else ""
         for refine in (0, 2):
+            kw = dict(alpha=8, max_supersteps=50_000, refine_waves=refine)
             with GlobalState(glob):
-                cold = transport_loop(*a, eps_full, alpha=8, max_supersteps=50_000,
-                                      refine_waves=refine)
+                cold = transport_loop(*a, eps_full, **kw)
                 pm0 = cold[1].clone()
-                warm = transport_loop(*a2, n_scale, pm0, alpha=8,
-                                      max_supersteps=50_000, refine_waves=refine)
-            plain = _solve_transport(*a, eps_full, alpha=8, max_supersteps=50_000,
-                                     refine_waves=refine)
-            warm_p = _solve_transport(*a2, n_scale, pm0, alpha=8,
-                                      max_supersteps=50_000, refine_waves=refine)
-            for label, k, p in (("zero pm0", cold, plain), ("carried pm0", warm, warm_p)):
-                torch.cuda.synchronize()
-                err = max_abs_diff(k, p)
-                worst = max(worst, err)
-                ok = same_bits(k, p) and bool(k[3])
-                say(f"parity [{C},{Mp}]{where} refine={refine} {label}: steps={int(k[2])} "
-                    f"converged={bool(k[3])} max_abs_err={err} "
-                    f"{'bit-identical' if ok else 'MISMATCH'}")
-                check(ok, f"kernel != plain at [{C},{Mp}]{where} refine={refine} {label}")
+                warm = transport_loop(*a2, n_scale, pm0, **kw)
+            rows.append((f"[{C},{Mp}]{where} refine={refine} zero pm0", cold,
+                         ("_solve_transport", [*a, eps_full], kw)))
+            rows.append((f"[{C},{Mp}]{where} refine={refine} carried pm0", warm,
+                         ("_solve_transport", [*a2, n_scale, pm0], kw)))
+    return check_parity("parity", rows)
+
+
+def check_parity(tag, rows):
+    """Each row's kernel outputs against its plain solve's: bit-identical
+    and converged. A row's job is (function name in solver/layered.py,
+    positional arguments, keyword arguments); the solves of at most
+    HOST_CELLS cells run on HOST_WORKERS CPU processes (plain_on_host)
+    while this process runs the wider ones on the card. Returns the
+    largest |kernel - plain|."""
+    import multiprocessing as mp
+
+    import ksched_tpu_torch.solver.layered as layered
+
+    def on_host(job):
+        return job[1][0].numel() <= HOST_CELLS
+
+    host = [i for i, (_, _, job) in enumerate(rows) if on_host(job)]
+    # the longest first, by the kernel's superstep count
+    host.sort(key=lambda i: -int(rows[i][1][2]))
+    plains = {}
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(HOST_WORKERS) as pool:
+        pending = {i: pool.apply_async(plain_on_host, (
+            (rows[i][2][0], [x.cpu().numpy() if torch.is_tensor(x) else x
+                             for x in rows[i][2][1]], rows[i][2][2]),)) for i in host}
+        for i, (_, _, (name, args, kw)) in enumerate(rows):
+            if i not in pending:
+                plains[i] = getattr(layered, name)(*args, **kw)
+        t_card = time.perf_counter() - t0
+        for i, res in pending.items():
+            plains[i] = [torch.from_numpy(x) for x in res.get(timeout=600)]
+    worst = 0
+    for i, (label, k, _) in enumerate(rows):
+        p = plains[i]
+        k = [x.to(p[0].device) for x in k]
+        err = max_abs_diff(k, p)
+        worst = max(worst, err)
+        ok = same_bits(k, p) and bool(k[3])
+        say(f"{tag} {label}: steps={int(k[2])} converged={bool(k[3])} "
+            f"max_abs_err={err} {'bit-identical' if ok else 'MISMATCH'} "
+            f"(plain on {p[0].device.type})")
+        check(ok, f"{tag}: kernel != plain or no convergence at {label}")
+    say(f"{tag}: {len(rows)} solves, each converged and bit-identical to its plain "
+        f"version ({sum(int(k[2]) for _, k, _ in rows)} supersteps a side; the plain "
+        f"ones: {len(rows) - len(host)} on the card in {t_card:.1f} s, {len(host)} on "
+        f"{HOST_WORKERS} CPU processes, {time.perf_counter() - t0:.1f} s in all)")
     return worst
 
 
@@ -2015,35 +2077,26 @@ def phase_timing(calls, reps=10):
 
 
 def phase_parity_tiered(dev):
-    """The tiered kernel against its plain version on seeded instances
-    with random resident tiles, refine 0 and 8."""
+    """The tiered kernel against its plain version, both to convergence,
+    on seeded instances with random resident tiles, refine 0 and 8."""
     from ksched_tpu_torch.ops.transport import transport_loop_tiered
-    from ksched_tpu_torch.solver.layered import _solve_transport_tiered
 
-    worst = 0
     cases = [((C, Mp), False, random_tiered_instance(300 + i, C, Mp)) for i, (C, Mp)
              in enumerate([(2, 128), (4, 1024), (16, 1152), (64, 4096)])]
     cases += [(shape, glob, tiered_from(350 + i, edge_instance(350 + i, *shape)))
               for i, (shape, glob) in enumerate(PLAN_EDGES)]
+    rows = []
     for (C, Mp), glob, inst in cases:
         eps_full = int(max(1, np.abs(inst[1]).max()))
         a = on(dev, *inst)
         where = " global" if glob else ""
         for refine in (0, 8):
+            kw = dict(alpha=8, max_supersteps=50_000, refine_waves=refine)
             with GlobalState(glob):
-                k = transport_loop_tiered(*a, eps_full, alpha=8, max_supersteps=50_000,
-                                          refine_waves=refine)
-            p = _solve_transport_tiered(*a, eps_full, alpha=8, max_supersteps=50_000,
-                                        refine_waves=refine)
-            torch.cuda.synchronize()
-            err = max_abs_diff(k, p)
-            worst = max(worst, err)
-            ok = same_bits(k, p) and bool(k[3])
-            say(f"tiered parity [{C},{Mp}]{where} refine={refine}: steps={int(k[2])} "
-                f"converged={bool(k[3])} max_abs_err={err} "
-                f"{'bit-identical' if ok else 'MISMATCH'}")
-            check(ok, f"tiered kernel != plain at [{C},{Mp}]{where} refine={refine}")
-    return worst
+                k = transport_loop_tiered(*a, eps_full, **kw)
+            rows.append((f"[{C},{Mp}]{where} refine={refine}", k,
+                         ("_solve_transport_tiered", [*a, eps_full], kw)))
+    return check_parity("tiered parity", rows)
 
 
 def pu_sha256(cluster):
@@ -3876,26 +3929,29 @@ SHARD_RANKS = 2
 
 def rank_sharded(rank, world, args):
     """One rank of the `sharded` phase: bench.py's gtrace100k driver
-    (drivers/sharded_scale.py) at REF_PARALLEL's arguments on the card
-    (`args["device"]`), over the launch's gloo group."""
+    (drivers/sharded_scale.py) at REF_PARALLEL's arguments on
+    `args["device"]` as the caller names it (the plain "cuda" on the
+    card), over the launch's gloo group."""
     from ksched_tpu_torch.drivers.sharded_scale import run_sharded_scale
     from ksched_tpu_torch.parallel.mesh import ShardMesh
 
     args = dict(args)
-    dev = torch.device(args.pop("device"))
+    dev = args.pop("device")
     mesh = ShardMesh(None, device=dev)
     t0 = time.perf_counter()
     out = run_sharded_scale(mesh, device=dev, **args)
     out.pop("objects")
     out["wall_s"] = time.perf_counter() - t0
     out["backend"] = mesh.backend
+    out["mesh_device"] = str(mesh.device)
     return out
 
 
 def rank_layered(rank, world, device):
     """One rank of the `sharded-layered` phase: the seeded BulkCluster's
     round through ShardedLayeredSolver, then the tiered instance through
-    sharded_transport_solve_tiered, on `device` over gloo."""
+    sharded_transport_solve_tiered, on `device` as the caller names it
+    (the plain "cuda" on the card) over gloo."""
     from ksched_tpu_torch.drivers.parallel_scenarios import (
         LAYERED, TIERED, layered_cluster, round_record, tiered_instance)
     from ksched_tpu_torch.parallel.mesh import ShardMesh
@@ -3903,8 +3959,8 @@ def rank_layered(rank, world, device):
         ShardedLayeredSolver, sharded_transport_solve_tiered)
     from ksched_tpu_torch.scheduler.bulk import BulkCluster
 
-    dev = torch.device(device)
-    mesh = ShardMesh(None, device=dev)
+    mesh = ShardMesh(None, device=device)
+    dev = mesh.device
     solver = ShardedLayeredSolver(mesh)
     cluster = layered_cluster(BulkCluster, solver, **LAYERED)
     t0 = time.perf_counter()
@@ -3920,7 +3976,7 @@ def rank_layered(rank, world, device):
     tiered = {"y_sha256": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest(),
               "steps": int(steps), "converged": bool(conv),
               "wall_s": time.perf_counter() - t0, "collectives": mesh.by_site()}
-    return rec, tiered, mesh.backend
+    return rec, tiered, mesh.backend, str(mesh.device)
 
 
 def per_superstep(sites, steps):
@@ -3945,12 +4001,13 @@ def phase_sharded(dev):
 
     ref = REF_PARALLEL["sharded"]
     args = {k: v for k, v in ref["args"].items() if k != "devices"}
-    args["device"] = str(dev)
+    args["device"] = dev.type  # the entry points' default, "cuda" on the card
     check(ref["args"]["devices"] == SHARD_RANKS, "REF_PARALLEL is for another D")
     got = run_ranks("chip_smoke:rank_sharded", SHARD_RANKS, args, deadline_s=700,
                     timeout_s=300)
     for r, g in enumerate(got):
         check(g["backend"] == "gloo", f"rank {r} on {g['backend']}")
+        check(g["mesh_device"] == str(dev), f"rank {r}'s mesh on {g['mesh_device']}")
         check(g["budget"] == ref["budget"] and g["bucket"] == ref["bucket"],
               f"rank {r}: gate {g['budget']} {g['bucket']} != {ref['budget']} {ref['bucket']}")
         for arm in ("scan_csr", "sharded"):
@@ -3977,6 +4034,8 @@ def phase_sharded(dev):
         "a tightening sweep)")
     check(g["collectives"]["superstep"] == {"psum": 2 * steps},
           f"superstep collectives {g['collectives']['superstep']} != 2 psum x {steps}")
+    say(f"sharded: ranks given device {args['device']!r}, meshes on "
+        f"{[x['mesh_device'] for x in got]}")
     say(f"sharded: fill_s {json.dumps(g['fill_s'])} rank walls "
         f"{[round(x['wall_s'], 1) for x in got]} s")
     if dev.type == "cuda":
@@ -3985,9 +4044,10 @@ def phase_sharded(dev):
 
 def phase_nccl(dev):
     """One D = 1 sharded solve over NCCL (the backend of one card per
-    rank) in this process: the mesh's collectives on the card, and the
-    legacy sharded solve equal to the single-card CsrSolver's (at D = 1
-    both order the entries alike) on a seeded scheduling graph."""
+    rank) in this process, every entry point on its default device: the
+    mesh's collectives on the card, and the legacy sharded solve equal to
+    the single-card CsrSolver's (at D = 1 both order the entries alike)
+    on a seeded scheduling graph."""
     import os
     import shutil
     import tempfile
@@ -4002,9 +4062,10 @@ def phase_nccl(dev):
     tmp = tempfile.mkdtemp(prefix="ksched_nccl_")
     try:
         init_group("nccl", 0, 1, f"file://{os.path.join(tmp, 'store')}",
-                   timeout_s=120, device=dev)
-        mesh = ShardMesh(None, device=dev)
+                   timeout_s=120, device="cuda")
+        mesh = ShardMesh(None)
         check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        check(mesh.device == dev, f"nccl mesh on {mesh.device}, not {dev}")
         x = torch.arange(-5, 7, dtype=torch.int32, device=dev)
         check(torch.equal(mesh.psum(x), x) and torch.equal(mesh.pmax(x), x)
               and torch.equal(mesh.pmin(x), x)
@@ -4014,7 +4075,7 @@ def phase_nccl(dev):
         t0 = time.perf_counter()
         a = sh.solve(p)
         wall = time.perf_counter() - t0
-        cs = CsrSolver(device=dev, slot_stable=False, telemetry=0)
+        cs = CsrSolver(slot_stable=False, telemetry=0)
         b = cs.solve(p)
         check(np.array_equal(a.flow, b.flow) and a.objective == b.objective
               and sh.last_supersteps == cs.last_supersteps,
@@ -4048,7 +4109,7 @@ def phase_sharded_layered(dev):
         LayeredTransportSolver, _solve_transport_tiered)
 
     ref = REF_PARALLEL["sharded_layered"]
-    got = run_ranks("chip_smoke:rank_layered", SHARD_RANKS, str(dev), deadline_s=400,
+    got = run_ranks("chip_smoke:rank_layered", SHARD_RANKS, dev.type, deadline_s=400,
                     timeout_s=300)
     single = LayeredTransportSolver(device=dev)
     cluster = layered_cluster(BulkCluster, single, **LAYERED)
@@ -4063,8 +4124,9 @@ def phase_sharded_layered(dev):
     card = dict(round_record(cluster, res), supersteps=int(single.last_supersteps))
     check(card == ref["single"], f"card round {card} != the JAX package's {ref['single']}")
     check(launches == len(rec.calls) and launches >= 1, f"launches {launches}")
-    for r, (rr, tiered, backend) in enumerate(got):
+    for r, (rr, tiered, backend, mesh_device) in enumerate(got):
         check(backend == "gloo", f"rank {r} on {backend}")
+        check(mesh_device == str(dev), f"rank {r}'s mesh on {mesh_device}")
         row = {k: rr[k] for k in card}
         check(row == card, f"rank {r}: {row} != card {card}")
         say(f"sharded-layered rank {r}: steps {rr['supersteps']} wall {rr['wall_s']:.1f} s "
@@ -4082,7 +4144,7 @@ def phase_sharded_layered(dev):
     want = ref["tiered"]
     check({"y_sha256": k_sha, "steps": int(kernel[2]), "converged": bool(kernel[3])}
           == want, f"tiered kernel {k_sha[:12]}/{int(kernel[2])} != the JAX package's {want}")
-    for r, (_rr, tiered, _b) in enumerate(got):
+    for r, (_rr, tiered, _b, _d) in enumerate(got):
         t = {k: tiered[k] for k in want}
         check(t == want, f"rank {r} tiered {t} != {want}")
         say(f"sharded tiered rank {r}: steps {tiered['steps']} wall {tiered['wall_s']:.1f} s "
@@ -4357,7 +4419,7 @@ def phase_shard_smoke(dev):
     check(REF_TOOLS["args"]["shard"] == dict(MAKEFILE, devices=SHARD_RANKS),
           "REF_TOOLS is for other shard-smoke arguments")
     got = run_ranks("ksched_tpu_torch.tools.shard_smoke:rank_smoke", SHARD_RANKS,
-                    dict(MAKEFILE, verbose=False, device=str(dev)), deadline_s=600,
+                    dict(MAKEFILE, verbose=False, device=dev.type), deadline_s=600,
                     timeout_s=300)
     for r, g in enumerate(got):
         check(g["backend"] == "gloo", f"rank {r} on {g['backend']}")

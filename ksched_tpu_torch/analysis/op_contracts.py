@@ -689,10 +689,11 @@ def _stub_mesh(num_devices: int, device):
     """A ShardMesh with no process group, for the zero-collective
     programs that read only the rank: a collective through it fails."""
     from ..parallel.mesh import ShardMesh
+    from ..utils.device import resolve_device
 
     mesh = object.__new__(ShardMesh)
     mesh.group, mesh.size, mesh.rank = None, num_devices, 0
-    mesh.device = torch.device(device)
+    mesh.device = resolve_device(device)
     mesh.counts = Counter()
     return mesh
 

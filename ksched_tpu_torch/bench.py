@@ -65,6 +65,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .utils.device import resolve_device
+
 #: leave-one-out relative-error bar above which a latency-model fit is
 #: flagged suspect
 LOO_SUSPECT_REL_ERR = 0.25
@@ -592,7 +594,6 @@ def _gtrace_device_bench(config: str, overrides=None, device="cuda",
     arrivals a second)."""
     from .drivers.gtrace import GTRACE, N_MACHINES, WINDOW_S, gtrace_driver, window_slice
     from .obs import soltel
-    from .utils.device import resolve_device
 
     dev = resolve_device(device)
     platform = dev.type
@@ -734,7 +735,6 @@ def _churn_pipeline_bench(tasks: int = 10_000, machines: int = 1_000, rounds: in
     from .drivers.churn import ARMS, ChurnArm, drive_arms
     from .obs.devprof import problem_nbytes
     from .solver.csr_solver import CsrSolver
-    from .utils.device import resolve_device
 
     dev = resolve_device(device)
     arms = [ChurnArm(label, tasks=tasks, machines=machines, churn=churn, device=dev,
@@ -904,12 +904,7 @@ def _gtrace100k_rank(rank, world, payload):
     from .parallel.mesh import ShardMesh
 
     kw = dict(payload)
-    dev = torch.device(kw.pop("device"))
-    if dev.type == "cuda":
-        # the ranks share card 0; the mesh holds its collectives to the
-        # device with its index, as the solver's tensors carry it
-        torch.cuda.set_device(0)
-        dev = torch.device("cuda", 0)
+    dev = kw.pop("device")
     got = run_sharded_scale(ShardMesh(None, device=dev), device=dev, **kw)
     got.pop("objects")
     return got
@@ -926,12 +921,12 @@ def _sharded_scale_bench(tasks: int = 100_000, machines: int = 10_000, rounds: i
     over the sharded arm's measured rounds (each round its own R = 1
     chunk)."""
     from .parallel.launch import run_ranks
-    from .utils.device import resolve_device
 
-    dev = resolve_device(device)
+    dev = resolve_device(device)  # no card: raise here, before any rank starts
+    # each rank resolves the device as the caller named it, on its own card
     payload = dict(tasks=tasks, machines=machines, rounds=rounds, warmup=warmup,
                    churn=churn, burst_every=burst_every, burst_factor=burst_factor,
-                   restart_budget=restart_budget, device=str(dev))
+                   restart_budget=restart_budget, device=str(device))
     got = run_ranks("ksched_tpu_torch.bench:_gtrace100k_rank", devices, payload,
                     deadline_s=3600.0, timeout_s=600.0)[0]
 
@@ -1090,7 +1085,7 @@ def _suite_stamp(device) -> dict:
             cwd=ROOT, timeout=10).stdout.strip() or "unknown"
     except (OSError, subprocess.TimeoutExpired):
         commit = "unknown"
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return {
         "suite_stamp": True,
         "commit": commit,
@@ -1269,8 +1264,6 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None, log=print, err=_stderr) -> int:
     """The CLI: prints the run's one JSON record through `log` (the
     suite: one line per config), progress and notes through `err`."""
-    from .utils.device import resolve_device
-
     ap = parser()
     args = ap.parse_args(argv)
     if args.small:

@@ -31,6 +31,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..utils.device import resolve_device
 from .service import _complete_share, live_placements, placements_sha256
 
 #: (machines, tasks) per cell class -> 3 pow2 shape buckets
@@ -258,7 +259,7 @@ def package(device="cuda"):
     from ..utils.ids import rng
     from .synthetic import add_job, add_task_to_job, build_cluster
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return SimpleNamespace(
         build_cluster=build_cluster, add_job=add_job, add_task_to_job=add_task_to_job,
         seed_rng=seed_rng, rng=rng,

@@ -737,7 +737,7 @@ class DeviceResidentState:
         if self._shard is mesh:
             return
         if mesh.device != self.device:
-            raise ValueError(f"a mesh on {mesh.device} for a mirror on {self.device}")
+            raise TypeError(f"a mesh on {mesh.device} for a mirror on {self.device}")
         self._shard = mesh
         self.state.plan.enable_sharding(mesh.size)
         self._plan_gen = -1  # mode flip: the next sync re-uploads wholesale

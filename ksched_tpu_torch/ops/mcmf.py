@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from ..analysis.marks import loop_mark
+from ..utils.device import resolve_device
 from .build import KernelError, check_tensor, kernel_attrs as _kernel_attrs, load, raise_on
 
 _I32 = torch.int32
@@ -350,8 +351,7 @@ _capacity = {}
 def grid_capacity(dev) -> tuple:
     """(SM count, blocks of the kernel per SM) of CUDA device `dev`,
     queried once per device."""
-    dev = torch.device(dev)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
+    index = resolve_device(dev).index
     if index not in _capacity:
         lib = load("mcmf", _SIGNATURES)
         with torch.cuda.device(index):

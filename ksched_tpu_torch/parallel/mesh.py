@@ -33,7 +33,6 @@ plus the totals of every lower rank.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional
 
 import torch
 
@@ -108,7 +107,9 @@ class ShardMesh:
     def _all_reduce(self, x: torch.Tensor, op, kind: str, site: str) -> torch.Tensor:
         dist = _dist()
         if x.device != self.device:
-            raise ValueError(f"collective on {x.device}, mesh on {self.device}")
+            # the port's own tensors stray, not a solve that failed: a
+            # TypeError, which the degradation ladder never absorbs
+            raise TypeError(f"collective on {x.device}, mesh on {self.device}")
         shape = x.shape
         # a private contiguous copy, never the caller's tensor; 0-dim
         # payloads travel as [1]
@@ -164,16 +165,19 @@ def global_excl_prefix(mesh: ShardMesh, local_vals: torch.Tensor,
 
 
 def init_group(backend: str, rank: int, world_size: int, init_method: str,
-               timeout_s: float = 60.0, device: Optional[torch.device] = None):
+               timeout_s: float = 60.0, device=None):
     """`dist.init_process_group` with an explicit address and a timeout,
     so that a rank that never arrives fails the others within
     `timeout_s` instead of hanging them. For NCCL the rank's device is
     bound first (`device_id`)."""
     from datetime import timedelta
 
+    from ..utils.device import resolve_device
+
     dist = _dist()
     kw = {}
     if backend == "nccl" and device is not None:
+        device = resolve_device(device)
         torch.cuda.set_device(device)
         kw["device_id"] = device
     dist.init_process_group(backend, init_method=init_method, rank=rank,

@@ -286,7 +286,7 @@ class LaneSolver(FlowSolver):
     ) -> None:
         self.device = resolve_device(device)
         if self.device != batcher.device:
-            raise ValueError(f"a lane on {self.device} with a batcher on "
+            raise TypeError(f"a lane on {self.device} with a batcher on "
                              f"{batcher.device}")
         self.batcher = batcher
         self.tenant = tenant

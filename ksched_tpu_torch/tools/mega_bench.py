@@ -33,6 +33,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 KNOWN = ("mega", "csr", "ell")
 
 
@@ -68,7 +70,7 @@ def launchers(problem, max_supersteps: int, backends, device) -> dict:
     from ..solver.ell_solver import _solve_mcmf_ell, build_ell_plan, plan_tensors
     from ..solver.mega_solver import build_mega_plan
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     n = problem.num_nodes
     src = problem.src.astype(np.int32)
     dst = problem.dst.astype(np.int32)
@@ -104,7 +106,7 @@ def solve_fns(problem, max_supersteps: int, backends, device) -> dict:
     did not converge (`launchers` says which backends are there)."""
     from ..bench import _sync
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def closed(name, launch, steps_at, conv_at):
         def run():
@@ -125,8 +127,6 @@ def run_bench(tasks=10_000, machines=1_000, solves=8, max_supersteps=4096,
     """Time `solves` cold solves of each backend after one warm-up solve
     (the first solve on the card builds the kernel) on `device`: p50 ms
     and supersteps per backend, and the record (bench.py's shape)."""
-    from ..utils.device import resolve_device
-
     dev = resolve_device(device)
     backends = tuple(b.strip() for b in backends)
     for b in backends:

@@ -45,6 +45,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 _I64 = np.int64  # kschedlint: host-only (host numpy instance arithmetic)
 #: stage 1's budget, device_bulk's stage1_quarter budget
 S1_BUDGET = 2048
@@ -132,7 +134,7 @@ def build_chain(data, k: int, reps: int, alpha: int, supersteps: int, device="cu
     from ..solver.layered import choose_eps0, transport_fori, transport_fori_tiered
     from .tail_repro import _i32
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if int(data.get("grouped", 0)) == 1:
         solve, supJ = _solve_grouped(data, k, supersteps, dev)
     else:
@@ -189,8 +191,6 @@ def run(inst: str, reps: int = 64, alpha: int = 8, max_instances: int = 8,
         log=None) -> dict:
     """Time a chain of each captured instance (a warm-up chain first) and
     fit kappa; returns tools/model_check.py's record."""
-    from ..utils.device import resolve_device
-
     dev = resolve_device(device)
     data = np.load(inst)
     n = min(int(data["n"]), max_instances)

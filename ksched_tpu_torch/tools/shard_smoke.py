@@ -211,17 +211,10 @@ def rank_smoke(rank, world, payload):
     """One rank of the smoke (parallel/launch.py's target): the three
     arms over the launch's group on `payload["device"]`; returns
     run_smoke's record, this rank's wall and the group's backend."""
-    import torch
-
     from ..parallel.mesh import ShardMesh
 
     args = dict(payload)
-    device = torch.device(args.pop("device"))
-    if device.type == "cuda" and device.index is None:
-        # the mesh holds its tensors' own device: "cuda" means this
-        # rank's current card, as the tensors made on it say
-        device = torch.device("cuda", torch.cuda.current_device())
-    mesh = ShardMesh(None, device=device)
+    mesh = ShardMesh(None, device=args.pop("device"))
     t0 = time.perf_counter()
     lines = []
     out = run_smoke(mesh, log=lambda s, **k: lines.append(s), **args)

@@ -34,6 +34,8 @@ import sys
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 #: host-side integer arithmetic of the instances (never a device value)
 _I64 = np.int64  # kschedlint: host-only (host numpy arithmetic of captured instances)
 
@@ -320,7 +322,7 @@ def replay(args, log=print) -> list:
     per instance its points (alpha, refine, ss, conv, obj)."""
     from ..solver.layered import choose_eps0, transport_fori
 
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     data = np.load(args.inst)
     n, n_scale, Mp = int(data["n"]), int(data["n_scale"]), int(data["Mp"])
     alphas = [int(a) for a in args.alpha.split(",")]
@@ -367,7 +369,7 @@ def replay_grouped(args, log=print) -> list:
     instance each strategy's (ss, obj)."""
     from ..solver.layered import choose_eps0, split_grants_by_class, transport_fori
 
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     data = np.load(args.inst)
     n, n_scale, Mp = int(data["n"]), int(data["n_scale"]), int(data["Mp"])
     e = data["g_e"].astype(_I64)
@@ -464,7 +466,7 @@ def replay_tiered(args, log=print) -> list:
     points (eps0 label, refine, ss, conv, obj)."""
     from ..solver.layered import transport_fori_tiered
 
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     data = np.load(args.inst)
     assert int(data["preempt"]) == 1, "not a preempt capture"
     n, n_scale, Mp = int(data["n"]), int(data["n_scale"]), int(data["Mp"])
@@ -514,8 +516,6 @@ def replay_tiered(args, log=print) -> list:
 
 
 def main(argv=None) -> int:
-    from ..utils.device import resolve_device
-
     ap = argparse.ArgumentParser(prog="python -m ksched_tpu_torch.tools.tail_repro")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     sub = ap.add_subparsers(dest="cmd", required=True)

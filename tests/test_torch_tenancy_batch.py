@@ -208,7 +208,7 @@ def test_empty_lane_matches_csr_solver_contract():
 
 
 def test_lane_and_batcher_devices(monkeypatch):
-    with pytest.raises(ValueError, match="batcher"):
+    with pytest.raises(TypeError, match="batcher"):
         LaneSolver(_batcher(), device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for entry in (StackedBatcher, lambda: LaneSolver(_batcher())):

@@ -228,18 +228,21 @@ def legacy_shape(rng):
     return (int(rng.integers(5, 14)), int(rng.integers(2, 5)), int(rng.integers(1, 4)))
 
 
-def drive_rounds(make_solver, resident=False, mesh=None, rounds=DRIVE["rounds"]):
+def drive_rounds(make_solver, resident=False, mesh=None, rounds=DRIVE["rounds"],
+                 mirror_device=None):
     """The slot-stable churn drive of the JAX package's sharded tests
     (tests/test_sharded_fast.py `_drive`) on the port: rows of (flow,
-    supersteps, objective, warm scope, plan kind)."""
+    supersteps, objective, warm scope, plan kind). The resident mirror
+    is made on `mirror_device`, else on the mesh's device, else the CPU."""
     from torch_plan_twin import SCRIPT, Solo, churn_round
 
     from ksched_tpu_torch.graph.device_export import DeviceResidentState
 
     solo = Solo(DRIVE["tasks"], DRIVE["machines"], machine_cap=DRIVE["machine_cap"])
     st = solo.t
-    res = (DeviceResidentState(st, mesh.device if mesh is not None else CPU)
-           if resident else None)
+    if mirror_device is None:
+        mirror_device = mesh.device if mesh is not None else CPU
+    res = DeviceResidentState(st, mirror_device) if resident else None
     if mesh is not None:
         res.enable_sharded_plan(mesh)
     solver = make_solver()
@@ -467,4 +470,114 @@ def cuda_cases(rank, world, payload):
         rows_r, _st, _res, _s = drive_rounds(lambda: ShardedJaxSolver(m), resident=True,
                                              mesh=m, rounds=3)
         out[f"resident_{name}"] = rows_r
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_cuda_default_device.py (the card, default devices)
+# ---------------------------------------------------------------------------
+
+
+def _solo_problem():
+    from torch_plan_twin import Solo
+
+    solo = Solo(DRIVE["tasks"], DRIVE["machines"], machine_cap=DRIVE["machine_cap"])
+    return solo.t.problem()
+
+
+def _solved(solver, result):
+    """(flow, objective, supersteps, potentials) of a solve."""
+    p = getattr(solver, "_prev_p", None)
+    return (np.asarray(result.flow).copy(), int(result.objective),
+            int(solver.last_supersteps), None if p is None else _np(p))
+
+
+def default_device_cases(rank, world, payload):
+    """The sharded rung on the entry points' default device (no device
+    argument anywhere but where a case names one on purpose), each
+    against the single-card CsrSolver on its own default: the churn
+    drive through make_backend("sharded"); make_backend("auto") whose
+    fitting gate escalates; build_degradation_ladder over
+    make_backend("sharded"); a mirror made on "cuda" taking a mesh made
+    on "cuda:0". A case that raises is kept as its error under
+    out["errors"][case], and the others still run."""
+    import os
+
+    from ksched_tpu_torch.parallel.mesh import ShardMesh
+    from ksched_tpu_torch.parallel.sharded_solver import (
+        ShardedJaxSolver,
+        csr_working_set_bytes,
+        sharded_shard_bytes,
+    )
+    from ksched_tpu_torch.runtime.degrade import build_degradation_ladder
+    from ksched_tpu_torch.solver.csr_solver import CsrSolver
+    from ksched_tpu_torch.solver.select import make_backend
+
+    out = {"errors": {}}
+
+    def case(name, fn):
+        import traceback
+
+        try:
+            out[name] = fn()
+        except Exception:  # kept, with where it was raised, for the test to show
+            out["errors"][name] = "".join(traceback.format_exc().splitlines(True)[-6:])
+        # the ranks meet after every case, so a case that failed on one
+        # rank only fails that case
+        ShardMesh(None, device="cpu").psum(torch.zeros(1, dtype=torch.int32), "meet")
+
+    out["csr"] = drive_rounds(lambda: CsrSolver(restart_budget=64))[0]
+    csr = CsrSolver()
+    out["auto_csr"] = _solved(csr, csr.solve(_solo_problem()))
+
+    # the churn drive, sharded on its default against the single card
+    def sharded():
+        solver = make_backend("sharded")
+        return ((str(solver.mesh.device), str(solver.device)),
+                drive_rounds(lambda: solver)[0])
+
+    case("sharded", sharded)
+
+    # make_backend("auto"): the mega rung refuses at a budget below this
+    # graph's live set (as it refuses a graph beyond the card's L2), and
+    # the fitting gate's budget sits between the per-shard and the
+    # single-card working sets, so the solve escalates to the sharded rung
+    def auto():
+        prob = _solo_problem()
+        n_cap, m_cap = prob.num_nodes, len(prob.src)
+        budget = (sharded_shard_bytes(n_cap, m_cap, world)
+                  + csr_working_set_bytes(n_cap, m_cap)) // 2
+        os.environ["KSCHED_HBM_BUDGET"] = str(budget)
+        try:
+            solver = make_backend("auto")
+        finally:
+            del os.environ["KSCHED_HBM_BUDGET"]
+        solver.mega.budget_bytes = 0
+        lazy = (solver._sharded is not None
+                and not isinstance(solver._sharded, ShardedJaxSolver))
+        res = solver.solve(prob)
+        return (solver.last_path, lazy, solver.hbm_budget_bytes == budget,
+                solver.last_mega_refusal, str(solver.sharded.mesh.device),
+                _solved(solver.sharded, res))
+
+    case("auto", auto)
+
+    # the degradation ladder over the sharded rung, on its defaults
+    def ladder():
+        solver = build_degradation_ladder(make_backend("sharded"), "sharded")
+        rung = solver._rungs[0][1]
+        res = solver.solve(_solo_problem())
+        return (solver.rung_names(), solver.last_rung_name,
+                solver.degradations_total, _solved(rung, res))
+
+    case("ladder", ladder)
+
+    # a mirror on "cuda" and a mesh on "cuda:0"
+    def mirror():
+        mesh0 = ShardMesh(None, device="cuda:0")
+        rows, _st, res, _s = drive_rounds(lambda: ShardedJaxSolver(mesh0), resident=True,
+                                          mesh=mesh0, mirror_device="cuda")
+        return (str(res.device), str(mesh0.device), res._shard is mesh0, rows)
+
+    case("mirror", mirror)
     return out
