@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.spans import span
 from .quincy import (
     COST_PER_MB,
     MB,
@@ -254,14 +255,16 @@ class QuincyGroupTable:
         deps: Sequence[Sequence[int]],
         jobs: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        """Vector form of group_for for an admission batch."""
+        """Vector form of group_for for an admission batch (a
+        `group_table` span)."""
         out = np.empty(len(deps), np.int32)
-        for i, blocks in enumerate(deps):
-            out[i] = self.group_for(
-                int(classes[i]),
-                blocks,
-                0 if jobs is None else int(jobs[i]),
-            )
+        with span("group_table", op="groups_for"):
+            for i, blocks in enumerate(deps):
+                out[i] = self.group_for(
+                    int(classes[i]),
+                    blocks,
+                    0 if jobs is None else int(jobs[i]),
+                )
         return out
 
     # -- lifecycle ---------------------------------------------------------
@@ -283,7 +286,11 @@ class QuincyGroupTable:
         admissions/completions, or a fetched state's grp/live arrays)
         at table-maintenance cadence — e.g. between timed chunks;
         follow with sync() to push the cleared rows. Returns the number
-        of groups reclaimed."""
+        of groups reclaimed. A `group_table` span."""
+        with span("group_table", op="evict_idle"):
+            return self._evict_idle(live_per_group, keep_fraction)
+
+    def _evict_idle(self, live_per_group, keep_fraction: float) -> int:
         dyn = max(1, self.G - 2 * self.C)
         occupied = len(self._gid2sig)
         target = int(dyn * keep_fraction)
@@ -346,11 +353,13 @@ class QuincyGroupTable:
     # -- device sync -------------------------------------------------------
 
     def sync(self, cluster) -> None:
-        """Push the current table to a DeviceBulkCluster (group mode)."""
-        cluster.set_groups(
-            cls=self.cls,
-            job=self.job,
-            e=self.e,
-            u=self.effective_u(),
-            pref_w=self.pref_w,
-        )
+        """Push the current table to a DeviceBulkCluster (group mode; a
+        `group_table` span)."""
+        with span("group_table", op="sync"):
+            cluster.set_groups(
+                cls=self.cls,
+                job=self.job,
+                e=self.e,
+                u=self.effective_u(),
+                pref_w=self.pref_w,
+            )

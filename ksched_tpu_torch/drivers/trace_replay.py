@@ -43,6 +43,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs.spans import span
+
 # task_events event_type values (clusterdata-2011 schema)
 SUBMIT, SCHEDULE, EVICT, FAIL, FINISH, KILL, LOST = 0, 1, 2, 3, 4, 5, 6
 MACHINE_ADD, MACHINE_REMOVE, MACHINE_UPDATE = 0, 1, 2
@@ -569,7 +571,18 @@ class DeviceTraceReplayDriver:
         finished inside one window) cannot complete in its own round
         — its row is admitted this round and carried to complete in
         the NEXT round, preserving the submit/finish counts the host
-        driver reports."""
+        driver reports. Spanned as `stage`, with `stage.windows` (the
+        window loop and the live-bitmap mirror) and `stage.pack` (the
+        fixed-width arrays)."""
+        with span("stage"):
+            with span("stage.windows"):
+                windows, counts = self._stage_windows(task_events, window_s, max_rounds)
+            with span("stage.pack"):
+                return self._pack(windows, *counts)
+
+    def _stage_windows(self, task_events, window_s, max_rounds):
+        """stage's window loop: (each window's admissions, completions
+        and toggles, (submitted, finished, dropped))."""
         live = np.zeros(self.Tcap, bool)  # host mirror of the live bitmap
         row_of: Dict[Tuple[int, int], int] = {}
         machine_cursor = 0
@@ -658,7 +671,10 @@ class DeviceTraceReplayDriver:
                 "trace yielded no schedulable windows (no task events, "
                 "or only finishes for unknown tasks)"
             )
+        return windows, (submitted, finished, dropped)
 
+    def _pack(self, windows, submitted, finished, dropped) -> dict:
+        """stage's fixed-width per-window arrays."""
         K = len(windows)
         Amax = max(1, max(len(w["adm"]) for w in windows))
         Dmax = max(1, max(len(w["done"]) for w in windows))

@@ -17,7 +17,10 @@ records:
   CUDA activity) bracketing the Nth solve: one trace of a steady-state
   solve without paying profiler overhead on every round. The trace is
   written as Chrome trace JSON into `capture_dir` and the profiler
-  object is kept as `last_capture` for `key_averages()`.
+  object is kept as `last_capture` for `key_averages()`;
+- the device round's bounded attempts (`DeviceSolveCounters`): each
+  attempt kept or discarded by its site, the supersteps the discarded
+  ones spent, and each grouped solve's rows and path.
 
 One module-level profiler is the default sink (`get_profiler()`), so
 the placement driver needs no plumbing; tests install private instances
@@ -216,6 +219,73 @@ class DeviceProfiler:
         self.solves.labels(backend=name).inc()
         if work:
             self.solver_work.labels(backend=name).observe(work)
+
+
+#: the device round's attempt sites: the grouped stage 1, the grouped
+#: full solve (or any attempt from the full range), a short-start first
+#: attempt, and its full-range retry
+ATTEMPT_SITES = ("stage1", "full", "eps0", "retry")
+#: a grouped solve's paths (DeviceBulkCluster.last_grouped_path)
+GROUPED_PATHS = ("two-stage", "fallback", "full")
+
+
+class DeviceSolveCounters:
+    """The device round's solve accounting, on the registry that is
+    current at construction, each labelled child bound there so that a
+    round pays only `inc`.
+
+    An attempt is counted when its outcome is known: `attempt` opens
+    one (and keeps the one before it, which nothing discarded);
+    `discard` drops the open one, and counts its budget as the
+    supersteps it spent — an attempt is discarded only when it did not
+    converge, and a bounded solve stops short of its budget only by
+    converging; `settle` keeps it."""
+
+    def __init__(self, registry: Optional[Registry] = None, grouped_rows=()) -> None:
+        reg = registry if registry is not None else get_registry()
+        attempts = reg.counter(
+            "ksched_device_solve_attempts_total",
+            "device-round bounded solve attempts by site and outcome",
+            labelnames=("site", "outcome"),
+        )
+        wasted = reg.counter(
+            "ksched_device_discarded_supersteps_total",
+            "supersteps of device-round attempts whose result was discarded",
+            labelnames=("site",),
+        )
+        self._kept = {s: attempts.labels(site=s, outcome="kept") for s in ATTEMPT_SITES}
+        self._discarded = {s: (attempts.labels(site=s, outcome="discarded"),
+                               wasted.labels(site=s)) for s in ATTEMPT_SITES}
+        self._grouped = {}
+        if grouped_rows:
+            solves = reg.counter(
+                "ksched_grouped_solves_total",
+                "grouped device-round solves by rows (the ladder rung) and path",
+                labelnames=("rows", "path"),
+            )
+            self._grouped = {(r, p): solves.labels(rows=str(r), path=p)
+                             for r in grouped_rows for p in GROUPED_PATHS}
+        self._open = None  # (site, budget) of the attempt last opened
+
+    def attempt(self, site: str, budget: int) -> None:
+        self.settle()
+        self._open = (site, budget)
+
+    def settle(self) -> None:
+        if self._open is not None:
+            self._kept[self._open[0]].inc()
+            self._open = None
+
+    def discard(self) -> None:
+        if self._open is not None:
+            site, budget = self._open
+            self._open = None
+            count, steps = self._discarded[site]
+            count.inc()
+            steps.inc(budget)
+
+    def grouped(self, rows: int, path: str) -> None:
+        self._grouped[(rows, path)].inc()
 
 
 _profiler: Optional[DeviceProfiler] = None

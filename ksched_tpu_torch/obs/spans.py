@@ -18,7 +18,15 @@ Two-layer design, so instrumentation costs ~nothing when unused:
   the JSONL artifact and a captured Perfetto trace can never disagree.
 - recording only happens while a `SpanTracer` is installed
   (`tracer.install()` / `with tracer:`); with none installed the span
-  skips the contextvar parenting entirely.
+  skips the contextvar parenting entirely, and calls nothing of torch.
+
+One clock with the device trace: while a tracer is installed and a
+`torch.profiler` is recording, each span also opens a profiler range
+under its own name, so the program's phases sit in the profiler's
+capture on the capture's own (epoch) clock, beside the kernels and
+copies they issue. The tracer's own events keep the `perf_counter`
+base; `install()` takes the offset between the two clocks once, and the
+Chrome export records it, so a span file and a device trace merge.
 
 Parenting is contextvar-based, so spans nest correctly across threads
 and (if the host app uses them) asyncio tasks; each recorded event
@@ -54,7 +62,7 @@ class Span:
 
     __slots__ = (
         "name", "args", "sid", "parent_sid", "parent_name",
-        "t0_s", "t1_s", "dur_s", "_token", "_tracer",
+        "t0_s", "t1_s", "dur_s", "_token", "_tracer", "_range",
     )
 
     def __init__(self, name: str, args: Optional[Dict] = None) -> None:
@@ -68,6 +76,7 @@ class Span:
         self.dur_s = 0.0
         self._token = None
         self._tracer: Optional[SpanTracer] = None
+        self._range = None
 
     def set(self, key: str, value) -> None:
         """Attach an arg after entry (e.g. a superstep count only known
@@ -86,6 +95,7 @@ class Span:
                 self.parent_sid = parent.sid
                 self.parent_name = parent.name
             self._token = _current.set(self)
+            self._range = tracer._open_range(self.name)
         self.t0_s = time.perf_counter()
         return self
 
@@ -97,6 +107,9 @@ class Span:
         self.dur_s = t1 - self.t0_s
         tracer = self._tracer
         if tracer is not None:
+            if self._range is not None:
+                self._range.__exit__(None, None, None)
+                self._range = None
             _current.reset(self._token)
             self._token = None
             if exc_type is not None:
@@ -146,6 +159,27 @@ def unwind(outer: Span, exc_type, exc, tb) -> None:
             return
 
 
+def self_times(events: List[dict]) -> Dict[str, float]:
+    """Each span name's self time in µs over a SpanTracer's events: its
+    spans' durations less those of their children among `events`."""
+    by_sid = {e["args"]["sid"]: e for e in events if "sid" in e.get("args", {})}
+    out: Dict[str, float] = {}
+    for e in events:
+        out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
+        parent = by_sid.get(e.get("args", {}).get("parent_sid"))
+        if parent is not None:
+            out[parent["name"]] = out.get(parent["name"], 0.0) - e["dur"]
+    return out
+
+
+def _profiler_hooks():
+    """(is a torch.profiler recording, a profiler range's context
+    manager); torch is imported here, not with the module."""
+    import torch
+
+    return torch._C._autograd._profiler_enabled, torch._C._profiler._RecordFunctionFast
+
+
 class SpanTracer:
     """Collects finished spans as Chrome trace events in a bounded ring.
 
@@ -161,6 +195,20 @@ class SpanTracer:
         self.total = 0  # spans ever recorded (ring may have dropped some)
         self.dropped = 0
         self._prev: Optional[SpanTracer] = None
+        #: epoch ns = perf_counter ns + this, taken at install()
+        self.epoch_offset_ns = 0
+        #: (is a profiler recording, a profiler range), set at install()
+        self._profiler = None
+
+    def _open_range(self, name: str):
+        """An entered profiler range named `name` while a
+        torch.profiler records, else None."""
+        hooks = self._profiler
+        if not hooks[0]():
+            return None
+        rng = hooks[1](name)
+        rng.__enter__()
+        return rng
 
     # -- recording ---------------------------------------------------------
 
@@ -224,7 +272,11 @@ class SpanTracer:
             return list(self._events)
 
     def chrome_trace(self) -> dict:
-        return {"traceEvents": self.events(), "displayTimeUnit": "ms"}
+        """The ring as Chrome trace JSON: event times in µs on the
+        perf_counter base; `otherData.epoch_offset_ns` takes them to the
+        profiler's epoch clock (ts * 1e3 + offset = epoch ns)."""
+        return {"traceEvents": self.events(), "displayTimeUnit": "ms",
+                "otherData": {"epoch_offset_ns": self.epoch_offset_ns}}
 
     def dump(self, path: str) -> None:
         with open(path, "w") as f:
@@ -236,6 +288,11 @@ class SpanTracer:
         """Make this the process-active tracer (stacking: uninstall
         restores the previous one)."""
         global _active
+        p0 = time.perf_counter_ns()
+        wall = time.time_ns()
+        p1 = time.perf_counter_ns()
+        self.epoch_offset_ns = wall - (p0 + p1) // 2
+        self._profiler = _profiler_hooks()
         self._prev = _active
         _active = self
         return self

@@ -57,11 +57,12 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, wraps
 
 import numpy as np
 import torch
 
+from ..obs.spans import span
 from .build import check_tensor as _check, kernel_attrs as _kernel_attrs, load, raise_on
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -285,6 +286,23 @@ def _check_common(w, supply, col_cap, eps_init, alpha, max_supersteps,
     return C, Mp, None
 
 
+def _launch_span(name: str):
+    """Run the decorated solve inside a `name` span whose args are its
+    instance's rows C and padded columns Mp."""
+
+    def wrap(fn):
+        @wraps(fn)
+        def spanned(w, *args, **kw):
+            C, Mp = (tuple(w.shape) + (0, 0))[:2]
+            with span(name, C=C, Mp=Mp):
+                return fn(w, *args, **kw)
+
+        return spanned
+
+    return wrap
+
+
+@_launch_span("b1")
 def transport_loop(wS, supply, col_cap, eps_init, pm0=None, *,
                    alpha: int = 8, max_supersteps: int = 20_000,
                    refine_waves: int = 0, cycles=None):
@@ -340,6 +358,7 @@ def transport_loop(wS, supply, col_cap, eps_init, pm0=None, *,
 transport_loop.launches = 0
 
 
+@_launch_span("b2")
 def transport_loop_tiered(wLo, wHi, R, supply, col_cap, eps_init, *,
                           alpha: int = 8, max_supersteps: int = 20_000,
                           refine_waves: int = 0, cycles=None):

@@ -55,6 +55,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..obs.devprof import DeviceSolveCounters
+from ..obs.spans import span
 from ..solver.layered import (
     COST_SCALE_LIMIT,
     _true,
@@ -368,6 +370,11 @@ class DeviceBulkCluster:
         #: per grouped solve, on the host: (rows of the solve — a ladder
         #: width or G —, "two-stage", "fallback" or "full")
         self.last_grouped_path = None
+        #: the rounds' bounded attempts and grouped paths, on the
+        #: registry current here (obs/devprof.py)
+        self.solve_counters = DeviceSolveCounters(grouped_rows=(
+            tuple(c for c in self.active_groups_caps if c < self.G) + (self.G,)
+            if self.grouped else ()))
 
     # ------------------------------------------------------------------
     # the round's parts
@@ -521,6 +528,7 @@ class DeviceBulkCluster:
         None where only the device has it)."""
         Gn, M, n_scale = self.G, self.M, self.n_scale
         gs = self.groups
+        log = self.solve_counters
         two_stage = self.class_cost_fn is None
         ground = gs.e - gs.u  # [G] route - escape
         if two_stage:
@@ -549,12 +557,14 @@ class DeviceBulkCluster:
                 wS_x, supply_x, col_cap, budget, alpha=2, refine_waves=8,
                 eps0=choose_eps0(n_scale, eps_full_x, supply_x.sum(dtype=_I32),
                                  mfree_total, short=n_scale),
+                site="full", log=log,
             )
             return y_f, s_f, c_f, known
 
         def solve(wS_x, wS1_x, supply_x):
             if not two_stage_ok:
                 self.last_grouped_path = (rows, "full")
+                log.grouped(rows, "full")
                 return solve_full(wS_x, supply_x, ss_budget)
             if self.two_stage_eps0 == "quarter":
                 s1_eps0, s1_budget = max(1, n_scale // 4), 2048
@@ -563,9 +573,11 @@ class DeviceBulkCluster:
             y1, _pm1, s1, conv1, known1 = transport_fori(
                 wS1_x, supply_x, col_cap, ss_budget, alpha=2, refine_waves=8,
                 eps0=s1_eps0, eps0_budget=s1_budget, eps0_retry=False,
+                site="stage1", log=log,
             )
             if converged_on_host(conv1, known1):
                 self.last_grouped_path = (rows, "two-stage")
+                log.grouped(rows, "two-stage")
                 y1r = y1[:, :M]
                 left = supply_x - y1r.sum(dim=1, dtype=_I32)
                 rem = machine_free - y1r.sum(dim=0, dtype=_I32)
@@ -579,9 +591,11 @@ class DeviceBulkCluster:
             # the round's budget is shared: the fallback gets what the
             # exhausted stage 1 left of it
             self.last_grouped_path = (rows, "fallback")
+            log.grouped(rows, "fallback")
             fb_budget = ss_budget - min(s1_budget, ss_budget)
             if fb_budget <= 0:
                 return y1, s1, conv1, False
+            log.discard()
             y_f, s_f, c_f, known = solve_full(wS_x, supply_x, fb_budget)
             return y_f, s1 + s_f, c_f, known
 
@@ -604,92 +618,97 @@ class DeviceBulkCluster:
         Gn, num_pus, n_scale = self.G, self.num_pus, self.n_scale
         ss_budget = (self.supersteps if supersteps_cap is None
                      else min(int(supersteps_cap), self.supersteps))
-        pu_free = torch.where(
-            state.machine_enabled.repeat_interleave(P), S - state.pu_running, 0
-        )
-        machine_free = pu_free.view(M, P).sum(dim=1, dtype=_I32)
-
-        unplaced = state.live & (state.pu < 0)
-        if decode_width is None:
-            backlog = unplaced.sum(dtype=_I32)
-            idx = None  # identity window
-            valid, cls_w, job_w, grp_w = unplaced, state.cls, state.job, state.grp
-        else:
-            backlog, idx, valid = self._window(unplaced, int(decode_width),
-                                               window_offset)
-            rows = idx.clamp(0, Tcap - 1)
-            cls_w = torch.where(valid, state.cls[rows], C)
-            job_w = torch.where(valid, state.job[rows], 0)
-            grp_w = torch.where(valid, state.grp[rows], Gn)
-        if self.grouped:
-            g_w = grp_w
-        else:
-            g_w = job_w * C + cls_w if self.per_job else cls_w
-        g_safe = torch.where(valid, g_w, Gn)
-        supply = _count(g_safe, Gn)
-        total = supply.sum(dtype=_I32)
-
-        cost_eff, w = self._costs(state)
-        # int32 headroom guard: flagged in stats, raised by fetch_stats
-        cost_overflow = w.abs().amax() >= COST_SCALE_LIMIT // n_scale
-        wS = self._padded(w * n_scale)
-        col_cap = self._col_cap(machine_free, total)
-        # Cold-started every round: carried prices flatten reduced
-        # costs and recreate the identical-cost herding pathology.
-        if self.row_constant:
-            y = solve_row_constant(w[:, 0], supply, col_cap)
-            solve_steps, converged, known = self._i32(0), _true(self.device), True
-        elif self.grouped:
-            y, solve_steps, converged, known = self._grouped_solve(
-                w, wS, supply, total, col_cap, machine_free, ss_budget)
-        else:
-            eps_full = wS.abs().amax().clamp(min=1)
-            y, _pm, solve_steps, converged, known = transport_fori(
-                wS, supply, col_cap, ss_budget, alpha=self.alpha,
-                eps0=choose_eps0(n_scale, eps_full, total,
-                                 machine_free.sum(dtype=_I32)),
-                class_degenerate=self.class_degenerate,
-                refine_waves=self.refine_waves,
+        with span("census"):
+            pu_free = torch.where(
+                state.machine_enabled.repeat_interleave(P), S - state.pu_running, 0
             )
-        y_real = y[:, :M]
+            machine_free = pu_free.view(M, P).sum(dim=1, dtype=_I32)
+
+            unplaced = state.live & (state.pu < 0)
+            if decode_width is None:
+                backlog = unplaced.sum(dtype=_I32)
+                idx = None  # identity window
+                valid, cls_w, job_w, grp_w = unplaced, state.cls, state.job, state.grp
+            else:
+                backlog, idx, valid = self._window(unplaced, int(decode_width),
+                                                   window_offset)
+                rows = idx.clamp(0, Tcap - 1)
+                cls_w = torch.where(valid, state.cls[rows], C)
+                job_w = torch.where(valid, state.job[rows], 0)
+                grp_w = torch.where(valid, state.grp[rows], Gn)
+            if self.grouped:
+                g_w = grp_w
+            else:
+                g_w = job_w * C + cls_w if self.per_job else cls_w
+            g_safe = torch.where(valid, g_w, Gn)
+            supply = _count(g_safe, Gn)
+            total = supply.sum(dtype=_I32)
+
+        with span("costs"):
+            cost_eff, w = self._costs(state)
+            # int32 headroom guard: flagged in stats, raised by fetch_stats
+            cost_overflow = w.abs().amax() >= COST_SCALE_LIMIT // n_scale
+            wS = self._padded(w * n_scale)
+            col_cap = self._col_cap(machine_free, total)
+
+        with span("solve"):
+            # Cold-started every round: carried prices flatten reduced
+            # costs and recreate the identical-cost herding pathology.
+            if self.row_constant:
+                y = solve_row_constant(w[:, 0], supply, col_cap)
+                solve_steps, converged, known = self._i32(0), _true(self.device), True
+            elif self.grouped:
+                y, solve_steps, converged, known = self._grouped_solve(
+                    w, wS, supply, total, col_cap, machine_free, ss_budget)
+            else:
+                eps_full = wS.abs().amax().clamp(min=1)
+                y, _pm, solve_steps, converged, known = transport_fori(
+                    wS, supply, col_cap, ss_budget, alpha=self.alpha,
+                    eps0=choose_eps0(n_scale, eps_full, total,
+                                     machine_free.sum(dtype=_I32)),
+                    class_degenerate=self.class_degenerate,
+                    refine_waves=self.refine_waves, log=self.solve_counters,
+                )
+            y_real = y[:, :M]
 
         # ---- decode: rank-match placed tasks to machine grants ----
-        placed_w, pu_abs = self.rank_match_decode(g_safe, y_real, pu_free)
-        if idx is None:
-            new_pu = torch.where(placed_w, pu_abs, state.pu)
-        else:
-            # scatter the window's placements back; rows beyond Tcap
-            # (invalid or unplaced) land in a spare slot and are dropped
-            tgt = torch.where(placed_w, idx, Tcap)
-            new_pu = torch.cat([state.pu, state.pu[:1]]).scatter_(
-                0, tgt.long(), pu_abs)[:Tcap]  # kschedlint: index-only (gather index)
-        pr_idx = torch.where(placed_w, pu_abs, num_pus)
-        pu_running = _count(pr_idx, num_pus) + state.pu_running
-        placed_count = placed_w.sum(dtype=_I32)
-        # unscheduled counts the WHOLE backlog left pending (solver
-        # escapes + rows beyond the decode window)
-        placed_cost = (cost_eff * y_real).sum(dtype=_I32)
-        if self.per_job or self.grouped:
-            # per-row escape pricing needs the whole backlog by row
-            g_all = torch.where(unplaced, self._group_of(state), Gn)
-            backlog_g = _count(g_all, Gn)
-            placed_g = y_real.sum(dim=1, dtype=_I32)
-            objective = ((self._escape_costs() * (backlog_g - placed_g)).sum(dtype=_I32)
-                         + placed_cost)
-        else:
-            objective = self.unsched_cost * (backlog - placed_count) + placed_cost
-        stats = {
-            "placed": placed_count,
-            "unscheduled": backlog - placed_count,
-            "converged": converged,
-            "cost_overflow": cost_overflow,
-            "objective": objective,
-            "live": state.live.sum(dtype=_I32),
-            # solver supersteps this round (0 on closed-form paths)
-            "supersteps": solve_steps,
-        }
-        if self.grouped:
-            stats["active_groups"] = (supply > 0).sum(dtype=_I32)
+        with span("decode"):
+            placed_w, pu_abs = self.rank_match_decode(g_safe, y_real, pu_free)
+            if idx is None:
+                new_pu = torch.where(placed_w, pu_abs, state.pu)
+            else:
+                # scatter the window's placements back; rows beyond Tcap
+                # (invalid or unplaced) land in a spare slot and are dropped
+                tgt = torch.where(placed_w, idx, Tcap)
+                new_pu = torch.cat([state.pu, state.pu[:1]]).scatter_(
+                    0, tgt.long(), pu_abs)[:Tcap]  # kschedlint: index-only (gather index)
+            pr_idx = torch.where(placed_w, pu_abs, num_pus)
+            pu_running = _count(pr_idx, num_pus) + state.pu_running
+            placed_count = placed_w.sum(dtype=_I32)
+            # unscheduled counts the WHOLE backlog left pending (solver
+            # escapes + rows beyond the decode window)
+            placed_cost = (cost_eff * y_real).sum(dtype=_I32)
+            if self.per_job or self.grouped:
+                # per-row escape pricing needs the whole backlog by row
+                g_all = torch.where(unplaced, self._group_of(state), Gn)
+                backlog_g = _count(g_all, Gn)
+                placed_g = y_real.sum(dim=1, dtype=_I32)
+                objective = ((self._escape_costs() * (backlog_g - placed_g)).sum(dtype=_I32)
+                             + placed_cost)
+            else:
+                objective = self.unsched_cost * (backlog - placed_count) + placed_cost
+            stats = {
+                "placed": placed_count,
+                "unscheduled": backlog - placed_count,
+                "converged": converged,
+                "cost_overflow": cost_overflow,
+                "objective": objective,
+                "live": state.live.sum(dtype=_I32),
+                # solver supersteps this round (0 on closed-form paths)
+                "supersteps": solve_steps,
+            }
+            if self.grouped:
+                stats["active_groups"] = (supply > 0).sum(dtype=_I32)
         return state._replace(pu=new_pu, pu_running=pu_running), stats, known
 
     def round_core(self, state: DeviceClusterState, decode_width=None,
@@ -733,123 +752,129 @@ class DeviceBulkCluster:
         Gn, num_pus, n_scale = self.G, self.num_pus, self.n_scale
         discount = self.continuation_discount
         dev = self.device
-        enabled_pu = state.machine_enabled.repeat_interleave(P)
-        live = state.live
-        placed = live & (state.pu >= 0)
-        cur_pu = state.pu.clamp(0, num_pus - 1)
-        cur_m = torch.where(placed, cur_pu // P, M)  # sentinel M
-        g_t = self._group_of(state)
+        with span("census"):
+            enabled_pu = state.machine_enabled.repeat_interleave(P)
+            live = state.live
+            placed = live & (state.pu >= 0)
+            cur_pu = state.pu.clamp(0, num_pus - 1)
+            cur_m = torch.where(placed, cur_pu // P, M)  # sentinel M
+            g_t = self._group_of(state)
 
-        if scope_m is None:
-            in_scope, forced = placed, None
-            solve_live = live
-            col_cap_m = torch.where(state.machine_enabled, P * S, 0).to(_I32)
-        else:
-            scope_pad = torch.cat([scope_m, torch.zeros(1, dtype=torch.bool, device=dev)])
-            in_scope = placed & scope_pad[cur_m]
-            forced = placed & ~in_scope
-            solve_live = live & (~placed | in_scope)
-            # forced (out-of-scope) stays take their machine's capacity
-            F_m = _count(torch.where(forced, cur_m, M), M)
-            col_cap_m = torch.where(state.machine_enabled, P * S - F_m, 0).to(_I32)
-        g_safe = torch.where(solve_live, g_t, Gn)
-        supply = _count(g_safe, Gn)
-        total = supply.sum(dtype=_I32)
+            if scope_m is None:
+                in_scope, forced = placed, None
+                solve_live = live
+                col_cap_m = torch.where(state.machine_enabled, P * S, 0).to(_I32)
+            else:
+                scope_pad = torch.cat([scope_m, torch.zeros(1, dtype=torch.bool, device=dev)])
+                in_scope = placed & scope_pad[cur_m]
+                forced = placed & ~in_scope
+                solve_live = live & (~placed | in_scope)
+                # forced (out-of-scope) stays take their machine's capacity
+                F_m = _count(torch.where(forced, cur_m, M), M)
+                col_cap_m = torch.where(state.machine_enabled, P * S - F_m, 0).to(_I32)
+            g_safe = torch.where(solve_live, g_t, Gn)
+            supply = _count(g_safe, Gn)
+            total = supply.sum(dtype=_I32)
 
-        cost_eff, w = self._costs(state)
-        cost_overflow = (w.abs().amax() + discount) >= COST_SCALE_LIMIT // n_scale
+        with span("costs"):
+            cost_eff, w = self._costs(state)
+            cost_overflow = (w.abs().amax() + discount) >= COST_SCALE_LIMIT // n_scale
 
-        # resident census per cell [G, M] (in-scope placed tasks)
-        cell = torch.where(in_scope, g_t * M + cur_m, Gn * M)
-        R_real = _count(cell, Gn * M).view(Gn, M)
+            # resident census per cell [G, M] (in-scope placed tasks)
+            cell = torch.where(in_scope, g_t * M + cur_m, Gn * M)
+            R_real = _count(cell, Gn * M).view(Gn, M)
 
-        wS_hi = self._padded(w * n_scale)
-        wS_lo = wS_hi.clone()
-        wS_lo[:, :M] -= discount * n_scale
-        R_pad = self._padded(R_real)
-        col_cap = self._col_cap(col_cap_m, total)
-        eps_full = wS_hi.abs().amax().clamp(min=1)
-        # full-unit start for the tiered re-solve (short=n_scale)
-        eps0 = choose_eps0(n_scale, eps_full, total, col_cap_m.sum(dtype=_I32),
-                           short=n_scale)
-        if discount == 0 and self.row_constant:
-            y = solve_row_constant(w[:, 0], supply, col_cap)
-            solve_steps, converged = self._i32(0), _true(dev)
-        elif discount == 0:
-            # tiers coincide: the ordinary solve is exact
-            y, _pm, solve_steps, converged, _known = transport_fori(
-                wS_hi, supply, col_cap, self.supersteps, alpha=self.alpha,
-                eps0=eps0, class_degenerate=self.class_degenerate,
-                refine_waves=self.refine_waves,
-            )
-        else:
-            y, _pm, solve_steps, converged, _known = transport_fori_tiered(
-                wS_lo, wS_hi, R_pad, supply, col_cap, self.supersteps,
-                alpha=self.alpha, eps0=eps0, refine_waves=self.refine_waves,
-            )
-        y_real = y[:, :M]
+            wS_hi = self._padded(w * n_scale)
+            wS_lo = wS_hi.clone()
+            wS_lo[:, :M] -= discount * n_scale
+            R_pad = self._padded(R_real)
+            col_cap = self._col_cap(col_cap_m, total)
+            eps_full = wS_hi.abs().amax().clamp(min=1)
+            # full-unit start for the tiered re-solve (short=n_scale)
+            eps0 = choose_eps0(n_scale, eps_full, total, col_cap_m.sum(dtype=_I32),
+                               short=n_scale)
+
+        with span("solve"):
+            if discount == 0 and self.row_constant:
+                y = solve_row_constant(w[:, 0], supply, col_cap)
+                solve_steps, converged = self._i32(0), _true(dev)
+            elif discount == 0:
+                # tiers coincide: the ordinary solve is exact
+                y, _pm, solve_steps, converged, _known = transport_fori(
+                    wS_hi, supply, col_cap, self.supersteps, alpha=self.alpha,
+                    eps0=eps0, class_degenerate=self.class_degenerate,
+                    refine_waves=self.refine_waves, log=self.solve_counters,
+                )
+            else:
+                y, _pm, solve_steps, converged, _known = transport_fori_tiered(
+                    wS_lo, wS_hi, R_pad, supply, col_cap, self.supersteps,
+                    alpha=self.alpha, eps0=eps0, refine_waves=self.refine_waves,
+                    log=self.solve_counters,
+                )
+            y_real = y[:, :M]
 
         # ---- decode ----
-        retained = torch.minimum(y_real, R_real)  # residents kept
-        rem = y_real - retained  # grants for movers
-        # per-cell resident ranks (row order) via one stable sort
-        order = torch.sort(cell, stable=True).indices
-        counts = _count(cell, Gn * M + 1)
-        starts = torch.cumsum(counts, 0, dtype=_I32) - counts
-        rank_sorted = torch.arange(Tcap, dtype=_I32, device=dev) - starts[cell[order]]
-        rank_cell = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
-        ret_flat = torch.cat([retained.reshape(-1), torch.zeros(1, dtype=_I32, device=dev)])
-        stay = in_scope & (rank_cell < ret_flat[cell])
-        if forced is not None:
-            stay = stay | forced
+        with span("decode"):
+            retained = torch.minimum(y_real, R_real)  # residents kept
+            rem = y_real - retained  # grants for movers
+            # per-cell resident ranks (row order) via one stable sort
+            order = torch.sort(cell, stable=True).indices
+            counts = _count(cell, Gn * M + 1)
+            starts = torch.cumsum(counts, 0, dtype=_I32) - counts
+            rank_sorted = torch.arange(Tcap, dtype=_I32, device=dev) - starts[cell[order]]
+            rank_cell = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+            ret_flat = torch.cat([retained.reshape(-1), torch.zeros(1, dtype=_I32, device=dev)])
+            stay = in_scope & (rank_cell < ret_flat[cell])
+            if forced is not None:
+                stay = stay | forced
 
-        # movers: every live task not staying; their grants fill the
-        # slots left after stays
-        mover = live & ~stay
-        pu_stay = _count(torch.where(stay, cur_pu, num_pus), num_pus)
-        pu_free_mv = torch.where(enabled_pu, S - pu_stay, 0)
-        if decode_width is None:
-            g_mv = torch.where(mover, g_t, Gn)
-            granted, pu_abs = self.rank_match_decode(g_mv, rem, pu_free_mv)
-            new_pu = torch.where(stay, state.pu, torch.where(granted, pu_abs, -1))
-            granted_full = granted & mover
-        else:
-            _n_mv, idx, valid = self._window(mover, int(decode_width), window_offset)
-            g_mv_w = torch.where(valid, g_t[idx.clamp(0, Tcap - 1)], Gn)
-            granted_w, pu_abs_w = self.rank_match_decode(g_mv_w, rem, pu_free_mv)
-            tgt = torch.where(granted_w, idx, Tcap).long()  # kschedlint: index-only (gather index)
-            base_pu = torch.where(stay, state.pu, -1)
-            new_pu = torch.cat([base_pu, base_pu[:1]]).scatter_(0, tgt, pu_abs_w)[:Tcap]
-            granted_full = torch.zeros(Tcap + 1, dtype=torch.bool, device=dev).scatter_(
-                0, tgt, True)[:Tcap]
-        final_on = live & (new_pu >= 0)
-        pu_running = _count(torch.where(final_on, new_pu, num_pus), num_pus)
+            # movers: every live task not staying; their grants fill the
+            # slots left after stays
+            mover = live & ~stay
+            pu_stay = _count(torch.where(stay, cur_pu, num_pus), num_pus)
+            pu_free_mv = torch.where(enabled_pu, S - pu_stay, 0)
+            if decode_width is None:
+                g_mv = torch.where(mover, g_t, Gn)
+                granted, pu_abs = self.rank_match_decode(g_mv, rem, pu_free_mv)
+                new_pu = torch.where(stay, state.pu, torch.where(granted, pu_abs, -1))
+                granted_full = granted & mover
+            else:
+                _n_mv, idx, valid = self._window(mover, int(decode_width), window_offset)
+                g_mv_w = torch.where(valid, g_t[idx.clamp(0, Tcap - 1)], Gn)
+                granted_w, pu_abs_w = self.rank_match_decode(g_mv_w, rem, pu_free_mv)
+                tgt = torch.where(granted_w, idx, Tcap).long()  # kschedlint: index-only (gather index)
+                base_pu = torch.where(stay, state.pu, -1)
+                new_pu = torch.cat([base_pu, base_pu[:1]]).scatter_(0, tgt, pu_abs_w)[:Tcap]
+                granted_full = torch.zeros(Tcap + 1, dtype=torch.bool, device=dev).scatter_(
+                    0, tgt, True)[:Tcap]
+            final_on = live & (new_pu >= 0)
+            pu_running = _count(torch.where(final_on, new_pu, num_pus), num_pus)
 
-        # objective: placements at the effective route cost, retained
-        # residents rebated by the discount, escapes at the row's cost
-        objective = (
-            (cost_eff * y_real).sum(dtype=_I32)
-            - discount * retained.sum(dtype=_I32)
-            + (self._escape_costs()
-               * (supply - y_real.sum(dim=1, dtype=_I32))).sum(dtype=_I32)
-        )
-        if forced is not None:
-            # forced stays pay their discounted cost, so scoped and
-            # global objectives price the same pool
-            F_gm = _count(torch.where(forced, g_t * M + cur_m, Gn * M), Gn * M).view(Gn, M)
-            objective = (objective + (cost_eff * F_gm).sum(dtype=_I32)
-                         - discount * F_gm.sum(dtype=_I32))
-        stats = {
-            "placed": (granted_full & ~placed).sum(dtype=_I32),
-            "migrated": (granted_full & placed).sum(dtype=_I32),
-            "preempted": (placed & ~stay & ~granted_full).sum(dtype=_I32),
-            "unscheduled": total - y_real.sum(dtype=_I32),
-            "converged": converged,
-            "cost_overflow": cost_overflow,
-            "objective": objective,
-            "live": live.sum(dtype=_I32),
-            "supersteps": solve_steps,
-        }
+            # objective: placements at the effective route cost, retained
+            # residents rebated by the discount, escapes at the row's cost
+            objective = (
+                (cost_eff * y_real).sum(dtype=_I32)
+                - discount * retained.sum(dtype=_I32)
+                + (self._escape_costs()
+                   * (supply - y_real.sum(dim=1, dtype=_I32))).sum(dtype=_I32)
+            )
+            if forced is not None:
+                # forced stays pay their discounted cost, so scoped and
+                # global objectives price the same pool
+                F_gm = _count(torch.where(forced, g_t * M + cur_m, Gn * M), Gn * M).view(Gn, M)
+                objective = (objective + (cost_eff * F_gm).sum(dtype=_I32)
+                             - discount * F_gm.sum(dtype=_I32))
+            stats = {
+                "placed": (granted_full & ~placed).sum(dtype=_I32),
+                "migrated": (granted_full & placed).sum(dtype=_I32),
+                "preempted": (placed & ~stay & ~granted_full).sum(dtype=_I32),
+                "unscheduled": total - y_real.sum(dtype=_I32),
+                "converged": converged,
+                "cost_overflow": cost_overflow,
+                "objective": objective,
+                "live": live.sum(dtype=_I32),
+                "supersteps": solve_steps,
+            }
         return state._replace(pu=new_pu, pu_running=pu_running), stats
 
     def realized_cluster_cost(self, state: DeviceClusterState):
@@ -916,6 +941,7 @@ class DeviceBulkCluster:
                 # a budget-exhausted incremental attempt is discarded and
                 # the round re-runs as a scoped re-solve from the same
                 # state; its supersteps stay in the round's count
+                self.solve_counters.discard()
                 incr_steps = stats["supersteps"]
                 state2, census2, stats = scoped()
                 stats["supersteps"] = stats["supersteps"] + incr_steps
@@ -1011,21 +1037,24 @@ class DeviceBulkCluster:
         group arrival_map[draw_a[t]] and that group's class and job. The
         draws are tensors (draw_steady, utils/threefry.py). Updates the
         cluster and returns the round's stats as device tensors."""
-        state = self.state
-        placed = state.live & (state.pu >= 0)
-        done = placed & (done_u < torch.full((), churn_prob, dtype=torch.float32,
-                                             device=self.device))
-        state = self._retire(state, done)
-        if self.grouped:
-            new_grp = self._arrival_map[draw_a.long()]  # kschedlint: index-only (gather index)
-            state, admitted = self._occupy(
-                state, arrivals, self.groups.cls[new_grp.long()],  # kschedlint: index-only (gather index)
-                self.groups.job[new_grp.long()], new_grp)  # kschedlint: index-only (gather index)
-        else:
-            state, admitted = self._occupy(state, arrivals, draw_a, draw_b)
-        self.state, stats = self._bounded_round(state, window_offset)
-        stats["completed"] = done.sum(dtype=_I32)
-        stats["admitted"] = admitted
+        with span("round", path="steady"):
+            with span("intake"):
+                state = self.state
+                placed = state.live & (state.pu >= 0)
+                done = placed & (done_u < torch.full((), churn_prob, dtype=torch.float32,
+                                                     device=self.device))
+                state = self._retire(state, done)
+                if self.grouped:
+                    new_grp = self._arrival_map[draw_a.long()]  # kschedlint: index-only (gather index)
+                    state, admitted = self._occupy(
+                        state, arrivals, self.groups.cls[new_grp.long()],  # kschedlint: index-only (gather index)
+                        self.groups.job[new_grp.long()], new_grp)  # kschedlint: index-only (gather index)
+                else:
+                    state, admitted = self._occupy(state, arrivals, draw_a, draw_b)
+            self.state, stats = self._bounded_round(state, window_offset)
+            stats["completed"] = done.sum(dtype=_I32)
+            stats["admitted"] = admitted
+            self.solve_counters.settle()
         return stats
 
     def _bounded_round(self, state: DeviceClusterState, window_offset):
@@ -1054,34 +1083,37 @@ class DeviceBulkCluster:
         device tensors, with `evicted`, `completed` and `admitted`."""
         M, P, Tcap, num_pus = self.M, self.P, self.Tcap, self.num_pus
         dev = self.device
-        state = self.state
-        # toggles: invalid slots scatter into a pad slot, cut off after
-        valid_t = torch.arange(tog_idx.shape[0], dtype=_I32, device=dev) < tog_n
-        idx_t = torch.where(valid_t, tog_idx, M).long()  # kschedlint: index-only (gather index)
-        me = torch.cat([state.machine_enabled, state.machine_enabled[:1]]).scatter_(
-            0, idx_t, tog_on)[:M]
-        on = state.live & (state.pu >= 0)
-        evict = on & ~me[(state.pu.clamp(0, num_pus - 1) // P).long()]  # kschedlint: index-only (gather index)
-        pu = torch.where(evict, -1, state.pu)
-        on = state.live & (pu >= 0)
-        state = state._replace(machine_enabled=me, pu=pu,
-                               pu_running=_count(torch.where(on, pu, num_pus), num_pus))
-        # completions
-        valid_d = torch.arange(done_rows.shape[0], dtype=_I32, device=dev) < done_n
-        idx_d = torch.where(valid_d, done_rows, Tcap).long()  # kschedlint: index-only (gather index)
-        done = torch.zeros(Tcap + 1, dtype=torch.bool, device=dev).index_fill_(
-            0, idx_d, True)[:Tcap] & state.live
-        state = self._retire(state, done)
-        # admissions: row t takes source entry (its rank among the free
-        # rows), clipped to the [Amax] sources
-        free_rank = torch.cumsum(~state.live, 0, dtype=_I32) - 1
-        src = free_rank.clamp(0, adm_job.shape[0] - 1).long()  # kschedlint: index-only (gather index)
-        state, admitted = self._occupy(state, adm_n, adm_cls[src], adm_job[src],
-                                       adm_grp[src])
-        self.state, stats = self._bounded_round(state, window_offset)
-        stats["evicted"] = evict.sum(dtype=_I32)
-        stats["admitted"] = admitted
-        stats["completed"] = done.sum(dtype=_I32)
+        with span("round", path="replay"):
+            with span("intake"):
+                state = self.state
+                # toggles: invalid slots scatter into a pad slot, cut off after
+                valid_t = torch.arange(tog_idx.shape[0], dtype=_I32, device=dev) < tog_n
+                idx_t = torch.where(valid_t, tog_idx, M).long()  # kschedlint: index-only (gather index)
+                me = torch.cat([state.machine_enabled, state.machine_enabled[:1]]).scatter_(
+                    0, idx_t, tog_on)[:M]
+                on = state.live & (state.pu >= 0)
+                evict = on & ~me[(state.pu.clamp(0, num_pus - 1) // P).long()]  # kschedlint: index-only (gather index)
+                pu = torch.where(evict, -1, state.pu)
+                on = state.live & (pu >= 0)
+                state = state._replace(machine_enabled=me, pu=pu,
+                                       pu_running=_count(torch.where(on, pu, num_pus), num_pus))
+                # completions
+                valid_d = torch.arange(done_rows.shape[0], dtype=_I32, device=dev) < done_n
+                idx_d = torch.where(valid_d, done_rows, Tcap).long()  # kschedlint: index-only (gather index)
+                done = torch.zeros(Tcap + 1, dtype=torch.bool, device=dev).index_fill_(
+                    0, idx_d, True)[:Tcap] & state.live
+                state = self._retire(state, done)
+                # admissions: row t takes source entry (its rank among the free
+                # rows), clipped to the [Amax] sources
+                free_rank = torch.cumsum(~state.live, 0, dtype=_I32) - 1
+                src = free_rank.clamp(0, adm_job.shape[0] - 1).long()  # kschedlint: index-only (gather index)
+                state, admitted = self._occupy(state, adm_n, adm_cls[src], adm_job[src],
+                                               adm_grp[src])
+            self.state, stats = self._bounded_round(state, window_offset)
+            stats["evicted"] = evict.sum(dtype=_I32)
+            stats["admitted"] = admitted
+            stats["completed"] = done.sum(dtype=_I32)
+            self.solve_counters.settle()
         return stats
 
     # ------------------------------------------------------------------
@@ -1199,7 +1231,8 @@ class DeviceBulkCluster:
             raise ValueError("gids must be non-empty, within [0, G)")
         if g.size > self.G:
             raise ValueError("more arrival gids than groups")
-        self._arrival_map = torch.as_tensor(np.resize(g, self.G), device=self.device)
+        with span("group_table", op="set_arrival_groups"):
+            self._arrival_map = torch.as_tensor(np.resize(g, self.G), device=self.device)
         self._arrival_n = int(g.size)
 
     def complete_tasks(self, rows) -> None:
@@ -1218,11 +1251,13 @@ class DeviceBulkCluster:
         device stats (call fetch_stats() to materialize them). In
         stability-aware preemption mode this one-shot round is always a
         full tiered re-solve and resets the hybrid carry."""
-        self.state, stats = self._round(self.state)
-        if self.hybrid_preempt:
-            self._hyb_census = self.census_of(self.state)
-            self._hyb_k = 0
-            self._hyb_kg = 0
+        with span("round", path="one-shot"):
+            self.state, stats = self._round(self.state)
+            if self.hybrid_preempt:
+                self._hyb_census = self.census_of(self.state)
+                self._hyb_k = 0
+                self._hyb_kg = 0
+            self.solve_counters.settle()
         self.last_stats = stats
         return stats
 
@@ -1292,7 +1327,10 @@ class DeviceBulkCluster:
         return out
 
     def fetch_state(self) -> dict:
-        return {k: v.cpu().numpy() for k, v in self.state._asdict().items()}
+        """The state's arrays on the host (a `fetch_state` span: the
+        Quincy table's upkeep starts with it)."""
+        with span("fetch_state"):
+            return {k: v.cpu().numpy() for k, v in self.state._asdict().items()}
 
     @property
     def num_live_tasks(self) -> int:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..analysis.marks import loop_mark
+from ..obs.spans import span
 from ..ops.build import KernelError
 
 #: sentinel magnitudes; the CUDA kernel (ops/csrc/transport.cu) uses
@@ -731,9 +732,10 @@ def read_flag(flag) -> bool:
     flag: read to decide the full-range retry, or by a round that
     branches on a flag the host does not know yet (the incremental
     tier's escalation, the grouped stage 1). Counted in
-    `read_flag.count`."""
+    `read_flag.count`; a `read` span while a tracer is installed."""
     read_flag.count += 1
-    return bool(flag)
+    with span("read", kind="flag"):
+        return bool(flag)
 
 
 #: host reads since the count was last set to 0
@@ -746,7 +748,9 @@ def read_branch(values) -> list:
     decisions that the reference takes with lax.cond on device values.
     Counted in `read_branch.count`."""
     read_branch.count += 1
-    return [int(v) for v in values.tolist()]
+    with span("read", kind="branch"):
+        got = values.tolist()
+    return [int(v) for v in got]
 
 
 #: branch reads since the count was last set to 0
@@ -770,32 +774,49 @@ def _true(device):
     return torch.ones((), dtype=torch.bool, device=device)
 
 
+def _attempt(run, eps_init, budget: int, site: str, rows: int, log):
+    """One bounded attempt, spanned, and opened in `log` (a
+    DeviceSolveCounters, or None)."""
+    with span("attempt", site=site, budget=budget, rows=rows):
+        out = run(eps_init, budget)
+    if log is not None:
+        log.attempt(site, budget)
+    return out
+
+
 def _attempts(run, eps0, eps_full, num_supersteps: int, eps0_budget,
-              eps0_retry: bool, device):
+              eps0_retry: bool, device, rows: int, site=None, log=None):
     """The bounded attempts of transport_fori(_tiered): from eps0 under
     min(eps0_budget, num_supersteps) supersteps, then (eps0_retry) one
     full-range retry under num_supersteps when the first did not
     converge — the first attempt's flag is the one host read, which
     decides it. Returns (y, pm, steps, converged, known): known is True
     when that read found the first attempt converged, else None (the
-    flag is on the device only)."""
+    flag is on the device only). The first attempt is `site`'s ("eps0"
+    from a short start, "full" from the full range, by default); `log`
+    counts it discarded when the retry replaces it, and leaves the last
+    attempt open for the caller."""
+    first = site or ("full" if eps0 is None else "eps0")
     if eps0 is None:
-        return run(eps_full, num_supersteps) + (None,)
+        return _attempt(run, eps_full, num_supersteps, first, rows, log) + (None,)
     budget = min(eps0_budget or num_supersteps, num_supersteps)
-    y1, pm1, s1, conv1 = run(torch.as_tensor(eps0, dtype=_I32, device=device), budget)
+    y1, pm1, s1, conv1 = _attempt(run, torch.as_tensor(eps0, dtype=_I32, device=device),
+                                  budget, first, rows, log)
     if not eps0_retry:
         # the caller owns the fallback: the bounded attempt as it is
         return y1, pm1, s1, conv1, None
     if read_flag(conv1):
         return y1, pm1, s1, conv1, True
-    y2, pm2, s2, conv2 = run(eps_full, num_supersteps)
+    if log is not None:
+        log.discard()
+    y2, pm2, s2, conv2 = _attempt(run, eps_full, num_supersteps, "retry", rows, log)
     return y2, pm2, s1 + s2, conv2, None
 
 
 def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,  # kschedlint: program=layered_solve
                    eps0=None, class_degenerate: bool = False,
                    refine_waves: int = 0, eps0_budget: Optional[int] = None,
-                   eps0_retry: bool = True):
+                   eps0_retry: bool = True, site: Optional[str] = None, log=None):
     """Bounded transport solve for the device round.
 
     C == 1: the exact closed form (solve_single_class). A class-
@@ -810,7 +831,9 @@ def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,  # 
     (read_flag). Returns (y, pm, steps, converged) as tensors, pm and
     steps zero on the closed forms, and what the host knows of the
     flag: True on the closed forms and after a converged first attempt,
-    else None (converged_on_host reads it where a round needs it)."""
+    else None (converged_on_host reads it where a round needs it).
+    `site` names the first attempt and `log` (a DeviceSolveCounters)
+    counts the attempts (see _attempts)."""
     C, _Mp1 = wS.shape
     zero, true = _scalar(0, col_cap), _true(wS.device)
     if C == 1:
@@ -831,17 +854,17 @@ def transport_fori(wS, supply, col_cap, num_supersteps: int, alpha: int = 8,  # 
 
     eps_full = wS.abs().amax().clamp(min=1)
     return _attempts(run, eps0, eps_full, num_supersteps, eps0_budget,
-                     eps0_retry, wS.device)
+                     eps0_retry, wS.device, C, site, log)
 
 
 def transport_fori_tiered(wLo, wHi, R, supply, col_cap, num_supersteps: int,  # kschedlint: program=layered_solve
-                          alpha: int = 8, eps0=None, refine_waves: int = 0):
+                          alpha: int = 8, eps0=None, refine_waves: int = 0, log=None):
     """Bounded tiered transport solve — the preemption-on twin of
     transport_fori: the exact closed form for a single row, else
     ops.transport_solve_tiered (the tiered kernel on the card, its plain
     version on the CPU) from eps0 with one full-range retry decided by
     one host read. Returns (y, pm, steps, converged, known) as
-    transport_fori does."""
+    transport_fori does; `log` as there."""
     C, _Mp1 = wLo.shape
     if C == 1:
         R1 = torch.minimum(R, torch.minimum(supply[:, None], col_cap[None, :]))
@@ -858,7 +881,8 @@ def transport_fori_tiered(wLo, wHi, R, supply, col_cap, num_supersteps: int,  # 
         )
 
     eps_full = wHi.abs().amax().clamp(min=1)
-    return _attempts(run, eps0, eps_full, num_supersteps, None, True, wLo.device)
+    return _attempts(run, eps0, eps_full, num_supersteps, None, True, wLo.device,
+                     C, log=log)
 
 
 def solve_layered_host(lp: LayeredProblem, *, pad, solve,

@@ -21,6 +21,13 @@ from ksched_tpu_torch.tools import obs_report as trep
 from ksched_tpu_torch.tools import profile_round
 
 SMALL = dict(M=20, P=2, S=2, J=4, T=60, Tcap=128)
+#: the tool's own spans; the device rounds' spans nest under them
+TOOL_SPANS = ("setup", "fill_round", "launch_chain_warmup", "launch_chain",
+              "sync_round_trip", "steady_warmup", "steady_chunk")
+
+
+def _tool_events(events):
+    return [ev for ev in events if ev["name"] in TOOL_SPANS]
 
 
 @pytest.fixture(scope="module")
@@ -33,10 +40,19 @@ def session():
 
 def test_every_measurement_is_a_span(session):
     out, lines = session
-    names = Counter(ev["name"] for ev in out["tracer"].events())
+    events = out["tracer"].events()
+    names = Counter(ev["name"] for ev in _tool_events(events))
     assert names == {"setup": 1, "fill_round": 1, "launch_chain_warmup": 1,
                      "launch_chain": 3, "sync_round_trip": 3, "steady_warmup": 1,
                      "steady_chunk": 3}
+    # every other span is the program's, inside one of the tool's
+    by_sid = {ev["args"]["sid"]: ev for ev in events}
+    for ev in events:
+        if ev["name"] not in TOOL_SPANS:
+            root = ev
+            while "parent_sid" in root["args"]:
+                root = by_sid[root["args"]["parent_sid"]]
+            assert root["name"] in TOOL_SPANS, ev["name"]
     chunks = [ev for ev in out["tracer"].events() if ev["name"] == "steady_chunk"]
     assert [ev["args"]["rounds"] for ev in chunks] == [8, 8, 8]
     assert out["converged"] is True
@@ -57,7 +73,7 @@ def test_trace_file_renders_alike(session, tmp_path):
     out["tracer"].dump(str(path))
     with open(path) as f:
         doc = json.load(f)
-    assert len([e for e in doc["traceEvents"] if e.get("ph") == "X"]) == 13
+    assert len(_tool_events(e for e in doc["traceEvents"] if e.get("ph") == "X")) == 13
 
     def render(fn):
         buf = io.StringIO()
